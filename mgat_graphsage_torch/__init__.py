@@ -1,0 +1,18 @@
+"""M-GAT-GraphSAGE on PyTorch and CUDA (Hopper, sm_90a).
+
+The port of ``mgat_graphsage_tpu`` (the JAX reference, which it does not
+import).  This slice covers the flagship serving path: SMILES ->
+featurisation and ECFP-1024 on the host -> dense adjacency
+(``csrc/adjacency.cu``) -> ModifiedGAT with fused masked attention
+(``csrc/attention.cu``) -> SAGEConv -> masked max pool, beside the
+fingerprint CNN -> fusion head -> pChEMBL.
+
+    from mgat_graphsage_torch.eval import Predictor
+    Predictor("ckpt.pt")(["CCO"])            # on CUDA
+    Predictor("ckpt.pt", device="cpu")(...)  # plain PyTorch on the CPU
+
+Importing the package builds no kernel; each kernel is compiled with
+``nvcc`` at its first launch (``ops/_build.py``).
+"""
+
+__version__ = "0.1.0"

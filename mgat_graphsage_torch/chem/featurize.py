@@ -1,0 +1,117 @@
+"""Atom featurizers and graph builders (copy of
+``mgat_graphsage_tpu/chem/featurize.py``).
+
+- the 35-dim one-hot atom featurizer + graph builder of reference
+  ``train.py:19-55``;
+- the 5-dim "raw" featurizer of the GCN baseline (``gnn/gcn.py:14-40``).
+
+Output is the unpadded ``(features [N, F], edge_index [2, 2E])`` pair;
+``data/dataset.py`` pads it to the dataset's ``(max_nodes, max_edges)``
+budget.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from .smiles import Mol, parse_smiles
+
+__all__ = [
+    "ATOM_SYMBOLS",
+    "DEGREES",
+    "IMPLICIT_VALENCES",
+    "HYBRIDIZATIONS",
+    "TOTAL_HS",
+    "NUM_ATOM_FEATURES",
+    "NUM_RAW_FEATURES",
+    "one_of_k_encoding_unk",
+    "atom_features_35",
+    "atom_features_5",
+    "mol_to_graph",
+    "smiles_to_graph",
+]
+
+# Vocabularies — byte-for-byte the lists from reference train.py:34-42.
+ATOM_SYMBOLS = ["C", "N", "O", "S", "F", "P", "Cl", "Br", "I", "Unknown"]
+DEGREES = [0, 1, 2, 3, 4, 5, 6]
+IMPLICIT_VALENCES = [0, 1, 2, 3, 4, 5, 6]
+HYBRIDIZATIONS = ["SP", "SP2", "SP3", "SP3D", "SP3D2"]
+TOTAL_HS = [0, 1, 2, 3, 4]
+
+NUM_ATOM_FEATURES = (
+    len(ATOM_SYMBOLS) + len(DEGREES) + len(IMPLICIT_VALENCES)
+    + len(HYBRIDIZATIONS) + 1 + len(TOTAL_HS)
+)  # = 35
+NUM_RAW_FEATURES = 5
+
+
+def one_of_k_encoding_unk(x, valid_entries: Sequence) -> List[int]:
+    """One-hot with out-of-vocabulary mapped to ``'Unknown'``.
+
+    When ``'Unknown'`` is not in ``valid_entries`` (degree / valence /
+    hybridization / H-count), an out-of-vocabulary value yields an
+    all-zero vector, as in reference ``train.py:19-22``.
+    """
+    if x not in valid_entries:
+        x = "Unknown"
+    return [1 if entry == x else 0 for entry in valid_entries]
+
+
+def atom_features_35(mol: Mol) -> np.ndarray:
+    """[N, 35] float32 feature matrix (reference ``train.py:33-44``)."""
+    feats = np.zeros((mol.GetNumAtoms(), NUM_ATOM_FEATURES), dtype=np.float32)
+    for i, atom in enumerate(mol.GetAtoms()):
+        row = (
+            one_of_k_encoding_unk(atom.GetSymbol(), ATOM_SYMBOLS)
+            + one_of_k_encoding_unk(atom.GetDegree(), DEGREES)
+            + one_of_k_encoding_unk(atom.GetImplicitValence(), IMPLICIT_VALENCES)
+            + one_of_k_encoding_unk(atom.GetHybridization(), HYBRIDIZATIONS)
+            + [1 if atom.GetIsAromatic() else 0]
+            + one_of_k_encoding_unk(atom.GetTotalNumHs(), TOTAL_HS)
+        )
+        feats[i] = row
+    return feats
+
+
+def atom_features_5(mol: Mol) -> np.ndarray:
+    """[N, 5] raw features (``gnn/gcn.py:21-29``): atomic number, degree,
+    implicit valence, formal charge, aromatic flag."""
+    feats = np.zeros((mol.GetNumAtoms(), NUM_RAW_FEATURES), dtype=np.float32)
+    for i, atom in enumerate(mol.GetAtoms()):
+        feats[i] = (
+            atom.GetAtomicNum(),
+            atom.GetDegree(),
+            atom.GetImplicitValence(),
+            atom.GetFormalCharge(),
+            1.0 if atom.GetIsAromatic() else 0.0,
+        )
+    return feats
+
+
+def mol_to_graph(mol: Mol, featurizer: str = "35") -> Tuple[np.ndarray, np.ndarray]:
+    """(atom_features [N, F], edge_index [2, 2E]) — COO with both directions.
+
+    Edges are sorted by (src, dst), the row-major order of the reference's
+    ``adj.nonzero().t()`` (reference ``train.py:46-55``).
+    """
+    feats = atom_features_35(mol) if featurizer == "35" else atom_features_5(mol)
+    n = mol.GetNumAtoms()
+    pairs = set()
+    for b in mol.GetBonds():
+        pairs.add((b.a1, b.a2))
+        pairs.add((b.a2, b.a1))
+    if pairs:
+        edge_index = np.array(sorted(pairs), dtype=np.int32).T
+    else:
+        edge_index = np.zeros((2, 0), dtype=np.int32)
+    assert edge_index.shape[1] <= n * n
+    return feats, edge_index
+
+
+def smiles_to_graph(smiles: str, featurizer: str = "35") -> Tuple[np.ndarray, np.ndarray]:
+    """Parse + featurize; raises ``ValueError`` on bad SMILES
+    (reference ``train.py:25-28`` skip semantics)."""
+    mol = parse_smiles(smiles)  # raises SmilesParseError (a ValueError)
+    return mol_to_graph(mol, featurizer=featurizer)

@@ -1,0 +1,24 @@
+"""Flagship layers, the hybrid model, and the flax-tree converter."""
+
+from .convert import params_from_jax, params_to_jax
+from .layers import (
+    CNNNet,
+    CenterTapConv1d,
+    CombinedNet,
+    ModifiedGATLayer,
+    SAGEConv,
+    TorchConv1d,
+    TorchLinear,
+    cnn_fc1_pos_major_to_torch,
+    cnn_fc1_torch_to_pos_major,
+    reset_parameters,
+)
+from .zoo import GATGraphSAGE, HybridModel, build_model, kl_loss
+
+__all__ = [
+    "build_model",
+    "TorchLinear", "TorchConv1d", "CenterTapConv1d", "ModifiedGATLayer",
+    "SAGEConv", "CNNNet", "CombinedNet", "cnn_fc1_torch_to_pos_major",
+    "cnn_fc1_pos_major_to_torch", "reset_parameters", "GATGraphSAGE",
+    "HybridModel", "kl_loss", "params_from_jax", "params_to_jax",
+]

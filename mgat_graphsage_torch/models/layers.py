@@ -1,0 +1,274 @@
+"""Layers of the flagship hybrid (port of
+``mgat_graphsage_tpu/models/layers.py``).
+
+Every layer works on the padded-dense batch layout: node features
+``x [B, N, F]``, dense adjacency ``adj [B, N, N]`` and ``node_mask
+[B, N]``.  Weights follow PyTorch's layout (``Linear.weight [out, in]``,
+``Conv1d.weight [out, in, k]``); ``models/convert.py`` carries the
+reference package's flax trees over.  Initialisation is PyTorch's default,
+U(+-1/sqrt(fan_in)), drawn from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import attention_plain, fused_masked_attention_cuda
+
+__all__ = [
+    "TorchLinear",
+    "TorchConv1d",
+    "CenterTapConv1d",
+    "ModifiedGATLayer",
+    "SAGEConv",
+    "CNNNet",
+    "CombinedNet",
+    "cnn_fc1_torch_to_pos_major",
+    "cnn_fc1_pos_major_to_torch",
+    "reset_parameters",
+]
+
+
+def cnn_fc1_torch_to_pos_major(kernel, channels: int = 128):
+    """Reorder a channel-major CNN fc1 kernel ``[C*W, H]`` (torch's
+    ``x.view(B, -1)`` on ``[B, C, W]``: row ``c*W + w``) into pos-major
+    rows (``w*C + c``), the layout :class:`CNNNet` flattens to.  Works on
+    numpy arrays and tensors."""
+    cw, h = kernel.shape
+    return _swap01(kernel.reshape(channels, cw // channels, h)).reshape(cw, h)
+
+
+def cnn_fc1_pos_major_to_torch(kernel, channels: int = 128):
+    """Inverse of :func:`cnn_fc1_torch_to_pos_major`."""
+    cw, h = kernel.shape
+    return _swap01(kernel.reshape(cw // channels, channels, h)).reshape(cw, h)
+
+
+def _swap01(a):
+    return a.permute(1, 0, 2) if isinstance(a, torch.Tensor) \
+        else a.transpose(1, 0, 2)
+
+
+def _uniform_(t: torch.Tensor, bound: float,
+              generator: Optional[torch.Generator]) -> None:
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=generator)
+
+
+class TorchLinear(nn.Module):
+    """``nn.Linear`` with torch's default init; ``weight [out, in]``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        _uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class TorchConv1d(nn.Module):
+    """``nn.Conv1d`` (stride 1, SAME padding, odd k) on NCW input, with
+    torch's default init; ``weight [out, in, k]``."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        bound = 1.0 / math.sqrt(self.weight.shape[1] * self.weight.shape[2])
+        _uniform_(self.weight, bound, generator)
+        _uniform_(self.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(x, self.weight, self.bias,
+                        padding=self.weight.shape[2] // 2)
+
+
+class CenterTapConv1d(nn.Module):
+    """The reference's Conv1d over a length-1 axis (``train.py:83-93``):
+    only the center tap ever touches data, so the layer is a linear map
+    with ``weight[:, :, k // 2]``.  The full ``[out, in, k]`` parameter is
+    kept, with init over fan_in = in*k."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 kernel_size: int):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.weight = nn.Parameter(
+            torch.empty(out_features, in_features, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        bound = 1.0 / math.sqrt(self.weight.shape[1] * self.kernel_size)
+        _uniform_(self.weight, bound, generator)
+        _uniform_(self.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight[:, :, self.kernel_size // 2],
+                        self.bias)
+
+
+class ModifiedGATLayer(nn.Module):
+    """The "M-GAT" dense QKV attention layer (reference ``train.py:77-99``).
+
+    Q, K, V = three Linear(F->F); K goes through the center-tap convs
+    k=3 and k=5; ``K_new = Linear(3F->F)(cat[K3, K5, K])``;
+    ``scores[i, j] = K_new[i] . Q[j] / sqrt(F)`` (transposed roles);
+    ``out = softmax_j(scores) @ V (+ V when residual)``.
+
+    ``flat=False`` (the default) attends within each molecule under
+    ``node_mask``; on CUDA that is the ``csrc/attention.cu`` kernel (via
+    :func:`fused_masked_attention_cuda`, which takes N <= 128, F <= 128).
+    ``flat=True`` attends over the whole batch as one node set
+    (reference numerics) and always takes the plain path: the kernel keeps
+    one molecule's N x N scores on chip, which a batch-wide set does not
+    fit.
+    """
+
+    def __init__(self, in_features: int, features: int,
+                 residual: bool = True, flat: bool = False):
+        super().__init__()
+        self.features = features
+        self.residual = residual
+        self.flat = flat
+        self.query_transform = TorchLinear(in_features, features)
+        self.key_transform = TorchLinear(in_features, features)
+        self.value_transform = TorchLinear(in_features, features)
+        self.conv3 = CenterTapConv1d(features, features, 3)
+        self.conv5 = CenterTapConv1d(features, features, 5)
+        self.linear_transform = TorchLinear(3 * features, features)
+
+    def forward(self, x: torch.Tensor,
+                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        orig_shape = x.shape
+        if self.flat and x.dim() == 3:
+            x = x.reshape(1, -1, x.shape[-1])
+            node_mask = None if node_mask is None else node_mask.reshape(1, -1)
+        in_dtype = x.dtype
+        q = self.query_transform(x)
+        k = self.key_transform(x)
+        v = self.value_transform(x)
+        k_new = self.linear_transform(
+            torch.cat([self.conv3(k), self.conv5(k), k], dim=-1))
+        # attention internals run in f32 whatever the compute dtype
+        q, k_new, v = (t.float() for t in (q, k_new, v))
+        if node_mask is not None:
+            node_mask = node_mask.float()
+        if not self.flat and node_mask is not None and x.dim() == 3:
+            out = fused_masked_attention_cuda(
+                q.contiguous(), k_new.contiguous(), v.contiguous(),
+                node_mask.contiguous(), self.residual)
+        else:
+            out = attention_plain(q, k_new, v, node_mask, self.residual)
+        out = out.to(in_dtype)
+        if self.flat and len(orig_shape) == 3:
+            out = out.reshape(orig_shape[:-1] + (self.features,))
+        return out
+
+
+class SAGEConv(nn.Module):
+    """GraphSAGE mean aggregation, PyG semantics (reference
+    ``train.py:106,117``): ``lin_l(mean_{j in N(i)} x_j) + lin_r(x_i)``,
+    bias on ``lin_l`` only, no self-loops; dense form ``adj @ x / deg``."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.lin_l = TorchLinear(in_features, features)
+        self.lin_r = TorchLinear(in_features, features, bias=False)
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor,
+                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        deg = adj.sum(-1, keepdim=True)
+        agg = torch.matmul(adj, x) / torch.clamp_min(deg, 1.0).to(x.dtype)
+        return self.lin_l(agg) + self.lin_r(x)
+
+
+@contextlib.contextmanager
+def _ieee_f32_convs(x: torch.Tensor):
+    """Turn cuDNN's TF32 convolutions off for an f32 CUDA forward and
+    restore the setting after: TF32 keeps ~3 decimal digits, and the f32
+    presets are the reference-numerics mode."""
+    if not (x.is_cuda and x.dtype == torch.float32):
+        yield
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class CNNNet(nn.Module):
+    """Fingerprint 1D-CNN branch (reference ``train.py:127-146``):
+    Conv1d 1->32->64->128 (k=3, SAME, ReLU) over the bit axis, flatten,
+    FC(128*nbits -> fc_hidden) -> ReLU -> dropout -> FC(-> out).
+
+    The flatten is POS-major (``[B, W, C] -> [B, W*C]``, column ``w*128 +
+    c``), like the reference package's ``CNNNet``, so ``fc1.weight`` is the
+    flax kernel transposed with no permutation.
+    """
+
+    def __init__(self, input_dim: int, output_dim: int, fc_hidden: int = 256,
+                 dropout: float = 0.3):
+        super().__init__()
+        self.conv1 = TorchConv1d(1, 32)
+        self.conv2 = TorchConv1d(32, 64)
+        self.conv3 = TorchConv1d(64, 128)
+        self.fc1 = TorchLinear(input_dim * 128, fc_hidden)
+        self.dropout = nn.Dropout(dropout)
+        self.fc2 = TorchLinear(fc_hidden, output_dim)
+
+    def forward(self, fp: torch.Tensor) -> torch.Tensor:
+        x = fp.unsqueeze(1)                          # [B, 1, W]
+        with _ieee_f32_convs(x):
+            for conv in (self.conv1, self.conv2, self.conv3):
+                x = F.relu(conv(x))                  # [B, C, W]
+        x = x.transpose(1, 2).reshape(x.shape[0], -1)   # pos-major
+        x = self.dropout(F.relu(self.fc1(x)))
+        return self.fc2(x)
+
+
+class CombinedNet(nn.Module):
+    """Fusion head (reference ``train.py:149-160``): FC -> ReLU ->
+    dropout(0.3) -> FC."""
+
+    def __init__(self, in_features: int, hidden_dim: int,
+                 output_dim: int = 1, dropout: float = 0.3):
+        super().__init__()
+        self.fc1 = TorchLinear(in_features, hidden_dim)
+        self.dropout = nn.Dropout(dropout)
+        self.fc2 = TorchLinear(hidden_dim, output_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.dropout(F.relu(self.fc1(x))))
+
+
+def reset_parameters(model: nn.Module,
+                     generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Re-draw every parameter of ``model`` from ``generator``, in module
+    order (the seed fixes the weights)."""
+    for m in model.modules():
+        if isinstance(m, (TorchLinear, TorchConv1d, CenterTapConv1d)):
+            m.reset_parameters(generator)
+    return model

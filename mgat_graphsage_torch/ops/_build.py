@@ -1,0 +1,128 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C entry point and is compiled on its
+own into ``csrc/build/<name>-<hash>.so`` (git-ignored), at first use:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o csrc/build/<name>-<hash>.so csrc/<name>.cu
+
+The hash covers the source and the flags, so an edited source rebuilds.
+Nothing is built when a module is imported: the wrappers in
+``ops/adjacency.py`` and ``ops/attention.py`` call :func:`load` when they
+first launch on a CUDA tensor.  :func:`build_all` starts one ``nvcc`` per
+source at once, for callers that want every kernel ready up front.
+``nvcc`` is found through ``$CUDA_HOME``, then ``$PATH``, then the
+toolkit's standard location.  A failed build raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict, Iterable, List
+
+__all__ = ["KERNELS", "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "load",
+           "build_all", "library_path"]
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+BUILD_DIR = os.environ.get("MGAT_TORCH_BUILD_DIR",
+                           os.path.join(CSRC_DIR, "build"))
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# entry point and its argtypes for every kernel source
+KERNELS: Dict[str, tuple] = {
+    "adjacency": ("dense_adjacency_launch",
+                  [_P, _P, _P, _I, _I, _I, _P]),
+    "attention": ("masked_attention_launch",
+                  [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P]),
+}
+
+_loaded: Dict[str, object] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the port's CUDA kernels")
+
+
+def library_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, name + ".cu")
+    h = hashlib.sha1()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists; return
+    ``(proc, tmp, out)`` or None."""
+    out = library_path(name)
+    if os.path.exists(out):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           os.path.join(CSRC_DIR, name + ".cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"nvcc failed to build csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+
+
+def build_all(names: Iterable[str] = tuple(KERNELS)) -> List[str]:
+    """Build every missing library with one ``nvcc`` per source, all
+    started together; return the library paths."""
+    names = list(names)
+    jobs = [(n, _start(n)) for n in names]
+    errors = []
+    for n, job in jobs:
+        try:
+            _finish(n, job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [library_path(n) for n in names]
+
+
+def load(name: str):
+    """The ctypes entry point of kernel ``name``, built if needed."""
+    fn = _loaded.get(name)
+    if fn is None:
+        _finish(name, _start(name))
+        symbol, argtypes = KERNELS[name]
+        lib = ctypes.CDLL(library_path(name))
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+    return fn
