@@ -7,40 +7,63 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device report: torch and CUDA versions, the card, and ``nvidia-smi``'s
    name and power limit;
-2. build both kernels from ``mgat_graphsage_torch/csrc`` (one ``nvcc`` per
-   source, started together) and hold the adjacency kernel BITWISE against
-   its plain version: the first 64 molecules of the test CSV at the
+2. build all five kernels from ``mgat_graphsage_torch/csrc`` (one ``nvcc``
+   per source, started together) and hold the adjacency kernel BITWISE
+   against its plain version: the first 64 molecules of the test CSV at the
    (80, 176) budget, a batch of 61, an all-zero edge mask, duplicate edges,
    and N=128;
-3. hold the attention kernel against its plain version to atol=rtol=1e-5
-   (f32, another summation order): the serving path's own q, k_new, v at
-   [64, 80, 35], random [64, 80, 35] with mixed padding and a fully-masked
-   molecule, and [16, 128, 128]; residual on and off;
-4. end to end at full width: the ``flagship`` hybrid initialised from a
+3. hold the attention forward kernel against its plain version to
+   atol=rtol=1e-5 (f32, another summation order): the serving path's own
+   q, k_new, v at [64, 80, 35], random [64, 80, 35] with mixed padding and
+   a fully-masked molecule, and [16, 128, 128]; residual on and off;
+4. serving at full width: the ``flagship`` hybrid initialised from a
    seeded ``torch.Generator``, saved with the port's checkpoint format
    (scaler fit on the train CSV, budget (80, 176)), then served on CUDA:
    ``predict_csv`` on all 961 test molecules, a ``Predictor`` on the same
    list, and requests of 1, 64 and 512 SMILES with the unparseable
-   ``"C1CC("`` among them.  Both kernels' launch counters are set to 0
-   before this phase and must have risen after it.  Predictions must be
-   finite, NaN exactly where the input was unparseable, aligned with the
-   input, within 1e-4 pChEMBL of the same model run on the card through
-   the plain versions (f32 sums in another order), and within 1e-3 of the
-   port on the CPU for the first 64 molecules (another BLAS and other
-   convolution algorithms);
-5. timings on the card: each kernel, its plain version and, for the
+   ``"C1CC("`` among them.  The launch counters are set to 0 before this
+   phase and the serving kernels' must have risen after it.  Predictions
+   must be finite, NaN exactly where the input was unparseable, aligned
+   with the input, within 1e-4 pChEMBL of the same model run on the card
+   through the plain versions, and within 1e-3 of the port on the CPU;
+5. serving timings: each serving kernel, its plain version and, for the
    attention, one ``scaled_dot_product_attention`` call plus ``v`` (timed
-   here only; the port never calls it), at the serving shapes; each
-   kernel's lower bound from the bytes it must move and the f32 operations
-   it must do; molecules/s split into host featurisation and device time;
-   p50 latency of each request size; and a ``torch.profiler`` trace of one
-   Predictor call: the device's busy share and its top kernels by time.
+   here only; the port never calls it); each kernel's bound; molecules/s
+   split into host featurisation and device time; p50 request latency; a
+   ``torch.profiler`` trace of one Predictor call;
+6. the attention backward kernel against its plain version, each output
+   within 1e-5 of its largest magnitude: the first training batch's own
+   q, k_new, v at [128, 80, 35] with its last molecule fully masked, random
+   [128, 80, 35], [16, 128, 35] and [16, 84, 128] (the gate's largest N at
+   F = 35 and F = 128); residual on and off;
+7. the CNN backward kernels against their plain versions at the training
+   shape B=128, W=1024, on the model's own activations of that batch:
+   ``dy3`` within 1e-5 and the six weight and bias gradients within 1e-4
+   of each output's largest magnitude (sums over 131,072 positions); the
+   chain kernel must repeat bit for bit;
+8. full-width ``flagship`` training on the bundled train and validation
+   CSVs, twice: default and ``cnn_pallas_bwd=True``.  Each: the first 4
+   train steps' losses within rel 1e-4 of a run through the plain versions
+   from the same seed; then ``Trainer.fit`` for one epoch with the counters
+   set to 0 before it and read after it (adjacency, attention forward and
+   backward must have risen, the CNN kernels exactly when
+   ``cnn_pallas_bwd``); finite metrics; the best checkpoint served through
+   ``Predictor`` within 1e-4 pChEMBL of the trainer's own predictions.
+   Then the training CLI (``--limit 256``) on CUDA in a subprocess;
+9. the gate: a checkpoint padded to N = 160 served through ``Predictor``
+   (attention on the plain path by the gate, adjacency on its kernel) and
+   one training step at N = 160, each against the plain path;
+10. training timings: kernels 3-5, their plain versions, the library call
+   computing the same function (timed here only), their bounds and
+   launches per step; ms per train step and molecules/s both ways; a
+   ``torch.profiler`` trace of one training epoch.
 
 Kernel times come from CUDA events around back-to-back launches queued
 behind a device-side sleep, so the host's launch cost is not in them.
 
-The last two lines are one JSON object listing the kernels, then
-``{"ok": true, "device": {...}}``.
+The last two lines are one JSON object listing the kernels (launches from
+the ``cnn_pallas_bwd=True`` training epoch), then ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -120,18 +143,184 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# (module, kernel wrapper, plain version) for every kernel: the module is
+# where the main path looks the wrapper up at call time
+ROUTES = (("ops.graph", "dense_adjacency_cuda", "dense_adjacency_plain"),
+          ("ops.attention", "fused_masked_attention_cuda", "attention_plain"),
+          ("ops.attention", "attention_bwd_cuda", "attention_bwd_plain"),
+          ("ops.cnn", "dy3_cuda", "dy3_plain"),
+          ("ops.cnn", "cnn_chain_bwd_cuda", "cnn_chain_bwd_plain"))
+
+
 @contextlib.contextmanager
-def plain_path(predict_mod, layers_mod, adjacency_plain, attention_plain):
-    """Route the serving path through the plain versions (reference run)."""
-    saved = (predict_mod.dense_adjacency,
-             layers_mod.fused_masked_attention_cuda)
-    predict_mod.dense_adjacency = adjacency_plain
-    layers_mod.fused_masked_attention_cuda = attention_plain
+def plain_path():
+    """Route the serving AND the training path through the plain versions
+    of all five kernels (the reference run on the same card)."""
+    import importlib
+
+    mods = [importlib.import_module(f"mgat_graphsage_torch.{m}")
+            for m, _, _ in ROUTES]
+    saved = [getattr(mod, w) for mod, (_, w, _) in zip(mods, ROUTES)]
+    for mod, (m, w, plain) in zip(mods, ROUTES):
+        setattr(mod, w, getattr(importlib.import_module(
+            "mgat_graphsage_torch." + m), plain))
     try:
         yield
     finally:
-        (predict_mod.dense_adjacency,
-         layers_mod.fused_masked_attention_cuda) = saved
+        for mod, (_, w, _), fn in zip(mods, ROUTES, saved):
+            setattr(mod, w, fn)
+
+
+def wrappers():
+    """name -> kernel wrapper (each carries its launch counter)."""
+    import importlib
+
+    return {w: getattr(importlib.import_module("mgat_graphsage_torch." + m), w)
+            for m, w, _ in ROUTES}
+
+
+def reset_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def device_events(torch, prof):
+    """The profiler's device kernels and copies, without the ranges that
+    ``record_function`` annotations (e.g. ``Optimizer.step``) also place on
+    the device timeline: those overlap the kernels they enclose."""
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and not ev.key.startswith(("Optimizer.", "ProfilerStep"))]
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want| (0 when both are all zero)."""
+    top = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    return err / top if top > 0 else err
+
+
+# ---------------------------------------------------------------------------
+# training slice: kernels 3-5 against their plain versions, the trainer
+# ---------------------------------------------------------------------------
+
+def check_attention_bwd(torch, dev, rng, cases):
+    """Kernel 3 against its plain version on every case, residual on and
+    off; tolerance: each output within 1e-5 of its largest magnitude."""
+    from mgat_graphsage_torch.ops.attention import (
+        attention_bwd_cuda, attention_bwd_plain)
+
+    worst = 0.0
+    for name, (q, k, v, m) in cases.items():
+        g = torch.from_numpy(rng.standard_normal(tuple(q.shape))
+                             .astype(np.float32)).to(dev)
+        for residual in (True, False):
+            got = attention_bwd_cuda(q, k, v, m, g, residual)
+            want = attention_bwd_plain(q, k, v, m, g, residual)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            worst = max([worst] + [(a - b).abs().max().item()
+                                   for a, b in zip(got, want)])
+            if not all(torch.isfinite(a).all() for a in got) \
+                    or max(errs) > 1e-5:
+                raise AssertionError(f"attention backward kernel differs "
+                                     f"on {name} residual={residual}: "
+                                     f"relative errors {errs}")
+            if (m.sum(1) == 0).any():
+                dead = m.sum(1) == 0
+                if got[0][dead].abs().max() != 0 or \
+                        got[1][dead].abs().max() != 0:
+                    raise AssertionError("a fully-masked molecule must get "
+                                         "dq = dk_new = 0")
+            log(f"[6] attention bwd {name:<10} {tuple(q.shape)} "
+                f"residual={residual!s:<5} rel err dq/dk/dv "
+                f"{errs[0]:.2e} {errs[1]:.2e} {errs[2]:.2e}")
+    return worst
+
+
+def cnn_activations(torch, model, fp):
+    """y1, y2 (NCW) and the pos-major y3 [B, W, 128] of the model's CNN
+    branch on ``fp``, as the forward keeps them."""
+    import torch.nn.functional as F
+
+    cnn = model.cnn
+    with torch.no_grad():
+        y1 = F.relu(cnn.conv1(fp.unsqueeze(1)))
+        y2 = F.relu(cnn.conv2(y1))
+        y3 = F.relu(cnn.conv3(y2)).transpose(1, 2).contiguous()
+    return y1, y2, y3
+
+
+def check_cnn_kernels(torch, dev, rng, model, fp):
+    """Kernels 4 and 5 against their plain versions at the training shape;
+    tolerances relative to each output's largest magnitude: 1e-5 for dy3
+    (sums of 256 terms), 1e-4 for the weight and bias gradients (sums over
+    B * W = 131,072 positions)."""
+    from mgat_graphsage_torch.ops.cnn import (
+        cnn_chain_bwd_cuda, cnn_chain_bwd_plain, dy3_cuda, dy3_plain)
+
+    y1, y2, y3 = cnn_activations(torch, model, fp)
+    w = model.cnn
+    dy = torch.from_numpy((rng.standard_normal((fp.shape[0], 256)) * 0.01)
+                          .astype(np.float32)).to(dev)
+    fc1_w = w.fc1.weight.detach()
+    got = dy3_cuda(dy, fc1_w, y3)
+    want = dy3_plain(dy, fc1_w, y3)
+    torch.cuda.synchronize()
+    e4 = rel_err(got, want)
+    if not torch.isfinite(got).all() or e4 > 1e-5:
+        raise AssertionError(f"dy3 kernel differs: relative error {e4}")
+    log(f"[7] dy3 {tuple(got.shape)} rel err {e4:.2e} (limit 1e-5)")
+    args = (want, y2, y1, fp, w.conv3.weight.detach(),
+            w.conv2.weight.detach())
+    got5 = cnn_chain_bwd_cuda(*args)
+    want5 = cnn_chain_bwd_plain(*args)
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(got5, want5)]
+    if not all(torch.isfinite(a).all() for a in got5) or max(errs) > 1e-4:
+        raise AssertionError(f"cnn chain kernel differs: {errs}")
+    again = cnn_chain_bwd_cuda(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got5, again)):
+        raise AssertionError("cnn chain kernel does not repeat bit for bit")
+    log("[7] cnn chain bwd dw3/db3/dw2/db2/dw1/db1 rel err "
+        + " ".join(f"{e:.2e}" for e in errs) + " (limit 1e-4), repeats "
+        "bit for bit")
+    return (dy, y1, y2, y3, want, (got - want).abs().max().item(),
+            max((a - b).abs().max().item() for a, b in zip(got5, want5)))
+
+
+def first_steps(torch, Trainer, cfg, train, val, steps=4):
+    """The losses of the first ``steps`` train steps from cfg.seed, in the
+    epoch-0 batch order with the epoch-0 dropout generator."""
+    trainer = Trainer(cfg, train, val)
+    state = trainer.init_state()
+    gen = trainer._dropout_generator(0)
+    losses = []
+    for i, batch in enumerate(trainer._batches(
+            train, cfg.batch_size, np.random.default_rng(cfg.seed))):
+        if i == steps:
+            break
+        losses.append(trainer.train_step(state, batch, gen)["loss"].item())
+    return np.array(losses)
+
+
+def time_steps(torch, trainer, state, data, iters=20):
+    """ms per train step in steady state (host clock, synchronised)."""
+    batches = list(trainer._batches(data, trainer.cfg.batch_size,
+                                    np.random.default_rng(0)))
+    for b in batches[:3]:
+        trainer.train_step(state, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        trainer.train_step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def main(argv=None) -> int:
@@ -154,11 +343,9 @@ def main(argv=None) -> int:
 
     from mgat_graphsage_torch.data import (
         TEST_CSV, TRAIN_CSV, MolecularDataset, StandardScaler, load_csv)
-    from mgat_graphsage_torch.eval import predict as predict_mod
     from mgat_graphsage_torch.eval.predict import (
         Predictor, predict_csv, predict_dataset)
     from mgat_graphsage_torch.models import build_model, reset_parameters
-    from mgat_graphsage_torch.models import layers as layers_mod
     from mgat_graphsage_torch.ops import _build
     from mgat_graphsage_torch.ops.adjacency import (
         dense_adjacency_cuda, dense_adjacency_plain)
@@ -288,14 +475,6 @@ def main(argv=None) -> int:
         q, kk, v, m = attn_cases["random"]
         if fused_masked_attention_cuda(q, kk, v, m, False)[-1].abs().max() != 0:
             raise AssertionError("a fully-masked molecule must give 0")
-    q = serve_q.clone().requires_grad_(True)
-    try:
-        fused_masked_attention_cuda(q, serve_k, serve_v, nm64)
-    except RuntimeError as e:
-        log(f"[3] forward-only guard: {str(e).split(':')[0]}")
-    else:
-        raise AssertionError("the attention kernel accepted a tensor that "
-                             "requires grad")
 
     # ---- 4b. the main path, with the launch counters from 0 --------------
     rng_req = np.random.default_rng(args.seed + 1)
@@ -309,8 +488,7 @@ def main(argv=None) -> int:
             idx[int(rng_req.integers(size))] = -1
         return [BAD if i < 0 else test_smiles[i] for i in idx], idx
 
-    dense_adjacency_cuda.launches = 0
-    fused_masked_attention_cuda.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     metrics, csv_preds = predict_csv(
         ckpt, TEST_CSV, os.path.join(tmp.name, "pred.csv"), BATCH,
@@ -361,8 +539,7 @@ def main(argv=None) -> int:
     ds_test = MolecularDataset(test_smiles, test_y, scaler=scaler,
                                max_nodes=n_nodes, max_edges=n_edges,
                                verbose=False)
-    with plain_path(predict_mod, layers_mod, dense_adjacency_plain,
-                    attention_plain):
+    with plain_path():
         plain_preds = predict_dataset(predictor.model, cfg, scaler, ds_test,
                                       BATCH)
     plain_err = float(np.abs(csv_preds - plain_preds).max())
@@ -421,8 +598,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         predictor(test_smiles)
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [ev for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kern = device_events(torch, prof)
     busy_us = sum(ev.self_device_time_total for ev in kern)
     log(f"[5] profile of one Predictor call on {n_test} molecules: wall "
         f"{wall_us:.0f} us, device busy {busy_us:.0f} us "
@@ -433,22 +609,282 @@ def main(argv=None) -> int:
         if i < 8 or any(o in ev.key for o in ours):
             log(f"  #{i + 1:<3d}{ev.self_device_time_total:9.1f} us  "
                 f"x{ev.count:<4d} {ev.key[:90]}")
+
+    # ---- 6. kernel 3 against its plain version ---------------------------
+    from mgat_graphsage_torch.data import VAL_CSV
+    from mgat_graphsage_torch.ops.attention import (
+        attention_bwd_cuda, attention_bwd_plain)
+    from mgat_graphsage_torch.ops.cnn import (
+        cnn_chain_bwd_cuda, cnn_chain_bwd_plain, dy3_cuda, dy3_plain)
+    from mgat_graphsage_torch.train import Trainer
+
+    train_smiles, _ = load_csv(TRAIN_CSV)
+    val_smiles, val_y = load_csv(VAL_CSV)
+    t0 = time.perf_counter()
+    train_ds = MolecularDataset(train_smiles, train_y, fit_scaler=True,
+                                verbose=False)
+    val_ds = MolecularDataset(val_smiles, val_y, scaler=train_ds.scaler,
+                              max_nodes=train_ds.max_nodes,
+                              max_edges=train_ds.max_edges, verbose=False)
+    log(f"[6] featurised {len(train_ds)} train + {len(val_ds)} validation "
+        f"molecules in {time.perf_counter() - t0:.1f} s; training budget "
+        f"N={train_ds.max_nodes}, E={train_ds.max_edges}")
+    tcfg = get_config("flagship", epochs=1)
+    tb = tcfg.batch_size
+    probe = Trainer(tcfg, train_ds, val_ds)
+    batch = next(probe._batches(train_ds, tb,
+                                np.random.default_rng(tcfg.seed)))
+    gat = predictor.model.gat_graphsage.conv1
+    with torch.no_grad():
+        x = batch["nodes"]
+        tq = gat.query_transform(x).contiguous()
+        k = gat.key_transform(x)
+        tk = gat.linear_transform(
+            torch.cat([gat.conv3(k), gat.conv5(k), k], -1)).contiguous()
+        tv = gat.value_transform(x).contiguous()
+    tmask = batch["node_mask"].contiguous()
+    dead = tmask.clone()
+    dead[-1] = 0.0                                 # a fully-masked molecule
+    attn_bwd_err = check_attention_bwd(torch, dev, rng, {
+        "train": (tq, tk, tv, dead),
+        "random": rand_attn(tb, train_ds.max_nodes, 35),
+        "n128_f35": rand_attn(16, 128, 35),
+        "n84_f128": rand_attn(16, 84, 128)})
+
+    # ---- 7. kernels 4 and 5 against their plain versions -----------------
+    dy, y1, y2, y3, d3, dy3_err, chain_err = check_cnn_kernels(
+        torch, dev, rng, predictor.model, batch["fp"].contiguous())
+
+    # ---- 8. full-width flagship training, default and cnn_pallas_bwd -----
+    runs = {}
+    for pb in (False, True):
+        cfg_pb = get_config("flagship", epochs=1, cnn_pallas_bwd=pb)
+        losses = first_steps(torch, Trainer, cfg_pb, train_ds, val_ds)
+        with plain_path():
+            plain = first_steps(torch, Trainer, cfg_pb, train_ds, val_ds)
+        step_err = float(np.max(np.abs(losses - plain) / np.abs(plain)))
+        if not np.isfinite(losses).all() or step_err > 1e-4:
+            raise AssertionError(f"cnn_pallas_bwd={pb}: first 4 losses "
+                                 f"{losses} vs plain path {plain}")
+        ckdir = os.path.join(tmp.name, f"train_pb{int(pb)}")
+        trainer = Trainer(cfg_pb, train_ds, val_ds, ckpt_dir=ckdir,
+                          log_path=os.path.join(ckdir, "log.jsonl"))
+        reset_counts()
+        t0 = time.perf_counter()
+        _, best, hist = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts()
+        need = ["dense_adjacency_cuda", "fused_masked_attention_cuda",
+                "attention_bwd_cuda"]
+        cnn_k = ["dy3_cuda", "cnn_chain_bwd_cuda"]
+        for name in need + (cnn_k if pb else []):
+            if counts[name] <= 0:
+                raise AssertionError(f"training (cnn_pallas_bwd={pb}) "
+                                     f"never launched {name}")
+        if not pb and any(counts[n] for n in cnn_k):
+            raise AssertionError("the CNN kernels ran with cnn_pallas_bwd "
+                                 "off")
+        row = hist[-1]
+        if not all(np.isfinite(row[k]) for k in ("train_loss", "val_mse",
+                                                  "original_mse")):
+            raise AssertionError(f"non-finite training metrics: {row}")
+        served = Predictor(os.path.join(ckdir, "best_model.pt"))(val_smiles)
+        ev = trainer.evaluate(best)
+        serve_err = float(np.abs(served[val_ds.kept_indices]
+                                 - ev["pred_denorm"]).max())
+        if not np.isfinite(served).all() or serve_err > 1e-4:
+            raise AssertionError(f"best checkpoint serves {serve_err} "
+                                 "pChEMBL away from the trainer")
+        runs[pb] = {"counts": counts, "steps": -(-len(train_ds) // tb)}
+        log(f"[8] cnn_pallas_bwd={pb}: first 4 losses {np.round(losses, 6)} "
+            f"vs plain path rel err {step_err:.2e} (limit 1e-4); one epoch "
+            f"{fit_s:.2f} s (train {row['epoch_time_s']:.2f} s, "
+            f"{row['molecules_per_s']:.1f} mol/s incl. first-step warm-up), "
+            f"loss {row['train_loss']:.4f}, val MSE {row['val_mse']:.4f}, "
+            f"original MSE {row['original_mse']:.4f}; launches {counts}; "
+            f"best checkpoint served, max |err| {serve_err:.2e} pChEMBL")
+    cli = subprocess.run(
+        [sys.executable, "-m", "mgat_graphsage_torch.train.run", "--preset",
+         "flagship", "--limit", "256", "--epochs", "1", "--ckpt-dir",
+         os.path.join(tmp.name, "cli")], cwd=REPO, capture_output=True,
+        text=True, timeout=600)
+    if cli.returncode != 0 or "Training completed" not in cli.stdout:
+        raise AssertionError(f"the training CLI failed:\n{cli.stdout}\n"
+                             f"{cli.stderr}")
+    log("[8] python -m mgat_graphsage_torch.train.run --preset flagship "
+        "--limit 256 --epochs 1 on CUDA: " + cli.stdout.strip()
+        .splitlines()[0])
+
+    # ---- 9. the gate: N = 160, serving and one training step -------------
+    ckpt160 = os.path.join(tmp.name, "flagship_n160.pt")
+    save_checkpoint(ckpt160, model.state_dict(),
+                    {"config": dataclasses.asdict(cfg),
+                     "scaler": scaler.to_dict(),
+                     "max_nodes": 160, "max_edges": 352})
+    reset_counts()
+    p160 = Predictor(ckpt160)(test_smiles[:BATCH])
+    c160 = read_counts()
+    with plain_path():
+        p160_plain = Predictor(ckpt160)(test_smiles[:BATCH])
+    e160 = float(np.abs(p160 - p160_plain).max())
+    if not np.isfinite(p160).all() or e160 > 1e-4 \
+            or c160["fused_masked_attention_cuda"] != 0 \
+            or c160["dense_adjacency_cuda"] <= 0:
+        raise AssertionError(f"N=160 serving: max |err| {e160}, launches "
+                             f"{c160}")
+    ds160 = MolecularDataset(train_smiles[:tb], train_y[:tb],
+                             scaler=train_ds.scaler, max_nodes=160,
+                             max_edges=352, verbose=False)
+    cfg160 = get_config("flagship", cnn_pallas_bwd=True)
+
+    def step160():
+        t = Trainer(cfg160, ds160)
+        st = t.init_state()
+        b = next(t._batches(ds160, tb))
+        return t.train_step(st, b, t._dropout_generator(0))["loss"].item()
+
+    l160 = step160()
+    with plain_path():
+        l160_plain = step160()
+    if not np.isfinite(l160) or abs(l160 - l160_plain) > 1e-4 * abs(
+            l160_plain):
+        raise AssertionError(f"N=160 train step: {l160} vs {l160_plain}")
+    log(f"[9] N=160: Predictor on {BATCH} molecules vs plain path max |err| "
+        f"{e160:.2e} pChEMBL (attention on the plain path by the gate, "
+        f"launches {c160}); one train step loss {l160:.6f} vs plain "
+        f"{l160_plain:.6f}")
+
+    # ---- 10. training timings and profile --------------------------------
+    g_attn = torch.from_numpy(rng.standard_normal(tuple(tq.shape))
+                              .astype(np.float32)).to(dev)
+    k3_ms = timer(lambda: attention_bwd_cuda(tq, tk, tv, tmask, g_attn))
+    k3_plain_ms = timer(lambda: attention_bwd_plain(tq, tk, tv, tmask,
+                                                    g_attn))
+    k3_lib_ms = None
+    try:
+        lq, lk, lv = (t.clone().requires_grad_(True) for t in (tq, tk, tv))
+        with torch.enable_grad():
+            lout = sdpa(lk, lq, lv, attn_mask=(tmask > 0).unsqueeze(1)) + lv
+        k3_lib_ms = timer(lambda: torch.autograd.grad(
+            lout, (lq, lk, lv), g_attn, retain_graph=True))
+    except RuntimeError as e:
+        log(f"[10] SDPA backward not timed: {e}")
+    fc1_w = predictor.model.cnn.fc1.weight.detach()
+    k4_ms = timer(lambda: dy3_cuda(dy, fc1_w, y3))
+    k4_plain_ms = timer(lambda: dy3_plain(dy, fc1_w, y3))
+    k4_lib_ms = timer(lambda: torch.where(y3 > 0, torch.matmul(
+        dy, fc1_w).view(y3.shape), 0.0))
+    cw = predictor.model.cnn
+    w3, w2, w1 = (c.weight.detach() for c in (cw.conv3, cw.conv2, cw.conv1))
+    fp_b = batch["fp"].contiguous()
+    k5_ms = timer(lambda: cnn_chain_bwd_cuda(d3, y2, y1, fp_b, w3, w2))
+    k5_plain_ms = timer(lambda: cnn_chain_bwd_plain(d3, y2, y1, fp_b, w3,
+                                                    w2))
+    d3_ncw = d3.transpose(1, 2).contiguous()
+    conv_bwd = torch.ops.aten.convolution_backward
+
+    def lib5():
+        gi2, _, _ = conv_bwd(d3_ncw, y2, w3, [128], [1], [1], [1], False,
+                             [0], 1, [True, True, True])
+        gi1, _, _ = conv_bwd(gi2 * (y2 > 0), y1, w2, [64], [1], [1], [1],
+                             False, [0], 1, [True, True, True])
+        return conv_bwd(gi1 * (y1 > 0), fp_b.unsqueeze(1), w1, [32], [1],
+                        [1], [1], False, [0], 1, [False, True, True])
+
+    k5_lib_ms = timer(lib5, iters=20)
+    bt, nt, ft = tq.shape
+    bw = y3.shape[1]
+    hh = dy.shape[1]
+    k3_bound = bound(4 * (4 * bt * nt * ft + bt * nt + 3 * bt * nt * ft),
+                     10 * bt * nt * nt * ft)
+    k4_bound = bound(4 * (bt * hh + hh * bw * 128 + 2 * bt * bw * 128),
+                     2 * bt * hh * bw * 128)
+    k5_bound = bound(4 * (bt * bw * (128 + 64 + 32 + 1) + 128 * 64 * 3
+                          + 64 * 32 * 3 + 31040),
+                     2 * bt * bw * (2 * 3 * (128 * 64 + 64 * 32) + 32 * 3)
+                     + bt * bw * (128 + 64 + 32))
+    steps_b = runs[True]["steps"]
+    for name, ms, plain, lib, (bms, by), calls, cname in (
+            ("attention bwd", k3_ms, k3_plain_ms, k3_lib_ms, k3_bound,
+             "SDPA backward + the residual's gradient (more than one call)",
+             "attention_bwd_cuda"),
+            ("dy3", k4_ms, k4_plain_ms, k4_lib_ms, k4_bound,
+             "torch.matmul + where (two calls)", "dy3_cuda"),
+            ("cnn chain bwd", k5_ms, k5_plain_ms, k5_lib_ms, k5_bound,
+             "3 convolution_backward + 2 ReLU masks (five calls)",
+             "cnn_chain_bwd_cuda")):
+        log(f"[10] {name} at the training shape: kernel {ms * 1e3:.2f} us, "
+            f"plain {plain * 1e3:.2f} us, library "
+            f"{'n/a' if lib is None else f'{lib * 1e3:.2f} us'} ({calls}), "
+            f"bound {bms * 1e3:.2f} us ({by}), "
+            f"{runs[True]['counts'][cname] / steps_b:.2f} launches/step, "
+            f"on {card}")
+    step_ms = {}
+    for pb in (False, True):
+        t = Trainer(get_config("flagship", cnn_pallas_bwd=pb), train_ds)
+        st = t.init_state()
+        step_ms[pb] = time_steps(torch, t, st, train_ds)
+        log(f"[10] train step, flagship f32 B={tb}, cnn_pallas_bwd={pb}: "
+            f"{step_ms[pb]:.3f} ms ({tb / step_ms[pb] * 1e3:.1f} mol/s), "
+            f"on {card}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t.train_epoch(st, 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = device_events(torch, prof)
+    busy_us = sum(ev.self_device_time_total for ev in kern)
+    log(f"[10] profile of one training epoch (cnn_pallas_bwd=True, "
+        f"{steps_b} steps): wall {wall_us:.0f} us, device busy "
+        f"{busy_us:.0f} us ({100 * busy_us / wall_us:.2f}%); top kernels:")
+    ranked = sorted(kern, key=lambda ev: -ev.self_device_time_total)
+    ours = ours + ("masked_attention_bwd_kernel", "cnn_dy3_kernel",
+                   "cnn_chain_bwd_kernel", "cnn_chain_reduce_kernel")
+    for i, ev in enumerate(ranked):
+        if i < 12 or any(o in ev.key for o in ours):
+            log(f"  #{i + 1:<3d}{ev.self_device_time_total:9.1f} us  "
+                f"x{ev.count:<4d} {ev.key[:90]}")
     tmp.cleanup()
 
+    train_counts = runs[True]["counts"]
     kernels = [
         {"name": "dense_adjacency", "route": "cuda",
          "source": "mgat_graphsage_torch/csrc/adjacency.cu",
          "replaces": "mgat_graphsage_tpu/ops/pallas_adjacency.py:56",
-         "launches": launches["adjacency"], "max_abs_err": adj_err,
+         "launches": train_counts["dense_adjacency_cuda"],
+         "max_abs_err": adj_err,
          "ms": adj_ms, "plain_ms": adj_plain_ms, "bound_ms": adj_bound[0],
          "bound_by": adj_bound[1], "library_ms": None},
         {"name": "fused_masked_attention", "route": "cuda",
          "source": "mgat_graphsage_torch/csrc/attention.cu",
          "replaces": "mgat_graphsage_tpu/ops/pallas_attention.py:84",
-         "launches": launches["attention"], "max_abs_err": attn_err,
+         "launches": train_counts["fused_masked_attention_cuda"],
+         "max_abs_err": attn_err,
          "ms": attn_ms, "plain_ms": attn_plain_ms,
          "bound_ms": attn_bound[0], "bound_by": attn_bound[1],
          "library_ms": attn_lib_ms},
+        {"name": "fused_masked_attention_bwd", "route": "cuda",
+         "source": "mgat_graphsage_torch/csrc/attention_bwd.cu",
+         "replaces": "mgat_graphsage_tpu/ops/pallas_attention.py:146",
+         "launches": train_counts["attention_bwd_cuda"],
+         "max_abs_err": attn_bwd_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": k3_lib_ms},
+        {"name": "cnn_dy3", "route": "cuda",
+         "source": "mgat_graphsage_torch/csrc/cnn_dy3.cu",
+         "replaces": "mgat_graphsage_tpu/ops/pallas_cnn.py:127",
+         "launches": train_counts["dy3_cuda"], "max_abs_err": dy3_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0],
+         "bound_by": k4_bound[1], "library_ms": k4_lib_ms},
+        {"name": "cnn_chain_bwd", "route": "cuda",
+         "source": "mgat_graphsage_torch/csrc/cnn_chain_bwd.cu",
+         "replaces": "mgat_graphsage_tpu/ops/pallas_cnn.py:264",
+         "launches": train_counts["cnn_chain_bwd_cuda"],
+         "max_abs_err": chain_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
+         "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
+         "library_ms": k5_lib_ms},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

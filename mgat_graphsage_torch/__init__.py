@@ -1,12 +1,17 @@
 """M-GAT-GraphSAGE on PyTorch and CUDA (Hopper, sm_90a).
 
 The port of ``mgat_graphsage_tpu`` (the JAX reference, which it does not
-import).  This slice covers the flagship serving path: SMILES ->
+import).  It covers the flagship's serving path: SMILES ->
 featurisation and ECFP-1024 on the host -> dense adjacency
 (``csrc/adjacency.cu``) -> ModifiedGAT with fused masked attention
 (``csrc/attention.cu``) -> SAGEConv -> masked max pool, beside the
-fingerprint CNN -> fusion head -> pChEMBL.
+fingerprint CNN -> fusion head -> pChEMBL; and its f32 training path, which
+adds the attention backward (``csrc/attention_bwd.cu``) and, with
+``cnn_pallas_bwd``, the CNN branch's fused backward (``csrc/cnn_dy3.cu``,
+``csrc/cnn_chain_bwd.cu``).
 
+    from mgat_graphsage_torch.train import Trainer, get_config
+    Trainer(get_config("flagship"), train_ds, val_ds).fit()   # on CUDA
     from mgat_graphsage_torch.eval import Predictor
     Predictor("ckpt.pt")(["CCO"])            # on CUDA
     Predictor("ckpt.pt", device="cpu")(...)  # plain PyTorch on the CPU

@@ -1,16 +1,23 @@
 """Flagship layers, the hybrid model, and the flax-tree converter."""
 
-from .convert import params_from_jax, params_to_jax
+from .convert import (
+    adam_state_from_jax,
+    adam_state_to_jax,
+    params_from_jax,
+    params_to_jax,
+)
 from .layers import (
     CNNNet,
     CenterTapConv1d,
     CombinedNet,
+    Dropout,
     ModifiedGATLayer,
     SAGEConv,
     TorchConv1d,
     TorchLinear,
     cnn_fc1_pos_major_to_torch,
     cnn_fc1_torch_to_pos_major,
+    ieee_f32,
     reset_parameters,
 )
 from .zoo import GATGraphSAGE, HybridModel, build_model, kl_loss
@@ -18,7 +25,9 @@ from .zoo import GATGraphSAGE, HybridModel, build_model, kl_loss
 __all__ = [
     "build_model",
     "TorchLinear", "TorchConv1d", "CenterTapConv1d", "ModifiedGATLayer",
-    "SAGEConv", "CNNNet", "CombinedNet", "cnn_fc1_torch_to_pos_major",
-    "cnn_fc1_pos_major_to_torch", "reset_parameters", "GATGraphSAGE",
-    "HybridModel", "kl_loss", "params_from_jax", "params_to_jax",
+    "SAGEConv", "CNNNet", "CombinedNet", "Dropout", "ieee_f32",
+    "cnn_fc1_torch_to_pos_major", "cnn_fc1_pos_major_to_torch",
+    "reset_parameters", "GATGraphSAGE", "HybridModel", "kl_loss",
+    "params_from_jax", "params_to_jax", "adam_state_from_jax",
+    "adam_state_to_jax",
 ]

@@ -6,7 +6,8 @@ Every layer works on the padded-dense batch layout: node features
 [B, N]``.  Weights follow PyTorch's layout (``Linear.weight [out, in]``,
 ``Conv1d.weight [out, in, k]``); ``models/convert.py`` carries the
 reference package's flax trees over.  Initialisation is PyTorch's default,
-U(+-1/sqrt(fan_in)), drawn from an explicit ``torch.Generator``.
+U(+-1/sqrt(fan_in)), drawn from an explicit ``torch.Generator``; so are
+the dropout masks in training (``generator=`` of each ``forward``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import attention_plain, fused_masked_attention_cuda
+from ..ops import attention_plain, cnn_tail, fused_masked_attention
+from ..ops.attention import kernels_support
 
 __all__ = [
     "TorchLinear",
@@ -29,6 +31,8 @@ __all__ = [
     "SAGEConv",
     "CNNNet",
     "CombinedNet",
+    "Dropout",
+    "ieee_f32",
     "cnn_fc1_torch_to_pos_major",
     "cnn_fc1_pos_major_to_torch",
     "reset_parameters",
@@ -59,6 +63,27 @@ def _uniform_(t: torch.Tensor, bound: float,
               generator: Optional[torch.Generator]) -> None:
     with torch.no_grad():
         t.uniform_(-bound, bound, generator=generator)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (``nn.Dropout`` semantics) whose mask comes from
+    the ``generator`` passed to ``forward`` (the global one when None);
+    identity in eval mode."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
+                                              generator=generator)
+        return x * keep / (1.0 - self.p)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
 
 
 class TorchLinear(nn.Module):
@@ -137,12 +162,16 @@ class ModifiedGATLayer(nn.Module):
     ``out = softmax_j(scores) @ V (+ V when residual)``.
 
     ``flat=False`` (the default) attends within each molecule under
-    ``node_mask``; on CUDA that is the ``csrc/attention.cu`` kernel (via
-    :func:`fused_masked_attention_cuda`, which takes N <= 128, F <= 128).
-    ``flat=True`` attends over the whole batch as one node set
-    (reference numerics) and always takes the plain path: the kernel keeps
-    one molecule's N x N scores on chip, which a batch-wide set does not
-    fit.
+    ``node_mask`` through :func:`~..ops.attention.fused_masked_attention`,
+    forward kernel ``csrc/attention.cu`` and backward kernel
+    ``csrc/attention_bwd.cu``, whether or not a gradient is required.
+    Gate: the kernels take ``N <= 128``, ``F <= 128`` within their
+    shared-memory limit (``ops.attention.kernels_support``, asked with the
+    shapes before any launch); past it the layer takes the plain path, as
+    the reference layer does past its kernel's N = 512.  ``flat=True``
+    attends over the whole batch as one node set (reference numerics) and
+    always takes the plain path: the kernels keep one molecule's N x N
+    scores on chip, which a batch-wide set does not fit.
     """
 
     def __init__(self, in_features: int, features: int,
@@ -174,8 +203,9 @@ class ModifiedGATLayer(nn.Module):
         q, k_new, v = (t.float() for t in (q, k_new, v))
         if node_mask is not None:
             node_mask = node_mask.float()
-        if not self.flat and node_mask is not None and x.dim() == 3:
-            out = fused_masked_attention_cuda(
+        if not self.flat and node_mask is not None and x.dim() == 3 \
+                and kernels_support(q.shape[1], q.shape[2]):
+            out = fused_masked_attention(
                 q.contiguous(), k_new.contiguous(), v.contiguous(),
                 node_mask.contiguous(), self.residual)
         else:
@@ -204,19 +234,28 @@ class SAGEConv(nn.Module):
 
 
 @contextlib.contextmanager
-def _ieee_f32_convs(x: torch.Tensor):
-    """Turn cuDNN's TF32 convolutions off for an f32 CUDA forward and
-    restore the setting after: TF32 keeps ~3 decimal digits, and the f32
-    presets are the reference-numerics mode."""
-    if not (x.is_cuda and x.dtype == torch.float32):
-        yield
-        return
-    prev = torch.backends.cudnn.allow_tf32
+def ieee_f32():
+    """Turn TF32 off for cuDNN convolutions and cuBLAS products, and
+    restore both settings after: TF32 keeps ~3 decimal digits, and the f32
+    presets are the reference-numerics mode.  The trainer holds it over
+    the whole f32 train step, forward and backward, so the convolutions'
+    dgrad and wgrad run in IEEE f32 too."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def _ieee_f32_convs(x: torch.Tensor):
+    """:func:`ieee_f32` for an f32 CUDA forward, else nothing."""
+    if x.is_cuda and x.dtype == torch.float32:
+        return ieee_f32()
+    return contextlib.nullcontext()
 
 
 class CNNNet(nn.Module):
@@ -227,25 +266,40 @@ class CNNNet(nn.Module):
     The flatten is POS-major (``[B, W, C] -> [B, W*C]``, column ``w*128 +
     c``), like the reference package's ``CNNNet``, so ``fc1.weight`` is the
     flax kernel transposed with no permutation.
+
+    ``pallas_bwd=True`` (``TrainConfig.cnn_pallas_bwd``) routes conv1 ->
+    fc1 through :func:`~..ops.cnn.cnn_tail`: the same parameters and
+    forward math, with the backward through the kernels
+    ``csrc/cnn_dy3.cu`` and ``csrc/cnn_chain_bwd.cu``.  They take any
+    batch and width, so there is no shape gate; the fingerprint must not
+    require a gradient there.
     """
 
     def __init__(self, input_dim: int, output_dim: int, fc_hidden: int = 256,
-                 dropout: float = 0.3):
+                 dropout: float = 0.3, pallas_bwd: bool = False):
         super().__init__()
+        self.pallas_bwd = pallas_bwd
         self.conv1 = TorchConv1d(1, 32)
         self.conv2 = TorchConv1d(32, 64)
         self.conv3 = TorchConv1d(64, 128)
         self.fc1 = TorchLinear(input_dim * 128, fc_hidden)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.fc2 = TorchLinear(fc_hidden, output_dim)
 
-    def forward(self, fp: torch.Tensor) -> torch.Tensor:
-        x = fp.unsqueeze(1)                          # [B, 1, W]
-        with _ieee_f32_convs(x):
-            for conv in (self.conv1, self.conv2, self.conv3):
-                x = F.relu(conv(x))                  # [B, C, W]
-        x = x.transpose(1, 2).reshape(x.shape[0], -1)   # pos-major
-        x = self.dropout(F.relu(self.fc1(x)))
+    def forward(self, fp: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        with _ieee_f32_convs(fp):
+            if self.pallas_bwd:
+                x = cnn_tail(fp, self.conv1.weight, self.conv1.bias,
+                             self.conv2.weight, self.conv2.bias,
+                             self.conv3.weight, self.conv3.bias,
+                             self.fc1.weight, self.fc1.bias)
+            else:
+                x = fp.unsqueeze(1)                      # [B, 1, W]
+                for conv in (self.conv1, self.conv2, self.conv3):
+                    x = F.relu(conv(x))                  # [B, C, W]
+                x = self.fc1(x.transpose(1, 2).reshape(x.shape[0], -1))
+        x = self.dropout(F.relu(x), generator)
         return self.fc2(x)
 
 
@@ -257,11 +311,12 @@ class CombinedNet(nn.Module):
                  output_dim: int = 1, dropout: float = 0.3):
         super().__init__()
         self.fc1 = TorchLinear(in_features, hidden_dim)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.fc2 = TorchLinear(hidden_dim, output_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.dropout(F.relu(self.fc1(x))))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.fc2(self.dropout(F.relu(self.fc1(x)), generator))
 
 
 def reset_parameters(model: nn.Module,

@@ -20,6 +20,7 @@ from ..ops import segment_max_pool, segment_mean_pool
 from .layers import (
     CNNNet,
     CombinedNet,
+    Dropout,
     ModifiedGATLayer,
     SAGEConv,
     TorchLinear,
@@ -70,12 +71,13 @@ class GATGraphSAGE(nn.Module):
         self.conv2 = SAGEConv(in_features, sage_features)
         pooled = sage_features * (2 if dual_pool else 1)
         self.fc_g1 = TorchLinear(pooled, fc_hidden)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.fc_g2 = TorchLinear(fc_hidden, output_dim)
         self.out = TorchLinear(output_dim, n_output)
 
     def forward(self, nodes: torch.Tensor, adj: torch.Tensor,
-                node_mask: torch.Tensor) -> torch.Tensor:
+                node_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = F.relu(self.conv1(nodes, node_mask))
         x = F.relu(self.conv2(x, adj, node_mask))
         if self.dual_pool:
@@ -83,7 +85,7 @@ class GATGraphSAGE(nn.Module):
                                 segment_mean_pool(x, node_mask)], dim=-1)
         else:
             pooled = segment_max_pool(x, node_mask)
-        h = self.dropout(F.relu(self.fc_g1(pooled)))
+        h = self.dropout(F.relu(self.fc_g1(pooled)), generator)
         return self.out(self.fc_g2(h))
 
 
@@ -91,28 +93,31 @@ class HybridModel(nn.Module):
     """The flagship M-GAT-GraphSAGE hybrid (reference ``train.py:212-246``):
     graph branch + fingerprint CNN branch fused by CombinedNet.  Returns
     ``(prediction [B, 1], latent [B, 1 + fp_dim])``; the latent feeds the
-    KL regulariser."""
+    KL regulariser.  ``generator`` draws the dropout masks in training;
+    ``cnn_pallas_bwd`` routes the CNN branch's backward through its
+    kernels (:class:`CNNNet`)."""
 
     def __init__(self, in_features: int = 35, fp_dim: int = 1024,
                  cnn_fc_hidden: int = 256, combined_hidden: int = 512,
                  graph_dropout: float = 0.3, attention: str = "modified",
                  residual: bool = True, flat_attention: bool = False,
-                 dual_pool: bool = False):
+                 dual_pool: bool = False, cnn_pallas_bwd: bool = False):
         super().__init__()
         self.gat_graphsage = GATGraphSAGE(
             in_features, attention=attention, residual=residual,
             flat_attention=flat_attention, dual_pool=dual_pool,
             dropout=graph_dropout)
         self.cnn = CNNNet(input_dim=fp_dim, output_dim=fp_dim,
-                          fc_hidden=cnn_fc_hidden)
+                          fc_hidden=cnn_fc_hidden, pallas_bwd=cnn_pallas_bwd)
         self.combined = CombinedNet(1 + fp_dim, combined_hidden, 1)
 
     def forward(self, nodes: torch.Tensor, adj: torch.Tensor,
-                node_mask: torch.Tensor, fp: torch.Tensor
+                node_mask: torch.Tensor, fp: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        graph_out = self.gat_graphsage(nodes, adj, node_mask)
-        latent = torch.cat([graph_out, self.cnn(fp)], dim=-1)
-        return self.combined(latent), latent
+        graph_out = self.gat_graphsage(nodes, adj, node_mask, generator)
+        latent = torch.cat([graph_out, self.cnn(fp, generator)], dim=-1)
+        return self.combined(latent, generator), latent
 
 
 def build_model(cfg) -> nn.Module:
@@ -126,7 +131,8 @@ def build_model(cfg) -> nn.Module:
             in_features=feat, fp_dim=FINGERPRINT_DIMS[cfg.fingerprint],
             cnn_fc_hidden=cfg.cnn_fc_hidden, attention=cfg.attention,
             residual=cfg.residual, flat_attention=cfg.flat_attention,
-            dual_pool=cfg.dual_pool, graph_dropout=cfg.graph_dropout)
+            dual_pool=cfg.dual_pool, graph_dropout=cfg.graph_dropout,
+            cnn_pallas_bwd=cfg.cnn_pallas_bwd)
     if cfg.model == "gat_graphsage":
         return GATGraphSAGE(
             feat, attention=cfg.attention, residual=cfg.residual,

@@ -1,9 +1,25 @@
-"""Graph primitives and the two hand-written CUDA kernels of the serving
-path (``csrc/adjacency.cu``, ``csrc/attention.cu``), each beside its plain
-PyTorch version.  Importing this package builds nothing."""
+"""Graph primitives and the port's hand-written CUDA kernels, each beside
+its plain PyTorch version: the dense adjacency (``csrc/adjacency.cu``),
+the fused masked attention forward and backward (``csrc/attention.cu``,
+``csrc/attention_bwd.cu``) and the fingerprint CNN's fused backward
+(``csrc/cnn_dy3.cu``, ``csrc/cnn_chain_bwd.cu``).  Importing this package
+builds nothing."""
 
 from .adjacency import dense_adjacency_cuda, dense_adjacency_plain
-from .attention import attention_plain, fused_masked_attention_cuda
+from .attention import (
+    attention_bwd_cuda,
+    attention_bwd_plain,
+    attention_plain,
+    fused_masked_attention,
+    fused_masked_attention_cuda,
+)
+from .cnn import (
+    cnn_chain_bwd_cuda,
+    cnn_chain_bwd_plain,
+    cnn_tail,
+    dy3_cuda,
+    dy3_plain,
+)
 from .graph import (
     add_self_loops,
     dense_adjacency,
@@ -15,7 +31,9 @@ from .graph import (
 
 __all__ = [
     "dense_adjacency", "dense_adjacency_cuda", "dense_adjacency_plain",
-    "fused_masked_attention_cuda", "attention_plain", "add_self_loops",
-    "masked_softmax", "segment_max_pool", "segment_mean_pool",
-    "segment_sum_pool",
+    "fused_masked_attention", "fused_masked_attention_cuda",
+    "attention_bwd_cuda", "attention_plain", "attention_bwd_plain",
+    "cnn_tail", "dy3_cuda", "dy3_plain", "cnn_chain_bwd_cuda",
+    "cnn_chain_bwd_plain", "add_self_loops", "masked_softmax",
+    "segment_max_pool", "segment_mean_pool", "segment_sum_pool",
 ]

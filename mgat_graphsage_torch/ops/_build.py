@@ -8,8 +8,8 @@ own into ``csrc/build/<name>-<hash>.so`` (git-ignored), at first use:
 
 The hash covers the source and the flags, so an edited source rebuilds.
 Nothing is built when a module is imported: the wrappers in
-``ops/adjacency.py`` and ``ops/attention.py`` call :func:`load` when they
-first launch on a CUDA tensor.  :func:`build_all` starts one ``nvcc`` per
+``ops/adjacency.py``, ``ops/attention.py`` and ``ops/cnn.py`` call
+:func:`load` when they first launch on a CUDA tensor.  :func:`build_all` starts one ``nvcc`` per
 source at once, for callers that want every kernel ready up front.
 ``nvcc`` is found through ``$CUDA_HOME``, then ``$PATH``, then the
 toolkit's standard location.  A failed build raises with nvcc's output.
@@ -42,6 +42,10 @@ KERNELS: Dict[str, tuple] = {
                   [_P, _P, _P, _I, _I, _I, _P]),
     "attention": ("masked_attention_launch",
                   [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P]),
+    "attention_bwd": ("masked_attention_bwd_launch",
+                      [_P] * 8 + [_I, _I, _I, ctypes.c_float, _I, _P]),
+    "cnn_dy3": ("cnn_dy3_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "cnn_chain_bwd": ("cnn_chain_bwd_launch", [_P] * 8 + [_I, _I, _I, _P]),
 }
 
 _loaded: Dict[str, object] = {}

@@ -1,0 +1,122 @@
+"""Command-line trainer of the port (``mgat_graphsage_tpu/train/run.py`` on
+PyTorch and CUDA).
+
+    python -m mgat_graphsage_torch.train.run --preset flagship \\
+        [--epochs N] [--batch-size B] [--lr LR] [--seed S] [--limit ROWS] \\
+        [--ckpt-dir checkpoints] [--log metrics.jsonl] [--resume CKPT] \\
+        [--device cuda|cpu]
+
+trains on the bundled train and validation CSVs (or ``--train-csv``,
+``--val-csv``) and writes ``<ckpt-dir>/<preset>/best_model.pt`` with its
+JSON sidecar, which ``eval/predict.py`` serves.  It runs on CUDA unless
+given ``--device cpu``, and raises without CUDA.  Only the presets the port
+can build are offered; the reference's flags for meshes, bf16, remat and
+compact storage are accepted and raise "not ported yet".
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from ..chem.fingerprints import FINGERPRINTS
+from ..data import TRAIN_CSV, VAL_CSV, MolecularDataset, load_csv
+from .config import PRESETS, get_config
+from .optim import check_ported
+from .trainer import Trainer
+
+# flag -> the ROADMAP item (Queue 1) that brings it
+_NOT_PORTED_FLAGS = {
+    "data_parallel": "multi-GPU training (ROADMAP Queue 1 item 10)",
+    "model_parallel": "multi-GPU training (ROADMAP Queue 1 item 10)",
+    "distributed": "multi-GPU training (ROADMAP Queue 1 item 10)",
+    "fast_optimizer": "bf16 Adam moments (ROADMAP Queue 1 item 3)",
+    "mixed_precision": "bf16 compute (ROADMAP Queue 1 item 3)",
+    "remat": "remat (ROADMAP Queue 1 item 3)",
+    "dataset_storage": "compact dataset storage (ROADMAP Queue 1 item 6)",
+}
+
+
+def _ported(cfg) -> bool:
+    try:
+        check_ported(cfg)
+    except NotImplementedError:
+        return False
+    return (cfg.model in ("hybrid", "gat_graphsage")
+            and cfg.attention == "modified"
+            and (cfg.fingerprint is None or cfg.fingerprint in FINGERPRINTS))
+
+
+PORTED_PRESETS = sorted(n for n, c in PRESETS.items() if _ported(c))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="flagship", choices=PORTED_PRESETS)
+    ap.add_argument("--train-csv", default=TRAIN_CSV)
+    ap.add_argument("--val-csv", default=VAL_CSV)
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--batch-size", type=int, default=None)
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--limit", type=int, default=None,
+                    help="limit training rows (smoke runs)")
+    ap.add_argument("--ckpt-dir", default="checkpoints")
+    ap.add_argument("--log", default=None, help="JSONL metrics log path")
+    ap.add_argument("--resume", default=None, help="checkpoint to resume")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    for flag in ("data-parallel", "distributed", "fast-optimizer",
+                 "mixed-precision", "remat"):
+        ap.add_argument(f"--{flag}", action="store_true",
+                        help="not ported yet")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="not ported yet")
+    ap.add_argument("--dataset-storage", default=None,
+                    choices=["float32", "compact"], help="not ported yet")
+    args = ap.parse_args(argv)
+
+    for dest, what in _NOT_PORTED_FLAGS.items():
+        value = getattr(args, dest)
+        if value != ap.get_default(dest) and value != "float32":
+            raise NotImplementedError(f"--{dest.replace('_', '-')}: {what} "
+                                      "is not ported yet")
+
+    overrides = {k: v for k, v in dict(
+        epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+        seed=args.seed).items() if v is not None}
+    cfg = get_config(args.preset, **overrides)
+
+    sm, y = load_csv(args.train_csv)
+    vs, vy = load_csv(args.val_csv)
+    if args.limit:
+        sm, y = sm[:args.limit], y[:args.limit]
+        vs, vy = vs[:max(args.limit // 4, 32)], vy[:max(args.limit // 4, 32)]
+
+    train = MolecularDataset(sm, y, fit_scaler=cfg.scale_targets,
+                             fingerprint=cfg.fingerprint,
+                             featurizer=cfg.featurizer)
+    val = MolecularDataset(vs, vy, scaler=train.scaler,
+                           fingerprint=cfg.fingerprint,
+                           featurizer=cfg.featurizer,
+                           max_nodes=train.max_nodes,
+                           max_edges=train.max_edges)
+
+    ckpt_dir = os.path.join(args.ckpt_dir, cfg.name)
+    trainer = Trainer(cfg, train, val, ckpt_dir=ckpt_dir,
+                      log_path=args.log, device=args.device)
+
+    state, start_epoch = None, 0
+    if args.resume:
+        state, meta = trainer.load(args.resume)
+        start_epoch = int(meta.get("epoch", 0))
+        print(f"resumed from {args.resume} at epoch {start_epoch}")
+
+    trainer.fit(state=state, start_epoch=start_epoch)
+    print(f"\nTraining completed, best "
+          f"{cfg.select_metric}: {trainer.best_metric:.4f} "
+          f"(normalized MSE {trainer.best_norm_mse:.4f})")
+    print(f"Best checkpoint: {os.path.join(ckpt_dir, 'best_model.pt')}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,318 @@
+"""The training engine of the port (``mgat_graphsage_tpu/train/trainer.py``
+on PyTorch and CUDA).
+
+Same semantics as the reference's ``Trainer``, in PyTorch idiom: the
+dataset goes to the device once, and each epoch is a Python loop of train
+steps over batches gathered on the device (the reference scans them in
+one XLA program).
+
+- loss = masked MSE + ``kl_lambda`` * KL over the hybrid's latent
+  (reference ``train.py:244-246``); ``node_mask`` is multiplied by the
+  batch's ``sample_mask``, so the rows padding the final batch are inert;
+- torch Adam with L2 coupled into the gradient (``train/optim.py``), the
+  constant or warmup+cosine lr on the 1-based step count;
+- the epoch permutation comes from ``np.random.default_rng(seed +
+  epoch)`` and the final batch is padded with masked copies of row 0, so
+  the batch order is the reference's, bit for bit;
+- dropout masks come from a ``torch.Generator`` that the trainer owns,
+  seeded per epoch, so a resumed run repeats an uninterrupted one;
+- validation is the mean of per-batch MSEs on both scales (reference
+  ``train.py:278``), with best-state selection on ``select_metric``;
+- f32 configs hold IEEE f32 (no TF32) over the whole train step, forward
+  and backward (``models/layers.py::ieee_f32``).
+
+On CUDA each step runs the adjacency kernel, the attention kernels
+(forward and backward) and, with ``cnn_pallas_bwd``, the CNN backward
+kernels.  Entry points run on CUDA unless given ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import json
+import os
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..data import MolecularDataset
+from ..device import resolve_device
+from ..models import build_model, kl_loss, reset_parameters
+from ..models.layers import ieee_f32
+from ..ops import dense_adjacency
+from .checkpoint import load_checkpoint, save_checkpoint
+from .config import TrainConfig
+from .optim import check_ported, lr_schedule, make_optimizer, set_lr
+
+__all__ = ["TrainState", "Trainer"]
+
+_FIELDS = ("nodes", "edges", "node_mask", "edge_mask", "fp", "y", "y_orig")
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, its optimizer, and the number of optimizer steps taken."""
+    step: int
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+
+
+def _masked_mse(pred: torch.Tensor, target: torch.Tensor,
+                sample_mask: torch.Tensor) -> torch.Tensor:
+    err = (pred.reshape(-1) - target.reshape(-1)) ** 2
+    return (err * sample_mask).sum() / torch.clamp_min(sample_mask.sum(), 1.0)
+
+
+class Trainer:
+    """End-to-end training loop for the presets the port can build."""
+
+    def __init__(self, cfg: TrainConfig, train_ds: MolecularDataset,
+                 val_ds: Optional[MolecularDataset] = None,
+                 mesh=None, use_mesh: bool = False,
+                 ckpt_dir: Optional[str] = None,
+                 log_path: Optional[str] = None, device=None):
+        if mesh is not None or use_mesh:
+            raise NotImplementedError("meshes (multi-GPU training) are not "
+                                      "ported yet (ROADMAP Queue 1 item 10)")
+        check_ported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.train_ds = train_ds
+        self.val_ds = val_ds
+        steps_per_epoch = max(-(-len(train_ds) // cfg.batch_size), 1)
+        self._total_steps = cfg.epochs * steps_per_epoch
+        self._lr = lr_schedule(cfg, self._total_steps)
+        self.ckpt_dir = ckpt_dir
+        self.log_path = log_path
+        self.scaler = train_ds.scaler
+        self._dev_cache: Dict[int, Dict[str, torch.Tensor]] = {}
+        self.history: List[Dict] = []
+
+    # ------------------------------------------------------------------
+    def init_state(self, seed: Optional[int] = None) -> TrainState:
+        """Weights drawn from a ``torch.Generator`` seeded with
+        ``cfg.seed`` (or ``seed``) on the CPU, so the same seed gives the
+        same weights on every device."""
+        gen = torch.Generator().manual_seed(
+            self.cfg.seed if seed is None else seed)
+        model = reset_parameters(build_model(self.cfg), gen).to(self.device)
+        return TrainState(step=0, model=model,
+                          optimizer=make_optimizer(self.cfg, model))
+
+    def _device_dataset(self, ds: MolecularDataset) -> Dict[str, torch.Tensor]:
+        """A dataset's padded arrays on the device, uploaded once."""
+        if id(ds) not in self._dev_cache:
+            self._dev_cache[id(ds)] = {
+                k: torch.from_numpy(np.ascontiguousarray(getattr(ds, k))
+                                    ).to(self.device) for k in _FIELDS}
+        return self._dev_cache[id(ds)]
+
+    @staticmethod
+    def _epoch_indices(n: int, batch_size: int,
+                       rng: Optional[np.random.Generator] = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """(perm [n_batches, B], sample_mask [n_batches, B]); the final
+        partial batch is padded with index 0 rows masked out."""
+        idx = np.arange(n) if rng is None else rng.permutation(n)
+        n_batches = (n + batch_size - 1) // batch_size
+        pad = n_batches * batch_size - n
+        mask = np.ones(n_batches * batch_size, np.float32)
+        if pad:
+            idx = np.concatenate([idx, np.zeros(pad, idx.dtype)])
+            mask[-pad:] = 0.0
+        return (idx.reshape(n_batches, batch_size).astype(np.int64),
+                mask.reshape(n_batches, batch_size))
+
+    def _batches(self, ds: MolecularDataset, batch_size: int,
+                 rng: Optional[np.random.Generator] = None):
+        """Yield batches gathered on the device, with ``sample_mask``."""
+        data = self._device_dataset(ds)
+        perm, smask = self._epoch_indices(len(ds), batch_size, rng)
+        perm = torch.from_numpy(perm).to(self.device)
+        smask = torch.from_numpy(smask).to(self.device)
+        for i in range(perm.shape[0]):
+            batch = {k: v[perm[i]] for k, v in data.items()}
+            batch["sample_mask"] = smask[i]
+            yield batch
+
+    def _forward(self, model: nn.Module, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None):
+        adj = dense_adjacency(batch["edges"], batch["edge_mask"],
+                              batch["nodes"].shape[1])
+        node_mask = batch["node_mask"] * batch["sample_mask"].unsqueeze(1)
+        if self.cfg.is_hybrid:
+            return model(batch["nodes"], adj, node_mask, batch["fp"],
+                         generator)
+        return model(batch["nodes"], adj, node_mask, generator), None
+
+    def _dropout_generator(self, epoch: int) -> torch.Generator:
+        seed = np.random.SeedSequence([self.cfg.seed, 1234, epoch])
+        return torch.Generator(device=self.device).manual_seed(
+            int(seed.generate_state(1)[0]))
+
+    # ------------------------------------------------------------------
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One optimizer step; returns the step's ``loss``, ``mse`` and
+        ``kl`` as device tensors (no host sync)."""
+        cfg, model = self.cfg, state.model
+        model.train()
+        with ieee_f32():
+            pred, latent = self._forward(model, batch, generator)
+            mse = _masked_mse(pred, batch["y"], batch["sample_mask"])
+            loss, kl = mse, torch.zeros((), device=mse.device)
+            if cfg.is_hybrid and cfg.kl_lambda > 0:
+                kl = kl_loss(latent, batch["sample_mask"])
+                loss = loss + cfg.kl_lambda * kl
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        set_lr(state.optimizer, self._lr(state.step + 1)
+               if callable(self._lr) else self._lr)
+        state.optimizer.step()
+        state.step += 1
+        return {"loss": loss.detach(), "mse": mse.detach(),
+                "kl": kl.detach()}
+
+    def train_epoch(self, state: TrainState, epoch: int
+                    ) -> Tuple[TrainState, Dict]:
+        t0 = time.perf_counter()
+        gen = self._dropout_generator(epoch)
+        losses = [self.train_step(state, batch, gen)["loss"]
+                  for batch in self._batches(
+                      self.train_ds, self.cfg.batch_size,
+                      np.random.default_rng(self.cfg.seed + epoch))]
+        train_loss = float(torch.stack(losses).mean())   # one host sync
+        dt = time.perf_counter() - t0
+        n_mol = len(self.train_ds)
+        return state, {"train_loss": train_loss, "epoch_time_s": dt,
+                       "molecules_per_s": n_mol / dt if dt > 0 else 0.0}
+
+    def evaluate(self, state: TrainState,
+                 ds: Optional[MolecularDataset] = None) -> Dict:
+        """Mean of per-batch MSEs for normalized and original-scale
+        targets (reference ``train.py:278``), and the predictions."""
+        ds = ds or self.val_ds
+        model = state.model
+        model.eval()
+        mean = float(self.scaler.mean_)
+        scale = float(self.scaler.scale_)
+        preds, mses, omses, keeps = [], [], [], []
+        with torch.inference_mode():
+            for batch in self._batches(ds, self.cfg.eval_batch_size):
+                pred, _ = self._forward(model, batch)
+                pred = pred.reshape(-1)
+                smask = batch["sample_mask"]
+                mses.append(_masked_mse(pred, batch["y"], smask))
+                denorm = pred * scale + mean
+                omses.append(_masked_mse(denorm, batch["y_orig"], smask))
+                preds.append(pred)
+                keeps.append(smask > 0)
+            keep = torch.cat(keeps)
+            pred = torch.cat(preds)[keep]
+            out = {"val_mse": torch.stack(mses).mean(),
+                   "original_mse": torch.stack(omses).mean(),
+                   "pred": pred, "pred_denorm": pred * scale + mean}
+            out = {k: v.cpu() for k, v in out.items()}
+        return {"val_mse": float(out["val_mse"]),
+                "original_mse": float(out["original_mse"]),
+                "pred": out["pred"].numpy(),
+                "pred_denorm": out["pred_denorm"].numpy()}
+
+    # ------------------------------------------------------------------
+    def fit(self, epochs: Optional[int] = None,
+            state: Optional[TrainState] = None, start_epoch: int = 0,
+            verbose: bool = True, save_best: bool = True,
+            save_min_interval_s: float = 60.0
+            ) -> Tuple[TrainState, TrainState, List]:
+        """Full training run; returns ``(final_state, best_state,
+        history)``.  The best state is a deep copy (model and optimizer)
+        kept on the device; it is written light at most every
+        ``save_min_interval_s`` and in full once at the end, to
+        ``<ckpt_dir>/best_model.pt``."""
+        cfg = self.cfg
+        epochs = cfg.epochs if epochs is None else epochs
+        if state is None:
+            state = self.init_state()
+        best_state = state
+        best_metric = float("inf")
+        best_norm_mse = float("inf")
+        best_row: Dict = {}
+        last_save = 0.0
+        ckpt_path = os.path.join(self.ckpt_dir, "best_model.pt") \
+            if self.ckpt_dir else None
+        for epoch in range(start_epoch, epochs):
+            state, tr = self.train_epoch(state, epoch)
+            row = {"epoch": epoch + 1, **tr}
+            if self.val_ds is not None:
+                ev = self.evaluate(state)
+                row["val_mse"] = ev["val_mse"]
+                row["original_mse"] = ev["original_mse"]
+                metric = ev.get(cfg.select_metric, ev["val_mse"])
+                if metric < best_metric:
+                    best_metric = metric
+                    best_norm_mse = ev["val_mse"]
+                    best_state = copy.deepcopy(state)
+                    best_row = row
+                    row["new_best"] = True
+                    now = time.perf_counter()
+                    if save_best and ckpt_path and \
+                            now - last_save > save_min_interval_s:
+                        self.save(ckpt_path, best_state, row, light=True)
+                        last_save = now
+            self.history.append(row)
+            if self.log_path:
+                os.makedirs(os.path.dirname(self.log_path) or ".",
+                            exist_ok=True)
+                with open(self.log_path, "a") as f:
+                    f.write(json.dumps(
+                        {k: v for k, v in row.items()
+                         if isinstance(v, (int, float, bool, str))}) + "\n")
+            if verbose:
+                msg = (f"Epoch {epoch + 1:4d} | Train Loss: "
+                       f"{row['train_loss']:.4f}")
+                if "val_mse" in row:
+                    msg += (f" | Val MSE: {row['val_mse']:.4f} | "
+                            f"Original MSE: {row['original_mse']:.4f}")
+                if row.get("new_best"):
+                    msg += "  *** new best ***"
+                print(msg)
+        if self.val_ds is None:
+            best_state = state
+        if save_best and ckpt_path and best_row:
+            self.save(ckpt_path, best_state, best_row)
+        self.best_metric = best_metric
+        self.best_norm_mse = best_norm_mse
+        return state, best_state, self.history
+
+    # ------------------------------------------------------------------
+    def save(self, path: str, state: TrainState,
+             extra_meta: Optional[Dict] = None, light: bool = False) -> None:
+        """Checkpoint with the reference's sidecar; ``light=True`` leaves
+        the optimizer state out."""
+        meta = {
+            "config": dataclasses.asdict(self.cfg),
+            "scaler": self.scaler.to_dict(),
+            "max_nodes": self.train_ds.max_nodes,
+            "max_edges": self.train_ds.max_edges,
+        }
+        if extra_meta:
+            meta.update({k: v for k, v in extra_meta.items()
+                         if isinstance(v, (int, float, bool, str))})
+        save_checkpoint(path, state.model.state_dict(), meta, state.step,
+                        None if light else state.optimizer.state_dict())
+
+    def load(self, path: str) -> Tuple[TrainState, Dict]:
+        """A fresh state with the checkpoint's weights, step and (from a
+        full checkpoint) optimizer state; and the sidecar."""
+        state = self.init_state()
+        sd, step, meta, opt = load_checkpoint(path, with_optimizer=True)
+        state.model.load_state_dict(sd)
+        if opt is not None:
+            state.optimizer.load_state_dict(opt)
+        state.step = step
+        return state, meta

@@ -1,5 +1,6 @@
-"""The port's graph ops and the plain versions of its two kernels against
-the reference package's JAX functions, on the CPU.
+"""The port's graph ops, the plain versions of its adjacency and attention
+kernels (forward and backward) and the attention ``autograd.Function``
+against the reference package's JAX functions, on the CPU.
 
 The Pallas kernels run in interpret mode, as in tests/test_pallas.py.  The
 CUDA kernels themselves are held against these plain versions on the card
@@ -16,6 +17,8 @@ from mgat_graphsage_tpu.ops.pallas_adjacency import dense_adjacency_pallas
 from mgat_graphsage_tpu.ops.pallas_attention import fused_masked_attention
 
 from mgat_graphsage_torch.ops import (
+    attention_bwd_cuda,
+    attention_bwd_plain,
     attention_plain,
     dense_adjacency,
     dense_adjacency_cuda,
@@ -26,6 +29,8 @@ from mgat_graphsage_torch.ops import (
     segment_mean_pool,
     segment_sum_pool,
 )
+from mgat_graphsage_torch.ops import fused_masked_attention as torch_fused
+from mgat_graphsage_torch.ops.attention import kernels_support
 
 
 def _edges(b=8, n=16, e=40, seed=0, frac=False):
@@ -149,3 +154,111 @@ def test_pools_match_jax(pool):
         jnp.asarray(x), jnp.asarray(m)))
     # max is exact; mean/sum are f32 sums over <= 11 terms
     np.testing.assert_allclose(ours, ref, atol=1e-6, rtol=1e-6)
+
+
+# ---- attention backward (kernel 3's plain version and the Function) ------
+
+@pytest.mark.parametrize("shape", [(4, 16, 35), (3, 24, 8)])
+@pytest.mark.parametrize("residual", [True, False])
+def test_attention_bwd_plain_vs_pallas_vjp(shape, residual):
+    """Mixed padding and a fully-masked molecule: the explicit formula
+    against ``jax.vjp`` of the Pallas kernel in interpret mode and against
+    torch autograd through the plain forward; f32 tolerance (sums of
+    N * F terms in another order)."""
+    import jax
+
+    q, k, v, mask = _attn_inputs(*shape, seed=7 + sum(shape))
+    g = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    tq, tk, tv, tm, tg = (torch.from_numpy(a) for a in (q, k, v, mask, g))
+    ours = attention_bwd_plain(tq, tk, tv, tm, tg, residual)
+    _, vjp = jax.vjp(lambda a, b, c: fused_masked_attention(
+        a, b, c, jnp.asarray(mask), residual, True),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    ref = vjp(jnp.asarray(g))
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    attention_plain(*leaves, tm, residual).backward(tg)
+    for o, r, leaf in zip(ours, ref, leaves):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=2e-5,
+                                   rtol=2e-5)
+        np.testing.assert_allclose(o.numpy(), leaf.grad.numpy(), atol=2e-5,
+                                   rtol=2e-5)
+    # the fully-masked molecule: no gradient through attention, no NaN
+    assert np.isfinite(np.concatenate([o.numpy().ravel() for o in ours])).all()
+    np.testing.assert_array_equal(ours[0][-1].numpy(), 0.0)
+    np.testing.assert_array_equal(ours[1][-1].numpy(), 0.0)
+
+
+def test_fused_attention_function_on_cpu_uses_plain_versions():
+    """The autograd.Function: plain forward and plain backward on the CPU,
+    no gradient for the mask, no launch counted."""
+    q, k, v, mask = _attn_inputs(3, 12, 6, seed=2)
+    g = np.random.default_rng(3).standard_normal(q.shape).astype(np.float32)
+    tq, tk, tv, tm, tg = (torch.from_numpy(a) for a in (q, k, v, mask, g))
+    before = (fused_masked_attention_cuda.launches,
+              attention_bwd_cuda.launches)
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    tm = tm.clone().requires_grad_(True)
+    out = torch_fused(*leaves, tm, True)
+    np.testing.assert_array_equal(
+        out.detach().numpy(), attention_plain(tq, tk, tv, tm.detach()).numpy())
+    out.backward(tg)
+    for leaf, want in zip(leaves, attention_bwd_plain(tq, tk, tv,
+                                                      tm.detach(), tg)):
+        np.testing.assert_array_equal(leaf.grad.numpy(), want.numpy())
+    assert tm.grad is None
+    assert (fused_masked_attention_cuda.launches,
+            attention_bwd_cuda.launches) == before
+
+
+def test_attention_gate_by_shape():
+    """N <= 128 and F <= 128 within the backward's shared memory."""
+    assert kernels_support(80, 35) and kernels_support(128, 35)
+    assert kernels_support(84, 128) and not kernels_support(85, 128)
+    assert not kernels_support(129, 35) and not kernels_support(160, 35)
+    assert not kernels_support(16, 129)
+
+
+@pytest.mark.parametrize("n,routed", [(16, True), (136, False)])
+def test_gat_layer_routes_by_the_gate(monkeypatch, n, routed):
+    """ModifiedGATLayer asks the gate with the shapes before any launch:
+    through the kernels' Function up to the limit, the plain path past it
+    (the reference layer does the same past its kernel's N = 512)."""
+    from mgat_graphsage_torch.models import layers
+
+    calls = []
+
+    def spy(*a):
+        calls.append(a[0].shape)
+        return torch_fused(*a)
+
+    monkeypatch.setattr(layers, "fused_masked_attention", spy)
+    layer = layers.ModifiedGATLayer(35, 35)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, n, 35)).astype(np.float32))
+    m = torch.ones(2, n)
+    m[1, n // 2:] = 0.0
+    out = layer(x, m)
+    assert out.shape == (2, n, 35) and torch.isfinite(out).all()
+    assert bool(calls) == routed
+
+
+def test_adjacency_routes_past_its_limit_without_a_launch(monkeypatch):
+    """Past MAX_NODES (238) the adjacency takes the scatter version, by
+    the shape, before any launch."""
+    from mgat_graphsage_torch.ops import graph
+
+    def refuse(*a):
+        raise AssertionError("the kernel wrapper was reached past its limit")
+
+    monkeypatch.setattr(graph, "dense_adjacency_cuda", refuse)
+    edges, mask = _edges(b=3, n=16, seed=4)
+    out = graph.dense_adjacency(torch.from_numpy(edges),
+                                torch.from_numpy(mask), 240)
+    assert out.shape == (3, 240, 240)
+    np.testing.assert_array_equal(out[:, :16, :16].numpy(),
+                                  dense_adjacency_plain(
+                                      torch.from_numpy(edges),
+                                      torch.from_numpy(mask), 16).numpy())
+    with pytest.raises(AssertionError):
+        graph.dense_adjacency(torch.from_numpy(edges),
+                              torch.from_numpy(mask), 16)
