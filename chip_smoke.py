@@ -35,12 +35,14 @@ Phases (any failure raises and the script exits non-zero):
    within 1e-5 of its largest magnitude: the first training batch's own
    q, k_new, v at [128, 80, 35] with its last molecule fully masked, random
    [128, 80, 35], [16, 128, 35] and [16, 84, 128] (the gate's largest N at
-   F = 35 and F = 128); residual on and off;
+   F = 35 and F = 128), [8, 37, 35] and [4, 5, 3] (ragged tiles); residual
+   on and off; the kernel must repeat bit for bit, and the attn it
+   recomputes must equal the forward kernel's bit for bit;
 7. the CNN backward kernels against their plain versions at the training
    shape B=128, W=1024, on the model's own activations of that batch:
    ``dy3`` within 1e-5 and the six weight and bias gradients within 1e-4
-   of each output's largest magnitude (sums over 131,072 positions); the
-   chain kernel must repeat bit for bit;
+   of each output's largest magnitude (sums over 131,072 positions); both
+   kernels must repeat bit for bit; ``dy3`` also at three ragged shapes;
 8. full-width ``flagship`` training on the bundled train and validation
    CSVs, twice: default and ``cnn_pallas_bwd=True``.  Each: the first 4
    train steps' losses within rel 1e-4 of a run through the plain versions
@@ -54,8 +56,8 @@ Phases (any failure raises and the script exits non-zero):
    (attention on the plain path by the gate, adjacency on its kernel) and
    one training step at N = 160, each against the plain path;
 10. training timings: kernels 3-5, their plain versions, the library call
-   computing the same function (timed here only), their bounds and
-   launches per step; ms per train step and molecules/s both ways; a
+   computing the same function (timed here only), their bounds, bound
+   shares (bound / kernel time) and launches per step; ms per train step and molecules/s both ways; a
    ``torch.profiler`` trace of one training epoch.
 
 Kernel times come from CUDA events around back-to-back launches queued
@@ -222,7 +224,11 @@ def check_attention_bwd(torch, dev, rng, cases):
         for residual in (True, False):
             got = attention_bwd_cuda(q, k, v, m, g, residual)
             want = attention_bwd_plain(q, k, v, m, g, residual)
+            again = attention_bwd_cuda(q, k, v, m, g, residual)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"attention backward kernel does not "
+                                     f"repeat bit for bit on {name}")
             errs = [rel_err(a, b) for a, b in zip(got, want)]
             worst = max([worst] + [(a - b).abs().max().item()
                                    for a, b in zip(got, want)])
@@ -239,8 +245,40 @@ def check_attention_bwd(torch, dev, rng, cases):
                                          "dq = dk_new = 0")
             log(f"[6] attention bwd {name:<10} {tuple(q.shape)} "
                 f"residual={residual!s:<5} rel err dq/dk/dv "
-                f"{errs[0]:.2e} {errs[1]:.2e} {errs[2]:.2e}")
+                f"{errs[0]:.2e} {errs[1]:.2e} {errs[2]:.2e}, repeats bit for "
+                f"bit")
     return worst
+
+
+def check_attn_bitwise(torch, dev, rng):
+    """The attn that kernel 3 recomputes is kernel 2's to the bit: with
+    ``v`` and ``g`` one-hot (``[j, c] = 1`` where ``j == c``, N <= F) the
+    forward returns ``attn`` and the backward's ``dv`` its transpose, each
+    element a sum of one product and exact zeros."""
+    from mgat_graphsage_torch.ops.attention import (
+        attention_bwd_cuda, fused_masked_attention_cuda)
+
+    for b, n, f in ((16, 32, 35), (16, 80, 128)):
+        q, k = (torch.from_numpy(rng.standard_normal((b, n, f))
+                                 .astype(np.float32)).to(dev)
+                for _ in range(2))
+        m = np.zeros((b, n), np.float32)
+        for i in range(b):
+            m[i, :int(rng.integers(1, n + 1))] = 1.0
+        m[-1] = 0.0
+        m = torch.from_numpy(m).to(dev)
+        eye = torch.zeros((b, n, f), device=dev)
+        eye[:, torch.arange(n), torch.arange(n)] = 1.0
+        attn = fused_masked_attention_cuda(q, k, eye, m, False)[..., :n]
+        dv = attention_bwd_cuda(q, k, eye, m, eye, False)[2][..., :n]
+        torch.cuda.synchronize()
+        if not torch.equal(attn, dv.transpose(1, 2)):
+            err = (attn - dv.transpose(1, 2)).abs().max().item()
+            raise AssertionError(f"attn recomputed by the backward differs "
+                                 f"from the forward's at {(b, n, f)}: max "
+                                 f"|err| {err}")
+        log(f"[6] attn recomputed by the backward equals the forward's bit "
+            f"for bit at {(b, n, f)}")
 
 
 def cnn_activations(torch, model, fp):
@@ -271,11 +309,30 @@ def check_cnn_kernels(torch, dev, rng, model, fp):
     fc1_w = w.fc1.weight.detach()
     got = dy3_cuda(dy, fc1_w, y3)
     want = dy3_plain(dy, fc1_w, y3)
+    again = dy3_cuda(dy, fc1_w, y3)
     torch.cuda.synchronize()
     e4 = rel_err(got, want)
     if not torch.isfinite(got).all() or e4 > 1e-5:
         raise AssertionError(f"dy3 kernel differs: relative error {e4}")
-    log(f"[7] dy3 {tuple(got.shape)} rel err {e4:.2e} (limit 1e-5)")
+    if not torch.equal(got, again):
+        raise AssertionError("dy3 kernel does not repeat bit for bit")
+    log(f"[7] dy3 {tuple(got.shape)} rel err {e4:.2e} (limit 1e-5), "
+        f"repeats bit for bit")
+    # ragged shapes: a partial molecule tile, more than one (dy streamed
+    # with the weight), a partial column tile and reduction chunk, and
+    # fewer reduction chunks than ring stages
+    for b, h, k in ((61, 256, 4740), (200, 250, 4096), (128, 40, 1024)):
+        rd = torch.from_numpy(rng.standard_normal((b, h)).astype(np.float32)
+                              ).to(dev)
+        rw = torch.from_numpy(rng.standard_normal((h, k)).astype(np.float32)
+                              ).to(dev)
+        ry = torch.from_numpy(rng.standard_normal((b, k // 4, 4))
+                              .astype(np.float32)).to(dev)
+        e = rel_err(dy3_cuda(rd, rw, ry), dy3_plain(rd, rw, ry))
+        if e > 1e-5:
+            raise AssertionError(f"dy3 kernel differs at B={b}, H={h}, "
+                                 f"K={k}: relative error {e}")
+        log(f"[7] dy3 B={b} H={h} K={k} rel err {e:.2e} (limit 1e-5)")
     args = (want, y2, y1, fp, w.conv3.weight.detach(),
             w.conv2.weight.detach())
     got5 = cnn_chain_bwd_cuda(*args)
@@ -373,6 +430,9 @@ def main(argv=None) -> int:
     libs = _build.build_all()
     log(f"[2] built {', '.join(os.path.relpath(p, REPO) for p in libs)} "
         f"in {time.perf_counter() - t0:.1f} s")
+    for name in _build.KERNELS:
+        for line in _build.ptxas_report(name):
+            log(f"[2] ptxas {name}.cu {line}")
 
     test_smiles, test_y = load_csv(TEST_CSV)
     ds64 = MolecularDataset(test_smiles[:BATCH], test_y[:BATCH],
@@ -649,7 +709,10 @@ def main(argv=None) -> int:
         "train": (tq, tk, tv, dead),
         "random": rand_attn(tb, train_ds.max_nodes, 35),
         "n128_f35": rand_attn(16, 128, 35),
-        "n84_f128": rand_attn(16, 84, 128)})
+        "n84_f128": rand_attn(16, 84, 128),
+        "n37_f35": rand_attn(8, 37, 35),
+        "n5_f3": rand_attn(4, 5, 3)})
+    check_attn_bitwise(torch, dev, rng)
 
     # ---- 7. kernels 4 and 5 against their plain versions -----------------
     dy, y1, y2, y3, d3, dy3_err, chain_err = check_cnn_kernels(
@@ -817,7 +880,8 @@ def main(argv=None) -> int:
         log(f"[10] {name} at the training shape: kernel {ms * 1e3:.2f} us, "
             f"plain {plain * 1e3:.2f} us, library "
             f"{'n/a' if lib is None else f'{lib * 1e3:.2f} us'} ({calls}), "
-            f"bound {bms * 1e3:.2f} us ({by}), "
+            f"bound {bms * 1e3:.2f} us ({by}), bound share "
+            f"{bms / ms:.4f}, "
             f"{runs[True]['counts'][cname] / steps_b:.2f} launches/step, "
             f"on {card}")
     step_ms = {}
@@ -856,7 +920,8 @@ def main(argv=None) -> int:
          "launches": train_counts["dense_adjacency_cuda"],
          "max_abs_err": adj_err,
          "ms": adj_ms, "plain_ms": adj_plain_ms, "bound_ms": adj_bound[0],
-         "bound_by": adj_bound[1], "library_ms": None},
+         "bound_by": adj_bound[1], "bound_share": adj_bound[0] / adj_ms,
+         "library_ms": None},
         {"name": "fused_masked_attention", "route": "cuda",
          "source": "mgat_graphsage_torch/csrc/attention.cu",
          "replaces": "mgat_graphsage_tpu/ops/pallas_attention.py:84",
@@ -864,6 +929,7 @@ def main(argv=None) -> int:
          "max_abs_err": attn_err,
          "ms": attn_ms, "plain_ms": attn_plain_ms,
          "bound_ms": attn_bound[0], "bound_by": attn_bound[1],
+         "bound_share": attn_bound[0] / attn_ms,
          "library_ms": attn_lib_ms},
         {"name": "fused_masked_attention_bwd", "route": "cuda",
          "source": "mgat_graphsage_torch/csrc/attention_bwd.cu",
@@ -871,20 +937,21 @@ def main(argv=None) -> int:
          "launches": train_counts["attention_bwd_cuda"],
          "max_abs_err": attn_bwd_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
-         "library_ms": k3_lib_ms},
+         "bound_share": k3_bound[0] / k3_ms, "library_ms": k3_lib_ms},
         {"name": "cnn_dy3", "route": "cuda",
          "source": "mgat_graphsage_torch/csrc/cnn_dy3.cu",
          "replaces": "mgat_graphsage_tpu/ops/pallas_cnn.py:127",
          "launches": train_counts["dy3_cuda"], "max_abs_err": dy3_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0],
-         "bound_by": k4_bound[1], "library_ms": k4_lib_ms},
+         "bound_by": k4_bound[1], "bound_share": k4_bound[0] / k4_ms,
+         "library_ms": k4_lib_ms},
         {"name": "cnn_chain_bwd", "route": "cuda",
          "source": "mgat_graphsage_torch/csrc/cnn_chain_bwd.cu",
          "replaces": "mgat_graphsage_tpu/ops/pallas_cnn.py:264",
          "launches": train_counts["cnn_chain_bwd_cuda"],
          "max_abs_err": chain_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
-         "library_ms": k5_lib_ms},
+         "bound_share": k5_bound[0] / k5_ms, "library_ms": k5_lib_ms},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Where the time of kernels 3 and 4 goes, on one CUDA card.
+
+    python3 kernel_phases.py [--seed 0]
+
+Builds cut-down copies of ``csrc/attention_bwd.cu`` (kernel 3) and
+``csrc/cnn_dy3.cu`` (kernel 4), each with one part of the work removed,
+times every copy beside the full kernel at the training shape (B=128,
+N=80, F=35; H=256, K=131072) with ``chip_smoke.DeviceTimer``, and prints
+one line per copy with the card's name and power limit.  A cut copy
+computes wrong numbers on purpose; only its time is read.  The copies
+are written to and built in a temporary directory; the sources are not
+touched.
+
+Kernel 3: the full kernel; stopped after the molecule's load; stopped
+after phase A (attn and dscores in shared memory); phase A with the
+softmax replaced by a scale.  Kernel 4: the full kernel; without the
+dy3 stores; with neither stores nor ring refills (the FMAs on whatever
+the first chunks left in shared memory).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(REPO, "mgat_graphsage_torch", "csrc")
+# a kernel-3 copy returns here; the impossible store keeps the work alive
+STOP = ("  if (residual >= 0) {\n    if (residual == 7) dv[threadIdx.x] = "
+        "p_s[threadIdx.x] + d_s[threadIdx.x];\n    return;\n  }\n")
+
+
+def cut(src: str, old: str, new: str) -> str:
+    if old not in src:
+        raise ValueError(f"kernel source changed: {old!r} not found")
+    return src.replace(old, new)
+
+
+def variants():
+    """name -> (kernel source name, source text)."""
+    k3 = open(os.path.join(CSRC, "attention_bwd.cu")).read()
+    k4 = open(os.path.join(CSRC, "cnn_dy3.cu")).read()
+    no_stores = ("            __stcs(", "            if (batch < 0) __stcs(")
+    return {
+        "k3 full": ("attention_bwd", k3),
+        "k3 load only": ("attention_bwd",
+                         cut(k3, "  // ---- phase A", STOP + "  // ---- phase A")),
+        "k3 load + phase A": ("attention_bwd",
+                              cut(k3, "  // ---- phase B", STOP + "  // ---- phase B")),
+        "k3 load + phase A, no softmax": ("attention_bwd", cut(
+            cut(k3, "  // ---- phase B", STOP + "  // ---- phase B"),
+            "    softmax_rows<4, KPT>(a, m_s, n, kg, scale);",
+            "    for (int r = 0; r < 4; ++r) a[r][0] *= scale;")),
+        "k4 full": ("cnn_dy3", k4),
+        "k4 no stores": ("cnn_dy3", cut(k4, *no_stores)),
+        "k4 FMAs only": ("cnn_dy3", cut(
+            cut(k4, *no_stores), "    issue_chunk(g + kStages - 1);\n", "")),
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_phases: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from mgat_graphsage_torch.ops import _build
+
+    card = chip_smoke.nvidia_smi_line() or torch.cuda.get_device_name(0)
+    work = tempfile.TemporaryDirectory(prefix="kernel_phases-")
+    procs = {}
+    for i, (name, (kernel, src)) in enumerate(variants().items()):
+        cu = os.path.join(work.name, f"v{i}.cu")
+        with open(cu, "w") as fh:
+            fh.write(src)
+        procs[name] = (kernel, cu[:-3] + ".so", subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", cu[:-3] + ".so", cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (kernel, so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name}:\n{out}")
+        symbol, argtypes = _build.KERNELS[kernel]
+        fn = getattr(ctypes.CDLL(so), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = (kernel, fn)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    b, n, f = 128, 80, 35
+    q, k, v, g = (rand(b, n, f) for _ in range(4))
+    mask = np.zeros((b, n), np.float32)
+    for i in range(b):
+        mask[i, :int(rng.integers(20, n + 1))] = 1.0
+    mask = torch.from_numpy(mask).to(dev)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dyt = rand(256, 128, scale=0.01)
+    w, y3 = rand(256, 131072), rand(128, 1024, 128)
+    out = torch.empty_like(y3)
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {
+        "attention_bwd": lambda fn: fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n,
+            f, f ** -0.5, 1, stream),
+        "cnn_dy3": lambda fn: fn(dyt.data_ptr(), w.data_ptr(), y3.data_ptr(),
+                                 out.data_ptr(), 128, 256, 131072, stream)}
+    timer = chip_smoke.DeviceTimer(torch)
+    for name, (kernel, fn) in fns.items():
+        err = calls[kernel](fn)
+        if err:
+            raise RuntimeError(f"{name}: launch failed, cudaError {err}")
+        ms = timer(lambda: calls[kernel](fn), iters=50)
+        print(f"{name:<32} {ms * 1e3:9.2f} us  on {card}", flush=True)
+    work.cleanup()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,8 +4,9 @@
 // (_attention_bwd_kernel), the custom VJP of fused_masked_attention.
 //
 // Recomputes the forward's attention (same formula as csrc/attention.cu,
-// expf and the 1e-16 clamp included, so attn is the forward's to the bit)
-// and returns, for every molecule b (all f32, s = 1/sqrt(F)):
+// expf, the 1e-16 clamp and the forward's summation orders included, so
+// attn is the forward's to the bit) and returns, for every molecule b (all
+// f32, s = 1/sqrt(F)):
 //     attn       = masked_softmax(s * k_new q^T)         (keys masked)
 //     dv         = attn^T g  (+ g when residual)
 //     dattn      = g v^T
@@ -18,155 +19,403 @@
 // Bound on the H100: operations.  Per molecule the work is 5 N x N x F
 // products (2 to recompute scores and dattn, 3 for the gradients), 10 N^2 F
 // flops, against 8 N F floats in and out; at N=80, F=35 that is 56 flops
-// per byte, above the f32 ridge of 20.
+// per byte, above the f32 ridge of 20.  At B=128 the bound is 4.3 us.
 //
-// Design: dq and dv are column sums over query rows, so a row-tiled grid
-// cannot form them without a cross-block reduction.  One block per
-// molecule holds the whole molecule instead: q, k_new, v and g (odd row
-// stride F|1, so 32 lanes reading 32 rows hit 32 banks) and the two N x N
-// matrices attn and dscores live in shared memory.  Phase A gives each warp
-// query rows: lane l handles keys j = l, l+32, ... (N <= 128), the row max,
-// denominator and rowsum(dattn * attn) are warp shuffles, and the row of
-// attn and of dscores goes to shared memory.  Phase B gives each thread
-// output elements (j, c) of dv, dq and dk_new, each a sum over N in a fixed
-// order: no atomics, so the result repeats bit for bit.  Shared memory is
-// (4 N (F|1) + 2 N^2 + N) * 4 bytes: 96 KB at N=80, F=35; the wrapper gates
-// on it (at most 227 KB: N <= 128 at F=35, N <= 84 at F=128).
-// No tensor cores: F=35 fits no wgmma tile (later work).
+// What held the first design back (87 us at B=128, N=80, F=35): one
+// 8-warp block per molecule (at B=128 one block per SM, an eighth of its
+// warp slots), every score and dattn element a lone 35-long dot product
+// with two shared loads per FMA (and idle lanes at N=80, where 32 lanes
+// covered 128 key slots), and a phase B with six shared loads per three
+// FMAs.  Shared memory, not the FMA pipe, sets the pace of this kernel: a
+// 16-byte shared load costs four of the SM's shared-memory cycles
+// whatever the lanes' addresses, so a product needs about four FMAs per
+// float a lane loads to keep the FMA pipe ahead.
+//
+// Design: still one block per molecule, so the column sums of dq and dv
+// stay in one block's shared memory with no cross-block reduction and no
+// atomics; 10 warps, and register tiles with 16-byte shared loads in both
+// phases.  The molecule arrives by 4-byte cp.async, all of it in flight at
+// once.  q, k_new, v and g sit in shared memory with the row stride F
+// rounded up to 4 (and to an odd number of float4 when that fits, 36 at
+// F=35, so 8 lanes reading 8 rows hit 32 banks); the padding is never read
+// into a real element's sum: every product runs float4 steps over the
+// first F & ~3 features, then a scalar tail.
+// Phase A: a half-warp owns 4 query rows and all keys, each lane a
+// 4 x KPT tile (keys j = lane + 16 t, KPT = ceil(N/16): 5 at N=80, no idle
+// slot; 2.2 FMAs per loaded float), so row max, denominator and
+// rowsum(dattn * attn) are shuffles within 16 lanes, taken for the 4 rows
+// together; each score is a sequential fmaf over c from 0, as in the
+// forward, and the denominator is summed in the forward's tree.  attn and
+// dscores rows go to shared memory ([N4][N8], N4 and N8 = N rounded up to
+// 4 and 8).  Phase B: three products, each thread an 8 x 4 output tile of
+// dv, dq or dk_new (2.7 FMAs per loaded float), 4-deep float4 steps over
+// the reduction, sums in ascending order: the result repeats bit for bit.
+// Shared memory is ((2 N + 2 N4) Fp + 2 N4 N8 + N) * 4 bytes, 200 KB at
+// N=128, F=35 and 226 KB at N=84, F=128 (Fp = F rounded up to 4 there);
+// the wrapper gates on it.  No tensor cores: the f32 preset keeps IEEE
+// f32.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 10;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxKeysPerLane = 4;  // N <= 128
 constexpr float kNegInf = -1e9f;
+constexpr size_t kSmemLimit = 232448;
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float at(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// acc[r][t] = sum_c a_r[c] * rows[j_t][c] for R consecutive rows a_r of
+// a (stride fp) and keys j_t = kg + 16 t, sequentially over c = 0..f-1.
+// Keys past n read row n - 1 instead (their results are not used), so
+// the loop has no branch.
+template <int R, int KPT>
+__device__ __forceinline__ void row_products(const float* a, const float* rows,
+                                             int fp, int f, int n, int kg,
+                                             float (&acc)[R][KPT]) {
+  const float* y[KPT];
+#pragma unroll
+  for (int t = 0; t < KPT; ++t) {
+    y[t] = rows + min(kg + 16 * t, n - 1) * fp;
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r][t] = 0.0f;
+  }
+  int c = 0;
+  for (; c + 4 <= f; c += 4) {
+    float4 x[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) x[r] = ld4(a + r * fp + c);
+#pragma unroll
+    for (int t = 0; t < KPT; ++t) {
+      const float4 yv = ld4(y[t] + c);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        acc[r][t] = fmaf(x[r].x, yv.x, acc[r][t]);
+        acc[r][t] = fmaf(x[r].y, yv.y, acc[r][t]);
+        acc[r][t] = fmaf(x[r].z, yv.z, acc[r][t]);
+        acc[r][t] = fmaf(x[r].w, yv.w, acc[r][t]);
+      }
+    }
+  }
+  for (; c < f; ++c) {
+    float x[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) x[r] = a[r * fp + c];
+#pragma unroll
+    for (int t = 0; t < KPT; ++t) {
+      const float yv = y[t][c];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r][t] = fmaf(x[r], yv, acc[r][t]);
+    }
+  }
+}
+
+// softmax of R rows of KPT scores each, in place (the forward's formula);
+// keys j >= n are absent (weight 0).  The R rows go through each step
+// together, so their shuffles and exponentials overlap.
+template <int R, int KPT>
+__device__ __forceinline__ void softmax_rows(float (&s)[R][KPT],
+                                             const float* m_s, int n, int kg,
+                                             float scale) {
+  bool real[KPT], live[KPT];
+  float bias[KPT];
+#pragma unroll
+  for (int t = 0; t < KPT; ++t) {
+    const int j = kg + 16 * t;
+    const float m = m_s[min(j, n - 1)];
+    real[t] = j < n;
+    live[t] = real[t] && m > 0.0f;
+    bias[t] = m > 0.0f ? 0.0f : kNegInf;
+  }
+  float row_max[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    row_max[r] = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < KPT; ++t) {
+      s[r][t] = s[r][t] * scale + bias[t];
+      if (real[t]) row_max[r] = fmaxf(row_max[r], s[r][t]);
+    }
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      row_max[r] = fmaxf(row_max[r],
+                         __shfl_xor_sync(0xffffffffu, row_max[r], off));
+  // the forward's lane L (0..31) sums keys L, L+32, L+64, L+96 in that
+  // order, then adds lanes L ^ 16, ^ 8, ^ 4, ^ 2, ^ 1: here lane kg holds
+  // the keys of L = kg (even t) and L = kg + 16 (odd t)
+  float denom[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float even = 0.0f, odd = 0.0f;
+#pragma unroll
+    for (int t = 0; t < KPT; ++t) {
+      const float e = expf(s[r][t] - row_max[r]);
+      s[r][t] = live[t] ? e : 0.0f;
+      if (t % 2 == 0) even += s[r][t]; else odd += s[r][t];
+    }
+    denom[r] = even + odd;
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      denom[r] += __shfl_xor_sync(0xffffffffu, denom[r], off);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float d = fmaxf(denom[r], 1e-16f);
+#pragma unroll
+    for (int t = 0; t < KPT; ++t) s[r][t] = s[r][t] / d;
+  }
+}
+
+// dscores of R rows from their attn (a) and dattn (da), in place in da
+template <int R, int KPT>
+__device__ __forceinline__ void dscores_rows(const float (&a)[R][KPT],
+                                             float (&da)[R][KPT], int n,
+                                             int kg) {
+  float row[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    row[r] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < KPT; ++t) {
+      if (kg + 16 * t < n) row[r] = fmaf(da[r][t], a[r][t], row[r]);
+    }
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      row[r] += __shfl_xor_sync(0xffffffffu, row[r], off);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int t = 0; t < KPT; ++t)
+      da[r][t] = kg + 16 * t < n ? a[r][t] * (da[r][t] - row[r]) : 0.0f;
+}
+
+template <int KPT>
+__global__ void __launch_bounds__(kThreads, 1)
 masked_attention_bwd_kernel(const float* __restrict__ q,
                             const float* __restrict__ k_new,
                             const float* __restrict__ v,
                             const float* __restrict__ mask,
                             const float* __restrict__ g,
                             float* __restrict__ dq, float* __restrict__ dk,
-                            float* __restrict__ dv, int n, int f,
+                            float* __restrict__ dv, int n, int f, int fp,
                             float scale, int residual) {
-  extern __shared__ float smem[];
-  const int fs = f | 1;                        // odd row stride
-  float* q_s = smem;                           // [n][fs]
-  float* k_s = q_s + n * fs;                   // [n][fs]
-  float* v_s = k_s + n * fs;                   // [n][fs]
-  float* g_s = v_s + n * fs;                   // [n][fs]
-  float* p_s = g_s + n * fs;                   // [n][n] attn
-  float* d_s = p_s + n * n;                    // [n][n] dscores
-  float* m_s = d_s + n * n;                    // [n]
+  extern __shared__ __align__(16) float smem[];
+  const int nr = (n + 3) & ~3;                 // rows of k, g, attn, dscores
+  const int np = (n + 7) & ~7;                 // columns of attn, dscores
+  float* k_s = smem;                           // [nr][fp]
+  float* g_s = k_s + nr * fp;                  // [nr][fp]
+  float* q_s = g_s + nr * fp;                  // [n][fp]
+  float* v_s = q_s + n * fp;                   // [n][fp]
+  float* p_s = v_s + n * fp;                   // [nr][np] attn
+  float* d_s = p_s + nr * np;                  // [nr][np] dscores
+  float* m_s = d_s + nr * np;                  // [n]
 
+  // all of the molecule in flight at once: 4-byte cp.async, padding
+  // zero-filled
   const size_t base = (size_t)blockIdx.x * n * f;
-  for (int idx = threadIdx.x; idx < n * f; idx += blockDim.x) {
-    const int j = idx / f;
-    const int c = idx - j * f;
-    const int s = j * fs + c;
-    q_s[s] = q[base + idx];
-    k_s[s] = k_new[base + idx];
-    v_s[s] = v[base + idx];
-    g_s[s] = g[base + idx];
+  for (int idx = threadIdx.x; idx < nr * fp; idx += kThreads) {
+    const int j = idx / fp;
+    const int c = idx - j * fp;
+    const bool real = j < n && c < f;
+    const size_t src = real ? base + (size_t)j * f + c : 0;
+    cp_async4(k_s + idx, k_new + src, real);
+    cp_async4(g_s + idx, g + src, real);
+    if (j < n) {
+      cp_async4(q_s + idx, q + src, real);
+      cp_async4(v_s + idx, v + src, real);
+    }
   }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    m_s[j] = mask[(size_t)blockIdx.x * n + j];
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    cp_async4(m_s + j, mask + (size_t)blockIdx.x * n + j, true);
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
 
-  // ---- phase A: one warp per query row: attn and dscores rows ----------
+  // ---- phase A: a half-warp per 4 query rows, 4 x KPT per lane -------
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int i = warp; i < n; i += kWarps) {
-    const float* ki = k_s + i * fs;
-    const float* gi = g_s + i * fs;
-    float s[kMaxKeysPerLane];
-    float row_max = -INFINITY;
+  const int kg = lane & 15;
+  for (int oct = warp; oct < (nr + 7) / 8; oct += kWarps) {
+    // a half-warp past the last row recomputes the last 4 and stores
+    // nothing: every lane takes part in the shuffles
+    const int i0 = 8 * oct + 4 * (lane >> 4);
+    const int ic = min(i0, nr - 4);
+    float a[4][KPT], da[4][KPT];
+    row_products<4, KPT>(k_s + ic * fp, q_s, fp, f, n, kg, a);
+    softmax_rows<4, KPT>(a, m_s, n, kg, scale);
+    row_products<4, KPT>(g_s + ic * fp, v_s, fp, f, n, kg, da);
+    dscores_rows<4, KPT>(a, da, n, kg);
+    if (i0 < nr) {
 #pragma unroll
-    for (int t = 0; t < kMaxKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = -INFINITY;
-      if (j < n) {
-        const float* qj = q_s + j * fs;
-        float acc = 0.0f;
-        for (int c = 0; c < f; ++c) acc = fmaf(ki[c], qj[c], acc);
-        s[t] = acc * scale + (m_s[j] > 0.0f ? 0.0f : kNegInf);
-        row_max = fmaxf(row_max, s[t]);
-      }
-    }
+      for (int t = 0; t < KPT; ++t) {
+        const int j = kg + 16 * t;
+        if (j < np) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
-    }
-    float denom = 0.0f;
-#pragma unroll
-    for (int t = 0; t < kMaxKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      if (j < n) {
-        s[t] = m_s[j] > 0.0f ? expf(s[t] - row_max) : 0.0f;
-        denom += s[t];
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      denom += __shfl_xor_sync(0xffffffffu, denom, off);
-    }
-    denom = fmaxf(denom, 1e-16f);
-    float da[kMaxKeysPerLane];
-    float row = 0.0f;
-#pragma unroll
-    for (int t = 0; t < kMaxKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      da[t] = 0.0f;
-      if (j < n) {
-        s[t] = s[t] / denom;                   // attn[i, j]
-        const float* vj = v_s + j * fs;
-        float acc = 0.0f;
-        for (int c = 0; c < f; ++c) acc = fmaf(gi[c], vj[c], acc);
-        da[t] = acc;                           // dattn[i, j]
-        row = fmaf(acc, s[t], row);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      row += __shfl_xor_sync(0xffffffffu, row, off);
-    }
-#pragma unroll
-    for (int t = 0; t < kMaxKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      if (j < n) {
-        p_s[i * n + j] = s[t];
-        d_s[i * n + j] = s[t] * (da[t] - row);
+          for (int r = 0; r < 4; ++r) {
+            p_s[(i0 + r) * np + j] = a[r][t];
+            d_s[(i0 + r) * np + j] = da[r][t];
+          }
+        }
       }
     }
   }
   __syncthreads();
 
-  // ---- phase B: one thread per (row j, feature c) of each gradient -----
-  for (int idx = threadIdx.x; idx < n * f; idx += blockDim.x) {
-    const int j = idx / f;
-    const int c = idx - j * f;
-    float acc_v = 0.0f, acc_q = 0.0f, acc_k = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      acc_v = fmaf(p_s[i * n + j], g_s[i * fs + c], acc_v);
-      acc_q = fmaf(d_s[i * n + j], k_s[i * fs + c], acc_q);
-      acc_k = fmaf(d_s[j * n + i], q_s[i * fs + c], acc_k);
+  // ---- phase B: 8 x 4 output tiles of dv, dq (sums over query rows i)
+  // and dk_new (sums over keys j) ------------------------------------------
+  const int ct_n = fp / 4;
+  const int tiles = (np / 8) * ct_n;
+  for (int task = threadIdx.x; task < 3 * tiles; task += kThreads) {
+    const int kind = task / tiles;             // 0 dv, 1 dq, 2 dk_new
+    const int rem = task - kind * tiles;
+    const int r0 = (rem / ct_n) * 8;
+    const int c0 = (rem % ct_n) * 4;
+    float acc[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+
+    if (kind < 2) {
+      // out[j, c] = sum_i A[i, j] * B[i, c], rows j = r0..r0+7
+      const float* A = (kind == 0 ? p_s : d_s) + r0;
+      const float* B = (kind == 0 ? g_s : k_s) + c0;
+      int i = 0;
+      for (; i + 4 <= n; i += 4) {
+        float4 x[4][2], y[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          x[u][0] = ld4(A + (i + u) * np);
+          x[u][1] = ld4(A + (i + u) * np + 4);
+          y[u] = ld4(B + (i + u) * fp);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc[r][c] = fmaf(at(x[u][r / 4], r % 4), at(y[u], c), acc[r][c]);
+      }
+      for (; i < n; ++i) {
+        const float4 x0 = ld4(A + i * np);
+        const float4 x1 = ld4(A + i * np + 4);
+        const float4 y = ld4(B + i * fp);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[r][c] = fmaf(at(r < 4 ? x0 : x1, r % 4), at(y, c), acc[r][c]);
+      }
+    } else {
+      // out[i, c] = sum_j dscores[i, j] * q[j, c], rows i = r0..r0+7 (rows
+      // past nr read row nr - 1; they are not stored)
+      const float* A[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) A[r] = d_s + min(r0 + r, nr - 1) * np;
+      const float* B = q_s + c0;
+      int j = 0;
+      for (; j + 4 <= n; j += 4) {
+        float4 x[8], y[4];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) x[r] = ld4(A[r] + j);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) y[u] = ld4(B + (j + u) * fp);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc[r][c] = fmaf(at(x[r], u), at(y[u], c), acc[r][c]);
+      }
+      for (; j < n; ++j) {
+        const float4 y = ld4(B + j * fp);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float x = A[r][j];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x, at(y, c), acc[r][c]);
+        }
+      }
     }
-    if (residual) acc_v += g_s[j * fs + c];
-    dv[base + idx] = acc_v;
-    dq[base + idx] = acc_q * scale;
-    dk[base + idx] = acc_k * scale;
+
+    float* out = kind == 0 ? dv : kind == 1 ? dq : dk;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = r0 + r;
+      if (row >= n) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = c0 + c;
+        if (col >= f) continue;
+        float val = acc[r][c];
+        if (kind == 0) {
+          if (residual) val += g_s[row * fp + col];
+        } else {
+          val *= scale;
+        }
+        out[base + (size_t)row * f + col] = val;
+      }
+    }
   }
+}
+
+size_t smem_bytes(int n, int f, int fp) {
+  const size_t nr = (size_t)((n + 3) & ~3);
+  const size_t np = (size_t)((n + 7) & ~7);
+  return ((2 * (size_t)n + 2 * nr) * fp + 2 * nr * np + n) * sizeof(float);
+}
+
+template <int KPT>
+int launch(const void* q, const void* k_new, const void* v, const void* mask,
+           const void* g, void* dq, void* dk, void* dv, int batch, int n,
+           int f, int fp, float scale, int residual, cudaStream_t stream) {
+  const size_t smem = smem_bytes(n, f, fp);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        masked_attention_bwd_kernel<KPT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  masked_attention_bwd_kernel<KPT><<<batch, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k_new),
+      static_cast<const float*>(v), static_cast<const float*>(mask),
+      static_cast<const float*>(g), static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), n, f, fp, scale,
+      residual);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k_new, v, g, dq, dk, dv [B, N, F] f32; mask [B, N] f32; all contiguous
-// on the current device; N <= 128, F <= 128 and the shared memory below
-// within the 227 KB opt-in limit (checked by the caller).  Returns
+// on the current device; 1 <= N <= 128, F <= 128 and the shared memory at
+// the row stride F rounded up to 4 within the 227 KB opt-in limit (checked
+// by the caller: ops/attention.py::kernels_support).  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int masked_attention_bwd_launch(const void* q, const void* k_new,
                                            const void* v, const void* mask,
@@ -175,20 +424,19 @@ extern "C" int masked_attention_bwd_launch(const void* q, const void* k_new,
                                            float scale, int residual,
                                            void* stream) {
   if (batch == 0 || n == 0) return 0;
-  const size_t smem =
-      (size_t)(4 * n * (f | 1) + 2 * n * n + n) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        masked_attention_bwd_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  if (n > 128) return (int)cudaErrorInvalidValue;
+  int fp = (f + 3) & ~3;
+  if ((fp / 4) % 2 == 0 && smem_bytes(n, f, fp + 4) <= kSmemLimit) fp += 4;
+  if (smem_bytes(n, f, fp) > kSmemLimit) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch ((n + 15) / 16) {
+    case 1: return launch<1>(q, k_new, v, mask, g, dq, dk, dv, batch, n, f, fp, scale, residual, s);
+    case 2: return launch<2>(q, k_new, v, mask, g, dq, dk, dv, batch, n, f, fp, scale, residual, s);
+    case 3: return launch<3>(q, k_new, v, mask, g, dq, dk, dv, batch, n, f, fp, scale, residual, s);
+    case 4: return launch<4>(q, k_new, v, mask, g, dq, dk, dv, batch, n, f, fp, scale, residual, s);
+    case 5: return launch<5>(q, k_new, v, mask, g, dq, dk, dv, batch, n, f, fp, scale, residual, s);
+    case 6: return launch<6>(q, k_new, v, mask, g, dq, dk, dv, batch, n, f, fp, scale, residual, s);
+    case 7: return launch<7>(q, k_new, v, mask, g, dq, dk, dv, batch, n, f, fp, scale, residual, s);
+    default: return launch<8>(q, k_new, v, mask, g, dq, dk, dv, batch, n, f, fp, scale, residual, s);
   }
-  masked_attention_bwd_kernel<<<batch, kThreads, smem,
-                                (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_new),
-      static_cast<const float*>(v), static_cast<const float*>(mask),
-      static_cast<const float*>(g), static_cast<float*>(dq),
-      static_cast<float*>(dk), static_cast<float*>(dv), n, f, scale,
-      residual);
-  return (int)cudaGetLastError();
 }

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C entry point and is compiled on its
 own into ``csrc/build/<name>-<hash>.so`` (git-ignored), at first use:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o csrc/build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o csrc/build/<name>-<hash>.so \
+         csrc/<name>.cu
 
 The hash covers the source and the flags, so an edited source rebuilds.
 Nothing is built when a module is imported: the wrappers in
@@ -12,7 +13,9 @@ Nothing is built when a module is imported: the wrappers in
 :func:`load` when they first launch on a CUDA tensor.  :func:`build_all` starts one ``nvcc`` per
 source at once, for callers that want every kernel ready up front.
 ``nvcc`` is found through ``$CUDA_HOME``, then ``$PATH``, then the
-toolkit's standard location.  A failed build raises with nvcc's output.
+toolkit's standard location.  A failed build raises with nvcc's output;
+a build's output (ptxas's registers and spills per kernel) is kept in
+:data:`BUILD_LOGS` and summarised by :func:`ptxas_report`.
 """
 
 from __future__ import annotations
@@ -20,19 +23,20 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict, Iterable, List
 
-__all__ = ["KERNELS", "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "load",
-           "build_all", "library_path"]
+__all__ = ["KERNELS", "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "BUILD_LOGS",
+           "load", "build_all", "library_path", "ptxas_report"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.environ.get("MGAT_TORCH_BUILD_DIR",
                            os.path.join(CSRC_DIR, "build"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +53,7 @@ KERNELS: Dict[str, tuple] = {
 }
 
 _loaded: Dict[str, object] = {}
+BUILD_LOGS: Dict[str, str] = {}    # kernel source -> nvcc output of its build
 
 
 def _nvcc() -> str:
@@ -99,6 +104,7 @@ def _finish(name: str, job) -> None:
             os.remove(tmp)
         raise RuntimeError(f"nvcc failed to build csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    BUILD_LOGS[name] = log
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
 
 
@@ -130,3 +136,36 @@ def load(name: str):
         fn.restype = ctypes.c_int
         _loaded[name] = fn
     return fn
+
+
+def _demangle(symbol: str) -> str:
+    """``name<N>`` of a mangled ``..._kernel`` (with its integer template
+    argument, if any); the symbol itself when no such name is in it."""
+    for i in range(len(symbol)):
+        for j in range(i + 1, min(i + 3, len(symbol)) + 1):
+            if not symbol[i:j].isdigit():
+                break
+            name = symbol[j:j + int(symbol[i:j])]
+            if name.endswith("_kernel") and name.isidentifier():
+                arg = re.match(r"ILi(\d+)E", symbol[j + len(name):])
+                return name + (f"<{arg.group(1)}>" if arg else "")
+    return symbol
+
+
+def ptxas_report(name: str) -> List[str]:
+    """``"<kernel>: <n> registers, <s> bytes spilled"`` for each kernel
+    (template instantiations included) in the build log of ``name``;
+    empty if this process did not build it."""
+    out, kernel, spill = [], None, 0
+    for line in BUILD_LOGS.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = _demangle(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append(f"{kernel}: {m.group(1)} registers, {spill} bytes "
+                       "spilled")
+    return out

@@ -14,9 +14,9 @@ The backward recomputes ``attn`` (nothing ``[B, N, N]`` is saved) and
 returns ``dq, dk_new, dv``; the mask gets no gradient.
 
 Shape limit of the kernels: ``1 <= N <= 128``, ``1 <= F <= 128`` and the
-backward's shared memory, ``(4 N (F|1) + 2 N^2 + N) * 4`` bytes, within
-the 227 KB a block may use (N <= 128 at the flagship's F = 35, N <= 84 at
-F = 128).  :func:`kernels_support` is that test; ``ModifiedGATLayer``
+backward's shared memory, ``((2 N + 2 N4) F4 + 2 N4 N8 + N) * 4`` bytes
+with ``N4``, ``F4`` rounded up to 4 and ``N8`` to 8, within the 227 KB a block may use
+(N <= 128 at the flagship's F = 35, N <= 84 at F = 128).  :func:`kernels_support` is that test; ``ModifiedGATLayer``
 asks it before any launch and takes the plain path past the limit, as the
 reference layer takes its XLA path past its kernel's (N > 512).  The
 wrappers themselves never choose: on a CUDA tensor they launch their
@@ -45,7 +45,8 @@ def _forward_fits(n: int, f: int) -> bool:
 def kernels_support(n: int, f: int) -> bool:
     """True if both attention kernels take ``[*, n, f]`` (the forward
     alone takes any N, F <= 128)."""
-    smem = (4 * n * (f | 1) + 2 * n * n + n) * 4
+    n4, n8, f4 = -(-n // 4) * 4, -(-n // 8) * 8, -(-f // 4) * 4
+    smem = ((2 * n + 2 * n4) * f4 + 2 * n4 * n8 + n) * 4
     return _forward_fits(n, f) and smem <= _SMEM_LIMIT
 
 

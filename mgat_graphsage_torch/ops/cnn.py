@@ -35,6 +35,7 @@ _SPLIT = [(C3 * C2 * 3, (C3, C2, 3)), (C3, (C3,)), (C2 * C1 * 3, (C2, C1, 3)),
           (C2, (C2,)), (C1 * 3, (C1, 1, 3)), (C1, (C1,))]
 _NTOT = sum(n for n, _ in _SPLIT)
 _TILE_W = 32                     # positions per tile of the chain kernel
+_DY3_TILE_B = 128                # molecules per tile of the dy3 kernel
 
 
 def dy3_plain(dy: torch.Tensor, fc1_weight: torch.Tensor,
@@ -116,9 +117,12 @@ def dy3_cuda(dy: torch.Tensor, fc1_weight: torch.Tensor,
                          "fc1_weight and y3")
     from ._build import load
 
+    # the kernel reads dy transposed, its columns padded to a whole tile
+    bpad = -(-b // _DY3_TILE_B) * _DY3_TILE_B
+    dyt = (dy.t() if bpad == b else F.pad(dy.t(), (0, bpad - b))).contiguous()
     out = torch.empty_like(y3)
     with torch.cuda.device(dy.device):
-        err = load("cnn_dy3")(dy.data_ptr(), fc1_weight.data_ptr(),
+        err = load("cnn_dy3")(dyt.data_ptr(), fc1_weight.data_ptr(),
                               y3.data_ptr(), out.data_ptr(), b, h, k,
                               _stream(dy))
     if err:

@@ -158,7 +158,7 @@ def test_pools_match_jax(pool):
 
 # ---- attention backward (kernel 3's plain version and the Function) ------
 
-@pytest.mark.parametrize("shape", [(4, 16, 35), (3, 24, 8)])
+@pytest.mark.parametrize("shape", [(4, 16, 35), (3, 24, 8), (2, 128, 35)])
 @pytest.mark.parametrize("residual", [True, False])
 def test_attention_bwd_plain_vs_pallas_vjp(shape, residual):
     """Mixed padding and a fully-masked molecule: the explicit formula
@@ -211,7 +211,9 @@ def test_fused_attention_function_on_cpu_uses_plain_versions():
 
 
 def test_attention_gate_by_shape():
-    """N <= 128 and F <= 128 within the backward's shared memory."""
+    """N <= 128 and F <= 128 within the backward's shared memory: the
+    backward's layout (row stride F rounded up to 4, attn and dscores
+    [N4][N8]) keeps the limits N <= 128 at F = 35 and N <= 84 at F = 128."""
     assert kernels_support(80, 35) and kernels_support(128, 35)
     assert kernels_support(84, 128) and not kernels_support(85, 128)
     assert not kernels_support(129, 35) and not kernels_support(160, 35)
@@ -262,3 +264,30 @@ def test_adjacency_routes_past_its_limit_without_a_launch(monkeypatch):
     with pytest.raises(AssertionError):
         graph.dense_adjacency(torch.from_numpy(edges),
                               torch.from_numpy(mask), 16)
+
+
+def test_ptxas_report_names_each_kernel_and_its_registers():
+    """The build keeps nvcc's ptxas output; the report names each kernel
+    (a template's integer argument included) with its registers and
+    spills, and is empty for a source this process did not build."""
+    from mgat_graphsage_torch.ops import _build
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__3333f5"
+        "28_16_attention_bwd_cu_02f4085027masked_attention_bwd_kernelILi5EE"
+        "EvPKfS2_S2_S2_S2_PfS3_S3_iiifi' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 118 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__0fc71fc8"
+        "_10_cnn_dy3_cu_6d91793d14cnn_dy3_kernelEPKfS1_S1_Pfiiiii' for "
+        "'sm_90a'",
+        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers"])
+    try:
+        _build.BUILD_LOGS["probe"] = log
+        assert _build.ptxas_report("probe") == [
+            "masked_attention_bwd_kernel<5>: 118 registers, 0 bytes spilled",
+            "cnn_dy3_kernel: 255 registers, 8 bytes spilled"]
+    finally:
+        del _build.BUILD_LOGS["probe"]
+    assert _build.ptxas_report("probe") == []
