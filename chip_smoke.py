@@ -42,7 +42,9 @@ Phases (any failure raises and the script exits non-zero):
    shape B=128, W=1024, on the model's own activations of that batch:
    ``dy3`` within 1e-5 and the six weight and bias gradients within 1e-4
    of each output's largest magnitude (sums over 131,072 positions); both
-   kernels must repeat bit for bit; ``dy3`` also at three ragged shapes;
+   kernels must repeat bit for bit; ``dy3`` also at three ragged shapes,
+   the chain kernel at B=3, W=37; B=1, W=1; B=5, W=2048 and B=200,
+   W=1024 on random ReLU-pattern inputs (same limit, bit for bit);
 8. full-width ``flagship`` training on the bundled train and validation
    CSVs, twice: default and ``cnn_pallas_bwd=True``.  Each: the first 4
    train steps' losses within rel 1e-4 of a run through the plain versions
@@ -347,8 +349,37 @@ def check_cnn_kernels(torch, dev, rng, model, fp):
     log("[7] cnn chain bwd dw3/db3/dw2/db2/dw1/db1 rel err "
         + " ".join(f"{e:.2e}" for e in errs) + " (limit 1e-4), repeats "
         "bit for bit")
+    chain_err = max((a - b).abs().max().item() for a, b in zip(got5, want5))
+    # ragged shapes, on random inputs with the ReLU pattern of real
+    # activations (about half zero) and fingerprint bits: one ragged tile
+    # with W % 4 != 0, a single position, the ecfp2048 width, and more
+    # tiles than the training shape
+    def relu(*shape):
+        return torch.from_numpy(np.maximum(rng.standard_normal(shape), 0)
+                                .astype(np.float32)).to(dev)
+
+    for b, wd in ((3, 37), (1, 1), (5, 2048), (200, 1024)):
+        rfp = torch.from_numpy((rng.random((b, wd)) < 0.1)
+                               .astype(np.float32)).to(dev)
+        rargs = (relu(b, wd, 128), relu(b, 64, wd), relu(b, 32, wd), rfp,
+                 args[4], args[5])
+        rgot = cnn_chain_bwd_cuda(*rargs)
+        rwant = cnn_chain_bwd_plain(*rargs)
+        ragain = cnn_chain_bwd_cuda(*rargs)
+        torch.cuda.synchronize()
+        rerrs = [rel_err(a, b) for a, b in zip(rgot, rwant)]
+        if not all(torch.isfinite(a).all() for a in rgot) \
+                or max(rerrs) > 1e-4:
+            raise AssertionError(f"cnn chain kernel differs at B={b}, "
+                                 f"W={wd}: {rerrs}")
+        if not all(torch.equal(a, c) for a, c in zip(rgot, ragain)):
+            raise AssertionError(f"cnn chain kernel does not repeat bit for "
+                                 f"bit at B={b}, W={wd}")
+        log(f"[7] cnn chain bwd B={b} W={wd} rel err "
+            + " ".join(f"{e:.2e}" for e in rerrs) + " (limit 1e-4), "
+            "repeats bit for bit")
     return (dy, y1, y2, y3, want, (got - want).abs().max().item(),
-            max((a - b).abs().max().item() for a, b in zip(got5, want5)))
+            chain_err)
 
 
 def first_steps(torch, Trainer, cfg, train, val, steps=4):

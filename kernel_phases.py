@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time of kernels 3 and 4 goes, on one CUDA card.
+"""Where the time of kernels 3, 4 and 5 goes, on one CUDA card.
 
-    python3 kernel_phases.py [--seed 0]
+    python3 kernel_phases.py [--seed 0] [--only k5]
 
-Builds cut-down copies of ``csrc/attention_bwd.cu`` (kernel 3) and
-``csrc/cnn_dy3.cu`` (kernel 4), each with one part of the work removed,
-times every copy beside the full kernel at the training shape (B=128,
-N=80, F=35; H=256, K=131072) with ``chip_smoke.DeviceTimer``, and prints
+Builds cut-down copies of ``csrc/attention_bwd.cu`` (kernel 3),
+``csrc/cnn_dy3.cu`` (kernel 4) and ``csrc/cnn_chain_bwd.cu`` (kernel 5),
+each with one part of the work removed, times every copy beside the full
+kernel at the training shape (B=128, N=80, F=35; H=256, K=131072;
+W=1024) with ``chip_smoke.DeviceTimer``, and prints
 one line per copy with the card's name and power limit.  A cut copy
 computes wrong numbers on purpose; only its time is read.  The copies
 are written to and built in a temporary directory; the sources are not
@@ -16,7 +17,13 @@ Kernel 3: the full kernel; stopped after the molecule's load; stopped
 after phase A (attn and dscores in shared memory); phase A with the
 softmax replaced by a scale.  Kernel 4: the full kernel; without the
 dy3 stores; with neither stores nor ring refills (the FMAs on whatever
-the first chunks left in shared memory).
+the first chunks left in shared memory).  Kernel 5: the full kernel; each
+tile's staging alone (the wait for its copies); staging and dw3, db3;
+staging and all of level 3 (d2 too); all but d1 and its sums; every
+phase without the refills (each tile computes on whatever the first one
+left in shared memory).  Kernel 5's inputs have the ReLU pattern of real
+activations: y1, y2 and d3 about half zero, the fingerprint's bits 0 or
+1.  ``--only`` keeps the copies whose name starts with its argument.
 """
 
 from __future__ import annotations
@@ -47,6 +54,11 @@ def variants():
     """name -> (kernel source name, source text)."""
     k3 = open(os.path.join(CSRC, "attention_bwd.cu")).read()
     k4 = open(os.path.join(CSRC, "cnn_dy3.cu")).read()
+    k5 = open(os.path.join(CSRC, "cnn_chain_bwd.cu")).read()
+
+    def k5_upto(marker):   # each tile skips the rest of its work at marker
+        return ("cnn_chain_bwd", cut(k5, marker, "    continue;\n" + marker))
+
     no_stores = ("            __stcs(", "            if (batch < 0) __stcs(")
     return {
         "k3 full": ("attention_bwd", k3),
@@ -62,12 +74,21 @@ def variants():
         "k4 no stores": ("cnn_dy3", cut(k4, *no_stores)),
         "k4 FMAs only": ("cnn_dy3", cut(
             cut(k4, *no_stores), "    issue_chunk(g + kStages - 1);\n", "")),
+        "k5 full": ("cnn_chain_bwd", k5),
+        "k5 staging only": k5_upto("    // ---- level 3: dw3"),
+        "k5 staging + dw3, db3": k5_upto("    // ---- level 3: d2"),
+        "k5 staging + level 3": k5_upto("    // ---- level 2: dw2"),
+        "k5 staging + level 3 + dw2": k5_upto("    // ---- level 2: d1"),
+        "k5 no refills": ("cnn_chain_bwd", cut(
+            k5, "    if (tile + (int)gridDim.x < ntiles)\n      stage_tile(",
+            "    if (ntiles < 0)\n      stage_tile(")),
     }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="", help="name prefix, e.g. k5")
     args = ap.parse_args(argv)
 
     import torch
@@ -82,7 +103,8 @@ def main(argv=None) -> int:
     card = chip_smoke.nvidia_smi_line() or torch.cuda.get_device_name(0)
     work = tempfile.TemporaryDirectory(prefix="kernel_phases-")
     procs = {}
-    for i, (name, (kernel, src)) in enumerate(variants().items()):
+    chosen = {n: v for n, v in variants().items() if n.startswith(args.only)}
+    for i, (name, (kernel, src)) in enumerate(chosen.items()):
         cu = os.path.join(work.name, f"v{i}.cu")
         with open(cu, "w") as fh:
             fh.write(src)
@@ -116,6 +138,17 @@ def main(argv=None) -> int:
     dyt = rand(256, 128, scale=0.01)
     w, y3 = rand(256, 131072), rand(128, 1024, 128)
     out = torch.empty_like(y3)
+    def relu(*shape):
+        return rand(*shape).clamp_min_(0.0)
+
+    cb, cw = 128, 1024
+    d3, y2, y1 = relu(cb, cw, 128), relu(cb, 64, cw), relu(cb, 32, cw)
+    fp = torch.from_numpy((rng.random((cb, cw)) < 0.1).astype(np.float32)
+                          ).to(dev)
+    w3, w2 = rand(128, 64, 3, scale=0.05), rand(64, 32, 3, scale=0.05)
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    partials = torch.empty(blocks, 31040, device=dev)
+    sums = torch.empty(31040, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     calls = {
         "attention_bwd": lambda fn: fn(
@@ -123,7 +156,11 @@ def main(argv=None) -> int:
             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n,
             f, f ** -0.5, 1, stream),
         "cnn_dy3": lambda fn: fn(dyt.data_ptr(), w.data_ptr(), y3.data_ptr(),
-                                 out.data_ptr(), 128, 256, 131072, stream)}
+                                 out.data_ptr(), 128, 256, 131072, stream),
+        "cnn_chain_bwd": lambda fn: fn(
+            d3.data_ptr(), y2.data_ptr(), y1.data_ptr(), fp.data_ptr(),
+            w3.data_ptr(), w2.data_ptr(), partials.data_ptr(),
+            sums.data_ptr(), cb, cw, blocks, stream)}
     timer = chip_smoke.DeviceTimer(torch)
     for name, (kernel, fn) in fns.items():
         err = calls[kernel](fn)

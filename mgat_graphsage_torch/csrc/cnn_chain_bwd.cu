@@ -21,19 +21,34 @@
 //
 // Bound on the H100: operations.  At B=128, W=1024 the two dgrads and
 // three wgrads are 16.4 GFLOP against 118 MB of activations: 139 flops per
-// byte, far above the f32 ridge of 20.
+// byte, far above the f32 ridge of 20.  So the design keeps the FMA pipe
+// fed: every product is a register tile fed by 16-byte shared loads.
 //
 // Design: the position axis is cut into tiles of 32 positions of one
 // molecule (any B and W; the last tile of a row is ragged).  A persistent
-// grid of one block per SM walks the tiles in a fixed order.  A tile
-// stages d3 and y2 over its positions +-2 and y1, fp over +-1 (zero
-// outside [0, W)) in shared memory beside w3 and w2, computes d2 over the
-// tile +-1 and d1 over the tile there, so neither goes to device memory,
-// and adds the tile's weight and bias gradients to per-block sums: dw3
-// stays in registers (8 x 4 x 3 per thread), the smaller sums in shared
-// memory, each owned by one thread.  Each block then writes its sums once,
-// and a second kernel adds the blocks' sums in block order.  No atomics:
-// the result repeats bit for bit.  Shared memory: 190 KB.
+// grid of one block per SM walks the tiles in a fixed order.  A tile needs
+// d3 over its positions +-2 and y2, y1, fp over +-1 (zero outside
+// [0, W)); cp.async copies the next tile's into the second of two stage
+// buffers while the current tile computes: d3 rows pos-major, y2, y1 and
+// fp rows channel-major as windows of positions w0-4 .. w0+35, in 16-byte
+// copies where W % 4 == 0, else in 4-byte copies (same layout).  Per tile:
+//   dw3: each thread an 8 x 4 x 3 register tile that lives across tiles,
+//     fed per 4 positions by 8 d3 and 12 y2 16-byte loads (384 FMAs);
+//   d2 = mask * dgrad(d3, w3) over the tile +-1 (34 rows x 64 channels,
+//     K = 3 x 128): each thread 9 rows x 4 channels for a quarter of the
+//     out channels, reading 11 d3 rows and 12 w3 rows (float4) per 4 out
+//     channels for 432 FMAs; the four quarters sit in one warp and are
+//     added by shuffles (a reduce-scatter: each lane keeps one channel);
+//     four row groups start at 0, 9, 18, 25, the last storing 27.. only;
+//   dw2 in shared memory, one owner thread per element (4 x 2 x 3 each);
+//     d1 = mask * dgrad(d2, w2) over the tile (32 x 32, K = 3 x 64) the
+//     same way with 4-row tiles; d1 never leaves registers: the lane that
+//     ends holding it adds its dw1 and db1 terms, as the d2 lane adds db2
+//     and the dw3 lanes db3.
+// Two barriers per tile.  Each block then writes its sums once (dw3
+// thread-major, in whole lines), and a second kernel adds the blocks'
+// sums in block order.  No atomics, every sum in a fixed order: the result
+// repeats bit for bit.  Shared memory: 222 KB.
 
 #include <cuda_runtime.h>
 
@@ -43,11 +58,17 @@ constexpr int kC3 = 128;
 constexpr int kC2 = 64;
 constexpr int kC1 = 32;
 constexpr int kTW = 32;            // core positions per tile
-constexpr int kP3 = kTW + 4;       // d3, y2 rows: positions w0-2 .. w0+TW+1
-constexpr int kP2 = kTW + 2;       // d2, y1, fp rows: positions w0-1 .. w0+TW
-constexpr int kY2S = kC2 + 4;      // padded row strides (multiples of 4)
-constexpr int kY1S = kC1 + 4;
+constexpr int kP3 = kTW + 4;       // d3 rows: positions w0-2 .. w0+TW+1
+constexpr int kP2 = kTW + 2;       // d2 rows: positions w0-1 .. w0+TW
+constexpr int kWin = kTW + 8;      // y2, y1, fp windows: w0-4 .. w0+TW+3
+constexpr int kWS = kWin + 4;      // their row stride: rows 2 and 4 apart
+                                   // start in other banks
+constexpr int kQ = 3;              // window index of position w0-1
+constexpr int kYRows = kC2 + kC1 + 1;  // y2 rows | y1 rows | fp
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kR2 = 9;             // d2 rows per thread (4 groups cover 34)
+constexpr int kR1 = 4;             // d1 rows per thread (8 groups cover 32)
 
 constexpr int kNW3 = kC3 * kC2 * 3;
 constexpr int kNW2 = kC2 * kC1 * 3;
@@ -63,15 +84,107 @@ constexpr int kNTot = kOffDb1 + kC1;
 // shared memory regions, in floats (each a multiple of 4)
 constexpr int kSW3 = 3 * kC3 * kC2;          // [k][o][i]
 constexpr int kSW2 = 3 * kC2 * kC1;          // [k][o][i]
-constexpr int kSD3 = kP3 * kC3;
-constexpr int kSY2 = kP3 * kY2S;
+constexpr int kSD3 = kP3 * kC3;     // one stage buffer: d3 | y2 | y1 | fp
+constexpr int kStage = kSD3 + kYRows * kWS;
 constexpr int kSD2 = kP2 * kC2;
-constexpr int kSY1 = kP2 * kY1S;
-constexpr int kSD1 = kTW * kC1;
-constexpr int kSFp = kP2 + 2;
-constexpr int kSAcc = kNW2 + kNW1 + kC3 + kC2 + kC1;
-constexpr int kSmemFloats =
-    kSW3 + kSW2 + kSD3 + kSY2 + kSD2 + kSY1 + kSD1 + kSFp + kSAcc;
+constexpr int kSRed1 = kWarps * kC1 * 4;     // per-warp dw1 | db1 sums,
+constexpr int kSRed2 = 4 * kC2;              // per-row-group db2 sums: in d2s
+constexpr int kSmemFloats = kSW3 + kSW2 + 2 * kStage + kSD2 + kNW2;
+static_assert(kSRed1 + kSRed2 <= kSD2, "sums fit where d2 was");
+static_assert(kSmemFloats * 4 <= 232448, "shared memory of one block");
+static_assert(kR2 * 4 >= kP2 && 3 * kR2 <= kP2, "d2 row groups");
+static_assert(kR1 * kWarps == kTW, "d1 row groups");
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float part_of(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// acc[r][0..3] holds four channels' partial sums over a quarter of K in
+// each of the lanes l, l^8, l^16, l^24 (ks = lane >> 3).  Afterwards
+// acc[r][0] holds the full sum of channel ks, (q0 + q2) + (q1 + q3).
+template <int R>
+__device__ __forceinline__ void reduce_scatter(float (&acc)[R][4], int ks) {
+  const bool hi = (ks >> 1) & 1;
+  const bool lo = ks & 1;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float s0 = hi ? acc[r][0] : acc[r][2];
+    const float s1 = hi ? acc[r][1] : acc[r][3];
+    float k0 = hi ? acc[r][2] : acc[r][0];
+    float k1 = hi ? acc[r][3] : acc[r][1];
+    k0 += __shfl_xor_sync(0xffffffffu, s0, 16);
+    k1 += __shfl_xor_sync(0xffffffffu, s1, 16);
+    const float s = lo ? k0 : k1;
+    const float k = lo ? k1 : k0;
+    acc[r][0] = k + __shfl_xor_sync(0xffffffffu, s, 8);
+  }
+}
+
+// Copy tile `tile` into one stage buffer (zero outside [0, W)): d3 rows
+// pos-major, y2, y1 and fp rows as windows of positions w0-4 .. w0+TW+3,
+// in 16-byte copies where W % 4 == 0 (`vec`: a 16-byte chunk then lies
+// wholly inside or outside [0, W)), else in 4-byte copies.
+__device__ __forceinline__ void stage_tile(float* st, int tile, int nwt,
+                                           const float* __restrict__ d3g,
+                                           const float* __restrict__ y2g,
+                                           const float* __restrict__ y1g,
+                                           const float* __restrict__ fpg,
+                                           int width, bool vec, int t) {
+  const int b = tile / nwt;
+  const int w0 = (tile - b * nwt) * kTW;
+  for (int idx = t; idx < kP3 * (kC3 / 4); idx += kThreads) {
+    const int s = idx / (kC3 / 4);
+    const int c = (idx - s * (kC3 / 4)) * 4;
+    const int p = w0 - 2 + s;
+    const bool ok = p >= 0 && p < width;
+    cp_async16(st + s * kC3 + c,
+               d3g + ((size_t)b * width + (ok ? p : 0)) * kC3 + c, ok);
+  }
+  float* ys = st + kSD3;
+  const int step = vec ? 4 : 1;
+  const int per_row = kWin / step;
+  for (int idx = t; idx < kYRows * per_row; idx += kThreads) {
+    const int row = idx / per_row;
+    const int q = (idx - row * per_row) * step;
+    const int p = w0 - 4 + q;
+    const bool ok = p >= 0 && p < width;
+    const float* src = row < kC2 ? y2g + ((size_t)b * kC2 + row) * width
+                     : row < kC2 + kC1
+                         ? y1g + ((size_t)b * kC1 + row - kC2) * width
+                         : fpg + (size_t)b * width;
+    if (vec)
+      cp_async16(ys + row * kWS + q, src + (ok ? p : 0), ok);
+    else
+      cp_async4(ys + row * kWS + q, src + (ok ? p : 0), ok);
+  }
+  cp_commit();
+}
 
 __global__ void __launch_bounds__(kThreads, 1)
 cnn_chain_bwd_kernel(const float* __restrict__ d3g,
@@ -80,23 +193,23 @@ cnn_chain_bwd_kernel(const float* __restrict__ d3g,
                      const float* __restrict__ fpg,
                      const float* __restrict__ w3g,
                      const float* __restrict__ w2g,
-                     float* __restrict__ partials, int batch, int width) {
+                     float* __restrict__ partials, int batch, int width,
+                     int vec) {
   extern __shared__ __align__(16) float smem[];
   float* w3s = smem;
   float* w2s = w3s + kSW3;
-  float* d3s = w2s + kSW2;
-  float* y2s = d3s + kSD3;
-  float* d2s = y2s + kSY2;
-  float* y1s = d2s + kSD2;
-  float* d1s = y1s + kSY1;
-  float* fps = d1s + kSD1;
-  float* dw2a = fps + kSFp;
-  float* dw1a = dw2a + kNW2;
-  float* db3a = dw1a + kNW1;
-  float* db2a = db3a + kC3;
-  float* db1a = db2a + kC2;
+  float* stages = w2s + kSW2;
+  float* d2s = stages + 2 * kStage;
+  float* dw2a = d2s + kSD2;      // [k][i][o]
 
   const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int warp = t / 32;
+  const int nwt = (width + kTW - 1) / kTW;
+  const int ntiles = batch * nwt;
+  if ((int)blockIdx.x < ntiles)
+    stage_tile(stages, blockIdx.x, nwt, d3g, y2g, y1g, fpg, width, vec, t);
+
   for (int idx = t; idx < kNW3; idx += kThreads) {
     const int o = idx / (kC2 * 3);
     const int rem = idx - o * (kC2 * 3);
@@ -111,198 +224,224 @@ cnn_chain_bwd_kernel(const float* __restrict__ d3g,
     const int k = rem - i * 3;
     w2s[(k * kC2 + o) * kC1 + i] = w2g[idx];
   }
-  for (int idx = t; idx < kSAcc; idx += kThreads) dw2a[idx] = 0.0f;
+  for (int idx = t; idx < kNW2; idx += kThreads) dw2a[idx] = 0.0f;
 
-  // dw3 register tile: out channels 8*tb3 .. +7, in channels 4*ib3 .. +3
-  const int tb3 = t / 16;
-  const int ib3 = t % 16;
+  // dw3 register tile: out channels 4*tb3 .. +3 and 64 + 4*tb3 .. +3
+  // (r < 4, r >= 4), in channels 4*ib3 .. +3; the lanes with ib3 == 0 also
+  // sum db3 for their 8 channels
+  const int tb3 = t % 16;
+  const int ib3 = t / 16;
   float acc3[3][8][4];
+  float db3p[8];
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
+  for (int r = 0; r < 8; ++r) {
+    db3p[r] = 0.0f;
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
+    for (int k = 0; k < 3; ++k)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc3[k][r][c] = 0.0f;
+  }
+  // d2 lanes: rows r2 .. r2+8 (owning those >= 9*rg), channel 4*cg2 + ks
+  const int ks = lane >> 3;
+  const int rg = warp >> 1;
+  const int r2 = min(kR2 * rg, kP2 - kR2);
+  const int cg2 = (warp & 1) * 8 + (lane & 7);
+  // d1 lanes: rows kR1*warp .. +3, channel 4*cg1 + ks
+  const int cg1 = lane & 7;
+  float db2p = 0.0f, db1p = 0.0f;
+  float dw1p[3] = {0.0f, 0.0f, 0.0f};
 
-  const int lane = t % 32;
-  const int warp = t / 32;
-  const int nwt = (width + kTW - 1) / kTW;
-  const int ntiles = batch * nwt;
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    cp_wait_all();
+    __syncthreads();   // this tile staged; the previous tile's readers done
+    if (tile + (int)gridDim.x < ntiles)
+      stage_tile(stages + (buf ^ 1) * kStage, tile + gridDim.x, nwt, d3g,
+                 y2g, y1g, fpg, width, vec, t);
+    const float* d3s = stages + buf * kStage;
+    const float* y2s = d3s + kSD3;            // [64][kWS]
+    const float* y1s = y2s + kC2 * kWS;       // [32][kWS]
+    const float* fps = y1s + kC1 * kWS;
 
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int b = tile / nwt;
-    const int w0 = (tile - b * nwt) * kTW;
-    __syncthreads();   // the previous tile's readers are done
-
-    // ---- stage the tile (zero outside [0, W)) --------------------------
-    for (int idx = t; idx < kP3 * (kC3 / 4); idx += kThreads) {
-      const int s = idx / (kC3 / 4);
-      const int c = (idx - s * (kC3 / 4)) * 4;
-      const int p = w0 - 2 + s;
-      float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (p >= 0 && p < width) {
-        val = *reinterpret_cast<const float4*>(
-            d3g + ((size_t)b * width + p) * kC3 + c);
-      }
-      *reinterpret_cast<float4*>(d3s + s * kC3 + c) = val;
-    }
-    for (int idx = t; idx < kC2 * kP3; idx += kThreads) {
-      const int c = idx / kP3;
-      const int s = idx - c * kP3;
-      const int p = w0 - 2 + s;
-      y2s[s * kY2S + c] = (p >= 0 && p < width)
-          ? y2g[((size_t)b * kC2 + c) * width + p] : 0.0f;
-    }
-    for (int idx = t; idx < kC1 * kP2; idx += kThreads) {
-      const int c = idx / kP2;
-      const int s = idx - c * kP2;
-      const int p = w0 - 1 + s;
-      y1s[s * kY1S + c] = (p >= 0 && p < width)
-          ? y1g[((size_t)b * kC1 + c) * width + p] : 0.0f;
-    }
-    for (int s = t; s < kP2; s += kThreads) {
-      const int p = w0 - 1 + s;
-      fps[s] = (p >= 0 && p < width) ? fpg[(size_t)b * width + p] : 0.0f;
-    }
-    __syncthreads();
-
-    // ---- level 3: dw3 (registers), db3, d2 = mask * dgrad(d3, w3) ------
-    for (int sc = 0; sc < kTW; ++sc) {
-      const float4 a0 = *reinterpret_cast<const float4*>(
-          d3s + (sc + 2) * kC3 + 8 * tb3);
-      const float4 a1 = *reinterpret_cast<const float4*>(
-          d3s + (sc + 2) * kC3 + 8 * tb3 + 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    // ---- level 3: dw3 (registers), db3 ---------------------------------
+    for (int sc0 = 0; sc0 < kTW; sc0 += 4) {
+      // y2 at positions w0 + sc + k - 1 = window index sc + k + 3
+      float yv[4][12];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float4 bq = *reinterpret_cast<const float4*>(
-            y2s + (sc + k + 1) * kY2S + 4 * ib3);
-        const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+      for (int c = 0; c < 4; ++c)
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
+        for (int h = 0; h < 3; ++h) {
+          const float4 v = ld4(y2s + (4 * ib3 + c) * kWS + sc0 + 4 * h);
+          yv[c][4 * h] = v.x;
+          yv[c][4 * h + 1] = v.y;
+          yv[c][4 * h + 2] = v.z;
+          yv[c][4 * h + 3] = v.w;
+        }
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc3[k][r][c] = fmaf(av[r], bv[c], acc3[k][r][c]);
+      for (int u = 0; u < 4; ++u) {
+        const float4 a0 = ld4(d3s + (sc0 + u + 2) * kC3 + 4 * tb3);
+        const float4 a1 = ld4(d3s + (sc0 + u + 2) * kC3 + 64 + 4 * tb3);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        if (ib3 == 0) {
+#pragma unroll
+          for (int r = 0; r < 8; ++r) db3p[r] += av[r];
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc3[k][r][c] = fmaf(av[r], yv[c][u + k + 3], acc3[k][r][c]);
       }
     }
-    if (t < kC3) {
-      float s = 0.0f;
-      for (int sc = 0; sc < kTW; ++sc) s += d3s[(sc + 2) * kC3 + t];
-      db3a[t] += s;
-    }
+    // ---- level 3: d2 = mask * dgrad(d3, w3), db2 ------------------------
     {
-      // d2 rows s2 = warp + 8 r (r < 5, s2 < kP2), channels 2*lane, +1
-      float ad[5][2];
+      float acc[kR2][4];
 #pragma unroll
-      for (int r = 0; r < 5; ++r) ad[r][0] = ad[r][1] = 0.0f;
+      for (int r = 0; r < kR2; ++r) acc[r][0] = acc[r][1] = acc[r][2] =
+          acc[r][3] = 0.0f;
+#pragma unroll 2
+      for (int j = 0; j < kC3 / 16; ++j) {
+        const int o = 16 * j + 4 * ks;
+        float4 dv[kR2 + 2];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        for (int o = 0; o < kC3; ++o) {
-          const float2 wv = *reinterpret_cast<const float2*>(
-              w3s + (k * kC3 + o) * kC2 + 2 * lane);
+        for (int r = 0; r < kR2 + 2; ++r) dv[r] = ld4(d3s + (r2 + r) * kC3 + o);
 #pragma unroll
-          for (int r = 0; r < 5; ++r) {
-            const int s2 = warp + 8 * r;
-            if (s2 < kP2) {
-              const float d = d3s[(s2 - k + 2) * kC3 + o];
-              ad[r][0] = fmaf(d, wv.x, ad[r][0]);
-              ad[r][1] = fmaf(d, wv.y, ad[r][1]);
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const float4 wv = ld4(w3s + (k * kC3 + o + u) * kC2 + 4 * cg2);
+#pragma unroll
+            for (int r = 0; r < kR2; ++r) {
+              const float d = part_of(dv[r - k + 2], u);
+              acc[r][0] = fmaf(d, wv.x, acc[r][0]);
+              acc[r][1] = fmaf(d, wv.y, acc[r][1]);
+              acc[r][2] = fmaf(d, wv.z, acc[r][2]);
+              acc[r][3] = fmaf(d, wv.w, acc[r][3]);
             }
           }
-        }
       }
+      reduce_scatter<kR2>(acc, ks);
+      const int ch = 4 * cg2 + ks;
 #pragma unroll
-      for (int r = 0; r < 5; ++r) {
-        const int s2 = warp + 8 * r;
-        if (s2 < kP2) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int i = 2 * lane + e;
-            d2s[s2 * kC2 + i] = y2s[(s2 + 1) * kY2S + i] > 0.0f ? ad[r][e]
-                                                                : 0.0f;
-          }
+      for (int r = 0; r < kR2; ++r) {
+        const int s2 = r2 + r;
+        if (s2 >= kR2 * rg) {
+          const float v = y2s[ch * kWS + s2 + kQ] > 0.0f ? acc[r][0] : 0.0f;
+          d2s[s2 * kC2 + ch] = v;
+          if (s2 >= 1 && s2 <= kTW) db2p += v;
         }
       }
     }
     __syncthreads();
 
-    // ---- level 2: dw2, db2 (shared sums), d1 = mask * dgrad(d2, w2) ----
+    // ---- level 2: dw2 (shared sums) ------------------------------------
     {
-      const int tb2 = t / 16;     // out channels 4*tb2 .. +3
-      const int ib2 = t % 16;     // in channels 2*ib2, +1
+      const int tb2 = t % 16;     // out channels 4*tb2 .. +3
+      const int ib2 = t / 16;     // in channels 2*ib2, +1
       float a2[3][4][2];
 #pragma unroll
       for (int k = 0; k < 3; ++k)
 #pragma unroll
         for (int r = 0; r < 4; ++r) a2[k][r][0] = a2[k][r][1] = 0.0f;
-      for (int sc = 0; sc < kTW; ++sc) {
-        const float4 a = *reinterpret_cast<const float4*>(
-            d2s + (sc + 1) * kC2 + 4 * tb2);
-        const float av[4] = {a.x, a.y, a.z, a.w};
+      for (int sc0 = 0; sc0 < kTW; sc0 += 4) {
+        float yv[2][12];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const float2 bq = *reinterpret_cast<const float2*>(
-              y1s + (sc + k) * kY1S + 2 * ib2);
+        for (int c = 0; c < 2; ++c)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            a2[k][r][0] = fmaf(av[r], bq.x, a2[k][r][0]);
-            a2[k][r][1] = fmaf(av[r], bq.y, a2[k][r][1]);
+          for (int h = 0; h < 3; ++h) {
+            const float4 v = ld4(y1s + (2 * ib2 + c) * kWS + sc0 + 4 * h);
+            yv[c][4 * h] = v.x;
+            yv[c][4 * h + 1] = v.y;
+            yv[c][4 * h + 2] = v.z;
+            yv[c][4 * h + 3] = v.w;
           }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 a = ld4(d2s + (sc0 + u + 1) * kC2 + 4 * tb2);
+          const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+              for (int c = 0; c < 2; ++c)
+                a2[k][r][c] = fmaf(av[r], yv[c][u + k + 3], a2[k][r][c]);
         }
       }
 #pragma unroll
       for (int k = 0; k < 3; ++k)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            dw2a[((4 * tb2 + r) * kC1 + 2 * ib2 + c) * 3 + k] += a2[k][r][c];
-    }
-    if (t < kC2) {
-      float s = 0.0f;
-      for (int sc = 0; sc < kTW; ++sc) s += d2s[(sc + 1) * kC2 + t];
-      db2a[t] += s;
-    }
-    {
-      // d1 rows sc = warp + 8 r (r < 4), channel lane
-      float ad[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        for (int o = 0; o < kC2; ++o) {
-          const float wv = w2s[(k * kC2 + o) * kC1 + lane];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int sc = warp + 8 * r;
-            ad[r] = fmaf(d2s[(sc - k + 2) * kC2 + o], wv, ad[r]);
-          }
+        for (int c = 0; c < 2; ++c) {
+          float4* p = reinterpret_cast<float4*>(
+              dw2a + (k * kC1 + 2 * ib2 + c) * kC2 + 4 * tb2);
+          float4 cur = *p;
+          cur.x += a2[k][0][c];
+          cur.y += a2[k][1][c];
+          cur.z += a2[k][2][c];
+          cur.w += a2[k][3][c];
+          *p = cur;
         }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int sc = warp + 8 * r;
-        d1s[sc * kC1 + lane] = y1s[(sc + 1) * kY1S + lane] > 0.0f ? ad[r]
-                                                                  : 0.0f;
-      }
     }
-    __syncthreads();
-
-    // ---- level 1: dw1, db1 ---------------------------------------------
-    if (t < kNW1) {
-      const int o = t / 3;
-      const int k = t - o * 3;
-      float s = 0.0f;
-      for (int sc = 0; sc < kTW; ++sc) s = fmaf(d1s[sc * kC1 + o], fps[sc + k], s);
-      dw1a[t] += s;
-    } else if (t < kNW1 + kC1) {
-      const int o = t - kNW1;
-      float s = 0.0f;
-      for (int sc = 0; sc < kTW; ++sc) s += d1s[sc * kC1 + o];
-      db1a[o] += s;
+    // ---- level 2: d1 = mask * dgrad(d2, w2), dw1, db1 ------------------
+    {
+      const int r1 = kR1 * warp;
+      float acc[kR1][4];
+#pragma unroll
+      for (int r = 0; r < kR1; ++r) acc[r][0] = acc[r][1] = acc[r][2] =
+          acc[r][3] = 0.0f;
+#pragma unroll 1
+      for (int j = 0; j < kC2 / 16; ++j) {
+        const int o = 16 * j + 4 * ks;
+        float4 dv[kR1 + 2];
+#pragma unroll
+        for (int r = 0; r < kR1 + 2; ++r) dv[r] = ld4(d2s + (r1 + r) * kC2 + o);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const float4 wv = ld4(w2s + (k * kC2 + o + u) * kC1 + 4 * cg1);
+#pragma unroll
+            for (int r = 0; r < kR1; ++r) {
+              const float d = part_of(dv[r - k + 2], u);
+              acc[r][0] = fmaf(d, wv.x, acc[r][0]);
+              acc[r][1] = fmaf(d, wv.y, acc[r][1]);
+              acc[r][2] = fmaf(d, wv.z, acc[r][2]);
+              acc[r][3] = fmaf(d, wv.w, acc[r][3]);
+            }
+          }
+      }
+      reduce_scatter<kR1>(acc, ks);
+      const int ch = 4 * cg1 + ks;
+      const float4 m4 = ld4(y1s + ch * kWS + r1 + kQ + 1);
+      const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+      for (int r = 0; r < kR1; ++r) {
+        const int sc = r1 + r;
+        const float v = mv[r] > 0.0f ? acc[r][0] : 0.0f;
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          dw1p[k] = fmaf(v, fps[sc + k + kQ], dw1p[k]);
+        db1p += v;
+      }
     }
   }
-  __syncthreads();
+  cp_wait_all();
+  __syncthreads();   // d2s is free: the dw1, db1 and db2 sums go there
+  float* red1 = d2s;
+  float* red2 = d2s + kSRed1;
 
   // ---- this block's sums -> partials[blockIdx.x] -------------------------
+  {
+    float* r = red1 + (warp * kC1 + 4 * cg1 + ks) * 4;
+    r[0] = dw1p[0];
+    r[1] = dw1p[1];
+    r[2] = dw1p[2];
+    r[3] = db1p;
+    red2[rg * kC2 + 4 * cg2 + ks] = db2p;
+  }
+  __syncthreads();
   float* part = partials + (size_t)blockIdx.x * kNTot;
 #pragma unroll
   for (int k = 0; k < 3; ++k)
@@ -310,21 +449,53 @@ cnn_chain_bwd_kernel(const float* __restrict__ d3g,
     for (int r = 0; r < 8; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        part[((8 * tb3 + r) * kC2 + 4 * ib3 + c) * 3 + k] = acc3[k][r][c];
-  for (int idx = t; idx < kC3; idx += kThreads) part[kOffDb3 + idx] = db3a[idx];
-  for (int idx = t; idx < kNW2; idx += kThreads) part[kOffDw2 + idx] = dw2a[idx];
-  for (int idx = t; idx < kC2; idx += kThreads) part[kOffDb2 + idx] = db2a[idx];
-  for (int idx = t; idx < kNW1; idx += kThreads) part[kOffDw1 + idx] = dw1a[idx];
-  for (int idx = t; idx < kC1; idx += kThreads) part[kOffDb1 + idx] = db1a[idx];
+        part[((k * 8 + r) * 4 + c) * kThreads + t] = acc3[k][r][c];
+  if (ib3 == 0) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      part[kOffDb3 + (r < 4 ? 0 : 60) + 4 * tb3 + r] = db3p[r];
+  }
+  for (int idx = t; idx < kNW2; idx += kThreads) {
+    const int o = idx / (kC1 * 3);
+    const int rem = idx - o * (kC1 * 3);
+    const int i = rem / 3;
+    const int k = rem - i * 3;
+    part[kOffDw2 + idx] = dw2a[(k * kC1 + i) * kC2 + o];
+  }
+  if (t < kC2) {
+    float s = 0.0f;
+    for (int g = 0; g < 4; ++g) s += red2[g * kC2 + t];
+    part[kOffDb2 + t] = s;
+  } else if (t < kC2 + kC1 * 4) {
+    const int o = (t - kC2) / 4;
+    const int q = (t - kC2) % 4;
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += red1[(w * kC1 + o) * 4 + q];
+    part[(q < 3 ? kOffDw1 + o * 3 + q : kOffDb1 + o)] = s;
+  }
 }
 
-// out[e] = sum over blocks g, in order, of partials[g][e]
+// Sum over blocks g, in order, of partials[g][q], stored at q's place in
+// the output: the dw3 part of a partial row is thread-major (element
+// ((k * 8 + r) * 4 + c) * kThreads + t is thread t's acc3[k][r][c]), so
+// the blocks wrote it in whole lines.
 __global__ void cnn_chain_reduce_kernel(const float* __restrict__ partials,
                                         float* __restrict__ out, int blocks) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= kNTot) return;
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= kNTot) return;
   float s = 0.0f;
-  for (int g = 0; g < blocks; ++g) s += partials[(size_t)g * kNTot + e];
+  for (int g = 0; g < blocks; ++g) s += partials[(size_t)g * kNTot + q];
+  int e = q;
+  if (q < kNW3) {
+    const int t = q % kThreads;
+    const int j = q / kThreads;
+    const int c = j % 4;
+    const int r = (j / 4) % 8;
+    const int k = j / 32;
+    const int o = (r < 4 ? 0 : 60) + 4 * (t % 16) + r;
+    const int i = 4 * (t / 16) + c;
+    e = (o * kC2 + i) * 3 + k;
+  }
   out[e] = s;
 }
 
@@ -341,6 +512,9 @@ extern "C" int cnn_chain_bwd_launch(const void* d3, const void* y2,
                                     void* partials, void* out, int batch,
                                     int width, int blocks, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  const int vec = width % 4 == 0 && (reinterpret_cast<size_t>(y2) |
+                                     reinterpret_cast<size_t>(y1) |
+                                     reinterpret_cast<size_t>(fp)) % 16 == 0;
   const size_t smem = (size_t)kSmemFloats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       cnn_chain_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -350,7 +524,7 @@ extern "C" int cnn_chain_bwd_launch(const void* d3, const void* y2,
       static_cast<const float*>(d3), static_cast<const float*>(y2),
       static_cast<const float*>(y1), static_cast<const float*>(fp),
       static_cast<const float*>(w3), static_cast<const float*>(w2),
-      static_cast<float*>(partials), batch, width);
+      static_cast<float*>(partials), batch, width, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   cnn_chain_reduce_kernel<<<(kNTot + 255) / 256, 256, 0, s>>>(
