@@ -15,7 +15,11 @@ Phases (any failure raises and the script exits non-zero):
 3. hold the attention forward kernel against its plain version to
    atol=rtol=1e-5 (f32, another summation order): the serving path's own
    q, k_new, v at [64, 80, 35], random [64, 80, 35] with mixed padding and
-   a fully-masked molecule, and [16, 128, 128]; residual on and off;
+   a fully-masked molecule, [16, 128, 128], the ragged and edge shapes
+   [8, 37, 35], [4, 5, 3] and [16, 84, 128], and [1, 80, 35] and
+   [200, 80, 35] (one and two row groups by the launcher's rule);
+   residual on and off; the kernel must repeat bit for bit and give 0 for
+   a fully-masked molecule;
 4. serving at full width: the ``flagship`` hybrid initialised from a
    seeded ``torch.Generator``, saved with the port's checkpoint format
    (scaler fit on the train CSV, budget (80, 176)), then served on CUDA:
@@ -57,10 +61,12 @@ Phases (any failure raises and the script exits non-zero):
 9. the gate: a checkpoint padded to N = 160 served through ``Predictor``
    (attention on the plain path by the gate, adjacency on its kernel) and
    one training step at N = 160, each against the plain path;
-10. training timings: kernels 3-5, their plain versions, the library call
-   computing the same function (timed here only), their bounds, bound
-   shares (bound / kernel time) and launches per step; ms per train step and molecules/s both ways; a
-   ``torch.profiler`` trace of one training epoch.
+10. training timings: kernels 2-5 at the training shape (kernel 2 on the
+   first training batch's own q, k_new, v and mask), their plain versions,
+   the library call computing the same function (timed here only), their
+   bounds, bound shares (bound / kernel time) and launches per step; ms
+   per train step and molecules/s both ways; a ``torch.profiler`` trace
+   of one training epoch.
 
 Kernel times come from CUDA events around back-to-back launches queued
 behind a device-side sleep, so the host's launch cost is not in them.
@@ -534,25 +540,34 @@ def main(argv=None) -> int:
         serve_v = gat.value_transform(x).contiguous()
 
     # ---- 3. kernel 2 against its plain version ---------------------------
-    def rand_attn(b, n, f):
+    def rand_attn(b, n, f, dead=True):
+        """Random q, k_new, v; each molecule's first 1..n nodes real, and
+        the last molecule fully masked when ``dead``."""
         q, kk, v = (torch.from_numpy(rng.standard_normal((b, n, f))
                                      .astype(np.float32)).to(dev)
                     for _ in range(3))
         m = np.zeros((b, n), np.float32)
         for i in range(b):
             m[i, :int(rng.integers(1, n + 1))] = 1.0
-        m[-1] = 0.0                                # fully-masked molecule
+        if dead:
+            m[-1] = 0.0                            # fully-masked molecule
         return q, kk, v, torch.from_numpy(m).to(dev)
 
     attn_cases = {"serving": (serve_q, serve_k, serve_v, nm64),
                   "random": rand_attn(BATCH, n_nodes, 35),
-                  "n128_f128": rand_attn(16, 128, 128)}
+                  "n128_f128": rand_attn(16, 128, 128),
+                  "n37_f35": rand_attn(8, 37, 35),
+                  "n5_f3": rand_attn(4, 5, 3),
+                  "b1": rand_attn(1, n_nodes, 35, dead=False),
+                  "b200": rand_attn(200, n_nodes, 35),
+                  "n84_f128": rand_attn(16, 84, 128)}
     attn_err = 0.0
     with torch.inference_mode():
         for name, (q, kk, v, m) in attn_cases.items():
             for residual in (True, False):
                 got = fused_masked_attention_cuda(q, kk, v, m, residual)
                 want = attention_plain(q, kk, v, m, residual)
+                again = fused_masked_attention_cuda(q, kk, v, m, residual)
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
                 attn_err = max(attn_err, err)
@@ -561,11 +576,17 @@ def main(argv=None) -> int:
                     raise AssertionError(
                         f"attention kernel differs from its plain version on "
                         f"{name} residual={residual}: max |err| {err}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"attention kernel does not repeat "
+                                         f"bit for bit on {name}")
+                dead = m.sum(1) == 0
+                if dead.any() and not residual \
+                        and got[dead].abs().max() != 0:
+                    raise AssertionError(f"a fully-masked molecule must give "
+                                         f"0 ({name})")
                 log(f"[3] attention {name:<9} {tuple(q.shape)} "
-                    f"residual={residual!s:<5} max |err| {err:.3e}")
-        q, kk, v, m = attn_cases["random"]
-        if fused_masked_attention_cuda(q, kk, v, m, False)[-1].abs().max() != 0:
-            raise AssertionError("a fully-masked molecule must give 0")
+                    f"residual={residual!s:<5} max |err| {err:.3e}, repeats "
+                    f"bit for bit")
 
     # ---- 4b. the main path, with the launch counters from 0 --------------
     rng_req = np.random.default_rng(args.seed + 1)
@@ -850,6 +871,11 @@ def main(argv=None) -> int:
         f"{l160_plain:.6f}")
 
     # ---- 10. training timings and profile --------------------------------
+    k2t_ms = timer(lambda: fused_masked_attention_cuda(tq, tk, tv, tmask,
+                                                       True))
+    k2t_plain_ms = timer(lambda: attention_plain(tq, tk, tv, tmask, True))
+    tkey_mask = (tmask > 0).unsqueeze(1)
+    k2t_lib_ms = timer(lambda: sdpa(tk, tq, tv, attn_mask=tkey_mask) + tv)
     g_attn = torch.from_numpy(rng.standard_normal(tuple(tq.shape))
                               .astype(np.float32)).to(dev)
     k3_ms = timer(lambda: attention_bwd_cuda(tq, tk, tv, tmask, g_attn))
@@ -890,6 +916,8 @@ def main(argv=None) -> int:
     bt, nt, ft = tq.shape
     bw = y3.shape[1]
     hh = dy.shape[1]
+    k2t_bound = bound(3 * bt * nt * ft * 4 + bt * nt * 4 + bt * nt * ft * 4,
+                      4 * bt * nt * nt * ft + 5 * bt * nt * nt)
     k3_bound = bound(4 * (4 * bt * nt * ft + bt * nt + 3 * bt * nt * ft),
                      10 * bt * nt * nt * ft)
     k4_bound = bound(4 * (bt * hh + hh * bw * 128 + 2 * bt * bw * 128),
@@ -900,6 +928,9 @@ def main(argv=None) -> int:
                      + bt * bw * (128 + 64 + 32))
     steps_b = runs[True]["steps"]
     for name, ms, plain, lib, (bms, by), calls, cname in (
+            ("attention", k2t_ms, k2t_plain_ms, k2t_lib_ms, k2t_bound,
+             "SDPA + v; launches/step count the validation batches too",
+             "fused_masked_attention_cuda"),
             ("attention bwd", k3_ms, k3_plain_ms, k3_lib_ms, k3_bound,
              "SDPA backward + the residual's gradient (more than one call)",
              "attention_bwd_cuda"),
@@ -961,7 +992,13 @@ def main(argv=None) -> int:
          "ms": attn_ms, "plain_ms": attn_plain_ms,
          "bound_ms": attn_bound[0], "bound_by": attn_bound[1],
          "bound_share": attn_bound[0] / attn_ms,
-         "library_ms": attn_lib_ms},
+         "library_ms": attn_lib_ms,
+         "train_ms": k2t_ms, "train_plain_ms": k2t_plain_ms,
+         "train_bound_ms": k2t_bound[0], "train_bound_by": k2t_bound[1],
+         "train_bound_share": k2t_bound[0] / k2t_ms,
+         "train_library_ms": k2t_lib_ms,
+         "launches_per_step": train_counts["fused_masked_attention_cuda"]
+         / runs[True]["steps"]},
         {"name": "fused_masked_attention_bwd", "route": "cuda",
          "source": "mgat_graphsage_torch/csrc/attention_bwd.cu",
          "replaces": "mgat_graphsage_tpu/ops/pallas_attention.py:146",

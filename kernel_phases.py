@@ -1,29 +1,38 @@
 #!/usr/bin/env python3
-"""Where the time of kernels 3, 4 and 5 goes, on one CUDA card.
+"""Where the time of kernels 2, 3, 4 and 5 goes, on one CUDA card.
 
-    python3 kernel_phases.py [--seed 0] [--only k5]
+    python3 kernel_phases.py [--seed 0] [--only k2]
 
-Builds cut-down copies of ``csrc/attention_bwd.cu`` (kernel 3),
-``csrc/cnn_dy3.cu`` (kernel 4) and ``csrc/cnn_chain_bwd.cu`` (kernel 5),
-each with one part of the work removed, times every copy beside the full
-kernel at the training shape (B=128, N=80, F=35; H=256, K=131072;
-W=1024) with ``chip_smoke.DeviceTimer``, and prints
-one line per copy with the card's name and power limit.  A cut copy
-computes wrong numbers on purpose; only its time is read.  The copies
-are written to and built in a temporary directory; the sources are not
-touched.
+Builds cut-down copies of ``csrc/attention.cu`` (kernel 2),
+``csrc/attention_bwd.cu`` (kernel 3), ``csrc/cnn_dy3.cu`` (kernel 4) and
+``csrc/cnn_chain_bwd.cu`` (kernel 5), each with one part of the work
+removed, times every copy beside the full kernel with
+``chip_smoke.DeviceTimer``, and prints one line per copy (per shape for
+kernel 2) with the card's name and power limit.  Shapes: kernel 2 at the
+serving batch B=64 and the training batch B=128 (N=80, F=35), the others
+at the training shape (B=128, N=80, F=35; H=256, K=131072; W=1024).  A cut
+copy computes wrong numbers on purpose; only its time is read.  The copies
+are written to and built in a temporary directory, with ``csrc/`` on the
+include path for the headers they include; the sources are not touched.
 
-Kernel 3: the full kernel; stopped after the molecule's load; stopped
-after phase A (attn and dscores in shared memory); phase A with the
-softmax replaced by a scale.  Kernel 4: the full kernel; without the
-dy3 stores; with neither stores nor ring refills (the FMAs on whatever
-the first chunks left in shared memory).  Kernel 5: the full kernel; each
-tile's staging alone (the wait for its copies); staging and dw3, db3;
-staging and all of level 3 (d2 too); all but d1 and its sums; every
-phase without the refills (each tile computes on whatever the first one
-left in shared memory).  Kernel 5's inputs have the ReLU pattern of real
-activations: y1, y2 and d3 about half zero, the fingerprint's bits 0 or
-1.  ``--only`` keeps the copies whose name starts with its argument.
+Kernel 2: the full kernel; returning at entry (the launch floor of
+back-to-back launches); stopped after the molecule's load; stopped after
+the scores; after the scores and the softmax; load, scores and softmax
+with attn in each half-warp's scratch but no product; the
+full kernel normalising with a division per key (the backward's way, the
+same bits) in place of one per row; the full kernel at 1, 2 and 3 row
+groups per molecule in place of the launcher's rule.  Kernel 3: the full
+kernel; stopped after the molecule's load; stopped after phase A (attn
+and dscores in shared memory); phase A with the softmax replaced by a
+scale.  Kernel 4: the full kernel; without
+the dy3 stores; with neither stores nor ring refills (the FMAs on
+whatever the first chunks left in shared memory).  Kernel 5: the full
+kernel; each tile's staging alone (the wait for its copies); staging and
+dw3, db3; staging and all of level 3 (d2 too); all but d1 and its sums;
+every phase without the refills (each tile computes on whatever the first
+one left in shared memory).  Kernel 5's inputs have the ReLU pattern of
+real activations: y1, y2 and d3 about half zero, the fingerprint's bits 0
+or 1.  ``--only`` keeps the copies whose name starts with its argument.
 """
 
 from __future__ import annotations
@@ -42,6 +51,32 @@ CSRC = os.path.join(REPO, "mgat_graphsage_torch", "csrc")
 # a kernel-3 copy returns here; the impossible store keeps the work alive
 STOP = ("  if (residual >= 0) {\n    if (residual == 7) dv[threadIdx.x] = "
         "p_s[threadIdx.x] + d_s[threadIdx.x];\n    return;\n  }\n")
+# the same for a kernel-2 copy after its load, and one that skips attn . v
+K2_STOP = ("  if (residual >= 0) {\n    if (residual == 7) out[threadIdx.x] = "
+           "q_s[threadIdx.x] + v_s[threadIdx.x] + m_s[threadIdx.x] + "
+           "k_s[threadIdx.x];\n    return;\n  }\n")
+K2_SKIP = ("    if (residual >= 0) {\n      if (residual == 7) "
+           "out[threadIdx.x] = a_h[kg];\n      continue;\n    }\n")
+# a kernel-2 copy that stops a half-warp's work after its scores (or its
+# softmax): the tile's sum goes to the scratch, so the work stays alive
+K2_SINK = ("    if (residual >= 0) {\n      float z = 0.0f;\n"
+           "      for (int r = 0; r < kRows; ++r)\n"
+           "        for (int t = 0; t < KPT; ++t) z += a[r][t];\n"
+           "      a_h[kg] = z;\n      continue;\n    }\n")
+K2_SCORES = ("    row_products<kRows, KPT>(k_s + il * fp, q_s, fp, f, n, kg, "
+             "a);\n")
+K2_SOFTMAX = "    softmax_rows<kRows, KPT, true>(a, m_s, n, kg, scale);\n"
+# the launcher's row-group rule, which a kernel-2 copy replaces by a constant
+K2_GROUPS = "  int groups = row_groups(batch, n, sms);"
+
+
+def nvcc_args(cu: str, so: str) -> list:
+    """nvcc's arguments for one copy: the port's flags, and ``csrc/`` on
+    the include path, so that a copy written elsewhere still finds the
+    headers its source includes (``attention_common.cuh``)."""
+    from mgat_graphsage_torch.ops import _build
+
+    return [*_build.NVCC_FLAGS, "-I", CSRC, "-o", so, cu]
 
 
 def cut(src: str, old: str, new: str) -> str:
@@ -52,6 +87,7 @@ def cut(src: str, old: str, new: str) -> str:
 
 def variants():
     """name -> (kernel source name, source text)."""
+    k2 = open(os.path.join(CSRC, "attention.cu")).read()
     k3 = open(os.path.join(CSRC, "attention_bwd.cu")).read()
     k4 = open(os.path.join(CSRC, "cnn_dy3.cu")).read()
     k5 = open(os.path.join(CSRC, "cnn_chain_bwd.cu")).read()
@@ -61,6 +97,23 @@ def variants():
 
     no_stores = ("            __stcs(", "            if (batch < 0) __stcs(")
     return {
+        "k2 full": ("attention", k2),
+        "k2 empty": ("attention", cut(k2, "  // ---- load",
+                                      "  if (residual >= 0) return;\n"
+                                      "  // ---- load")),
+        "k2 load only": ("attention", cut(k2, "  // ---- phase A",
+                                          K2_STOP + "  // ---- phase A")),
+        "k2 load + scores": ("attention", cut(k2, K2_SCORES,
+                                              K2_SCORES + K2_SINK)),
+        "k2 load + scores + softmax": ("attention", cut(
+            k2, K2_SOFTMAX, K2_SOFTMAX + K2_SINK)),
+        "k2 load + softmax": ("attention", cut(
+            k2, "    // ---- attn . v", K2_SKIP + "    // ---- attn . v")),
+        "k2 division per key": ("attention", cut(
+            k2, "softmax_rows<kRows, KPT, true>", "softmax_rows<kRows, KPT>")),
+        **{f"k2 G={g}": ("attention", cut(k2, K2_GROUPS,
+                                          f"  int groups = {g};"))
+           for g in (1, 2, 3)},
         "k3 full": ("attention_bwd", k3),
         "k3 load only": ("attention_bwd",
                          cut(k3, "  // ---- phase A", STOP + "  // ---- phase A")),
@@ -109,7 +162,7 @@ def main(argv=None) -> int:
         with open(cu, "w") as fh:
             fh.write(src)
         procs[name] = (kernel, cu[:-3] + ".so", subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", cu[:-3] + ".so", cu],
+            [_build._nvcc(), *nvcc_args(cu, cu[:-3] + ".so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
     for name, (kernel, so, proc) in procs.items():
@@ -130,6 +183,7 @@ def main(argv=None) -> int:
 
     b, n, f = 128, 80, 35
     q, k, v, g = (rand(b, n, f) for _ in range(4))
+    o = torch.empty_like(q)
     mask = np.zeros((b, n), np.float32)
     for i in range(b):
         mask[i, :int(rng.integers(20, n + 1))] = 1.0
@@ -150,7 +204,15 @@ def main(argv=None) -> int:
     partials = torch.empty(blocks, 31040, device=dev)
     sums = torch.empty(31040, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
+    def k2_call(bb):
+        return lambda fn: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             mask.data_ptr(), o.data_ptr(), bb, n, f,
+                             f ** -0.5, 1, stream)
+
+    # kernel -> [(shape label, call)]: kernel 2 at the serving batch (the
+    # first 64 molecules) and the training batch
     calls = {
+        "attention": [("B=64", k2_call(64)), ("B=128", k2_call(b))],
         "attention_bwd": lambda fn: fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n,
@@ -163,11 +225,16 @@ def main(argv=None) -> int:
             sums.data_ptr(), cb, cw, blocks, stream)}
     timer = chip_smoke.DeviceTimer(torch)
     for name, (kernel, fn) in fns.items():
-        err = calls[kernel](fn)
-        if err:
-            raise RuntimeError(f"{name}: launch failed, cudaError {err}")
-        ms = timer(lambda: calls[kernel](fn), iters=50)
-        print(f"{name:<32} {ms * 1e3:9.2f} us  on {card}", flush=True)
+        shapes = calls[kernel]
+        if callable(shapes):
+            shapes = [("", shapes)]
+        for label, call in shapes:
+            err = call(fn)
+            if err:
+                raise RuntimeError(f"{name}: launch failed, cudaError {err}")
+            ms = timer(lambda: call(fn), iters=50)
+            label = f"{name} {label}".strip()
+            print(f"{label:<32} {ms * 1e3:9.2f} us  on {card}", flush=True)
     work.cleanup()
     return 0
 

@@ -29,7 +29,7 @@ import torch
 
 from ..data import MolecularDataset, StandardScaler, load_csv
 from ..device import resolve_device
-from ..models import build_model
+from ..models import build_model, matmul_precision
 from ..ops import dense_adjacency
 from ..train.checkpoint import load_checkpoint
 from ..train.config import TrainConfig
@@ -75,7 +75,8 @@ def predict_dataset(model, cfg: TrainConfig, scaler: StandardScaler,
     zeroed, so they are inert; their outputs are dropped.  ``bucket=True``
     (the serving path) rounds the batch count up to a power of two, as
     the reference package does to share one compiled program between
-    request sizes.
+    request sizes.  The batches run at the train step's numerics for
+    ``cfg.matmul_precision`` (``models/layers.py::matmul_precision``).
     """
     _check_infer_dtype(infer_dtype)
     dev = next(model.parameters()).device
@@ -99,7 +100,7 @@ def predict_dataset(model, cfg: TrainConfig, scaler: StandardScaler,
     num_nodes = data["nodes"].shape[1]
     mean, scale = float(scaler.mean_), float(scaler.scale_)
     preds = []
-    with torch.inference_mode():
+    with torch.inference_mode(), matmul_precision(cfg.matmul_precision):
         for i in range(n_batches):
             sel = idx_d[i]
             adj = dense_adjacency(data["edges"][sel], data["edge_mask"][sel],

@@ -18,6 +18,7 @@ from .layers import (
     cnn_fc1_pos_major_to_torch,
     cnn_fc1_torch_to_pos_major,
     ieee_f32,
+    matmul_precision,
     reset_parameters,
 )
 from .zoo import GATGraphSAGE, HybridModel, build_model, kl_loss
@@ -26,7 +27,8 @@ __all__ = [
     "build_model",
     "TorchLinear", "TorchConv1d", "CenterTapConv1d", "ModifiedGATLayer",
     "SAGEConv", "CNNNet", "CombinedNet", "Dropout", "ieee_f32",
-    "cnn_fc1_torch_to_pos_major", "cnn_fc1_pos_major_to_torch",
+    "matmul_precision", "cnn_fc1_torch_to_pos_major",
+    "cnn_fc1_pos_major_to_torch",
     "reset_parameters", "GATGraphSAGE", "HybridModel", "kl_loss",
     "params_from_jax", "params_to_jax", "adam_state_from_jax",
     "adam_state_to_jax",

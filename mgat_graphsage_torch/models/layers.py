@@ -33,6 +33,7 @@ __all__ = [
     "CombinedNet",
     "Dropout",
     "ieee_f32",
+    "matmul_precision",
     "cnn_fc1_torch_to_pos_major",
     "cnn_fc1_pos_major_to_torch",
     "reset_parameters",
@@ -251,11 +252,17 @@ def ieee_f32():
          torch.backends.cuda.matmul.allow_tf32) = prev
 
 
-def _ieee_f32_convs(x: torch.Tensor):
-    """:func:`ieee_f32` for an f32 CUDA forward, else nothing."""
-    if x.is_cuda and x.dtype == torch.float32:
-        return ieee_f32()
-    return contextlib.nullcontext()
+def matmul_precision(precision: str):
+    """The context in which a config's f32 train step, evaluation and
+    prediction run, for its ``matmul_precision`` (``train/config.py``
+    states the mapping and why): ``"float32"`` and ``"bfloat16"`` both
+    mean :func:`ieee_f32`, TF32 off in cuBLAS and cuDNN.  The entry
+    points hold it around the whole model, the CNN branch's convolutions
+    included."""
+    if precision not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown matmul_precision {precision!r}: "
+                         "'float32' or 'bfloat16'")
+    return ieee_f32()
 
 
 class CNNNet(nn.Module):
@@ -288,17 +295,16 @@ class CNNNet(nn.Module):
 
     def forward(self, fp: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        with _ieee_f32_convs(fp):
-            if self.pallas_bwd:
-                x = cnn_tail(fp, self.conv1.weight, self.conv1.bias,
-                             self.conv2.weight, self.conv2.bias,
-                             self.conv3.weight, self.conv3.bias,
-                             self.fc1.weight, self.fc1.bias)
-            else:
-                x = fp.unsqueeze(1)                      # [B, 1, W]
-                for conv in (self.conv1, self.conv2, self.conv3):
-                    x = F.relu(conv(x))                  # [B, C, W]
-                x = self.fc1(x.transpose(1, 2).reshape(x.shape[0], -1))
+        if self.pallas_bwd:
+            x = cnn_tail(fp, self.conv1.weight, self.conv1.bias,
+                         self.conv2.weight, self.conv2.bias,
+                         self.conv3.weight, self.conv3.bias,
+                         self.fc1.weight, self.fc1.bias)
+        else:
+            x = fp.unsqueeze(1)                          # [B, 1, W]
+            for conv in (self.conv1, self.conv2, self.conv3):
+                x = F.relu(conv(x))                      # [B, C, W]
+            x = self.fc1(x.transpose(1, 2).reshape(x.shape[0], -1))
         x = self.dropout(F.relu(x), generator)
         return self.fc2(x)
 

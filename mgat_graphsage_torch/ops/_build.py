@@ -7,7 +7,10 @@ own into ``csrc/build/<name>-<hash>.so`` (git-ignored), at first use:
          -Xcompiler -fPIC -Xptxas -v -o csrc/build/<name>-<hash>.so \
          csrc/<name>.cu
 
-The hash covers the source and the flags, so an edited source rebuilds.
+The hash covers the source, every local header it includes (a quoted
+``#include`` of a file in ``csrc/``, such as ``attention_common.cuh``,
+followed recursively) and the flags, so an edited source or header
+rebuilds.
 Nothing is built when a module is imported: the wrappers in
 ``ops/adjacency.py``, ``ops/attention.py`` and ``ops/cnn.py`` call
 :func:`load` when they first launch on a CUDA tensor.  :func:`build_all` starts one ``nvcc`` per
@@ -29,7 +32,8 @@ import subprocess
 from typing import Dict, Iterable, List
 
 __all__ = ["KERNELS", "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "BUILD_LOGS",
-           "load", "build_all", "library_path", "ptxas_report"]
+           "load", "build_all", "library_path", "local_sources",
+           "ptxas_report"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -70,11 +74,30 @@ def _nvcc() -> str:
                        "to build the port's CUDA kernels")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_sources(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and the local headers it includes, recursively,
+    in the order first met."""
+    todo, seen = [name + ".cu"], []
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC_DIR, rel), "rb") as f:
+            text = f.read()
+        todo += [m.decode() for m in _INCLUDE.findall(text)
+                 if os.path.isfile(os.path.join(CSRC_DIR, m.decode()))]
+    return [os.path.join(CSRC_DIR, rel) for rel in seen]
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
     h = hashlib.sha1()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for src in local_sources(name):
+        with open(src, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 

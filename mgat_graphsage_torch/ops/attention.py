@@ -13,7 +13,8 @@ reference layer's transposed query/key roles::
 The backward recomputes ``attn`` (nothing ``[B, N, N]`` is saved) and
 returns ``dq, dk_new, dv``; the mask gets no gradient.
 
-Shape limit of the kernels: ``1 <= N <= 128``, ``1 <= F <= 128`` and the
+Shape limit of the kernels: ``1 <= N <= 128``, ``1 <= F <= 128`` (the
+forward fits every such shape: :func:`forward_smem_bytes`) and the
 backward's shared memory, ``((2 N + 2 N4) F4 + 2 N4 N8 + N) * 4`` bytes
 with ``N4``, ``F4`` rounded up to 4 and ``N8`` to 8, within the 227 KB a block may use
 (N <= 128 at the flagship's F = 35, N <= 84 at F = 128).  :func:`kernels_support` is that test; ``ModifiedGATLayer``
@@ -31,15 +32,43 @@ import torch
 
 __all__ = ["fused_masked_attention", "fused_masked_attention_cuda",
            "attention_bwd_cuda", "attention_plain", "attention_bwd_plain",
-           "kernels_support", "MAX_N", "MAX_F"]
+           "kernels_support", "forward_smem_bytes", "MAX_N", "MAX_F"]
 
 MAX_N = 128
 MAX_F = 128
 _SMEM_LIMIT = 232448     # bytes of shared memory a block may opt into
+_FWD_ROWS = 4            # csrc/attention.cu: kRows, query rows per half-warp
+_FWD_MAX_WARPS = 16      # csrc/attention.cu: kMaxWarps
+
+
+def _fwd_smem_floats(n: int, fp: int, tiles: int, warps: int) -> int:
+    """``csrc/attention.cu::smem_floats``: q and v (v padded to N4 rows),
+    the mask, the block's ``tiles`` row tiles of k_new and an attn
+    scratch of one row tile per half-warp."""
+    n4 = (n + 3) & ~3
+    return ((n + n4) * fp + n4 + _FWD_ROWS * tiles * fp
+            + 2 * _FWD_ROWS * warps * n4)
+
+
+def forward_smem_bytes(n: int, f: int, groups: int = 1) -> int:
+    """Shared memory of one forward block, as the launcher works it out:
+    the rows of a molecule in ``groups`` row groups (of row tiles, a
+    half-warp's rows each), or in more until the block fits the 227 KB a
+    block may use."""
+    fp = ((f + 3) & ~3) | 4              # an odd number of float4
+    nt = -(-n // _FWD_ROWS)
+    while True:
+        tiles = -(-nt // groups)
+        warps = min((tiles + 1) // 2, _FWD_MAX_WARPS)
+        smem = 4 * _fwd_smem_floats(n, fp, tiles, warps)
+        if smem <= _SMEM_LIMIT or tiles == 1:
+            return smem
+        groups += 1
 
 
 def _forward_fits(n: int, f: int) -> bool:
-    return 1 <= n <= MAX_N and 1 <= f <= MAX_F
+    return (1 <= n <= MAX_N and 1 <= f <= MAX_F
+            and forward_smem_bytes(n, f) <= _SMEM_LIMIT)
 
 
 def kernels_support(n: int, f: int) -> bool:

@@ -48,7 +48,12 @@ class TrainConfig:
     # selection: 'original_mse' (train.py:284) or 'val_mse' (baselines)
     select_metric: str = "original_mse"
     # precision and storage knobs of the reference package's trainer;
-    # carried so that sidecars round-trip
+    # carried so that sidecars round-trip.  matmul_precision on the H100,
+    # for f32 compute: "float32" and "bfloat16" both run IEEE f32, with
+    # TF32 off in cuBLAS and cuDNN, in the train step, evaluation and
+    # prediction alike (models/layers.py::matmul_precision).  The port
+    # keeps the reference numerics until the bf16 slice (ROADMAP Queue 1
+    # item 3) decides on TF32 or bf16 products.
     matmul_precision: str = "bfloat16"
     adam_moment_dtype: str = "float32"
     compute_dtype: str = "float32"

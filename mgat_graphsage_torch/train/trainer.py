@@ -18,8 +18,10 @@ one XLA program).
   seeded per epoch, so a resumed run repeats an uninterrupted one;
 - validation is the mean of per-batch MSEs on both scales (reference
   ``train.py:278``), with best-state selection on ``select_metric``;
-- f32 configs hold IEEE f32 (no TF32) over the whole train step, forward
-  and backward (``models/layers.py::ieee_f32``).
+- ``cfg.matmul_precision`` sets the numerics of the train step (forward
+  and backward) and of :meth:`Trainer.evaluate` alike, through
+  ``models/layers.py::matmul_precision``: IEEE f32, TF32 off, for both
+  of its values (``train/config.py``).
 
 On CUDA each step runs the adjacency kernel, the attention kernels
 (forward and backward) and, with ``cnn_pallas_bwd``, the CNN backward
@@ -42,7 +44,7 @@ from torch import nn
 from ..data import MolecularDataset
 from ..device import resolve_device
 from ..models import build_model, kl_loss, reset_parameters
-from ..models.layers import ieee_f32
+from ..models.layers import matmul_precision
 from ..ops import dense_adjacency
 from .checkpoint import load_checkpoint, save_checkpoint
 from .config import TrainConfig
@@ -162,7 +164,7 @@ class Trainer:
         ``kl`` as device tensors (no host sync)."""
         cfg, model = self.cfg, state.model
         model.train()
-        with ieee_f32():
+        with matmul_precision(cfg.matmul_precision):
             pred, latent = self._forward(model, batch, generator)
             mse = _masked_mse(pred, batch["y"], batch["sample_mask"])
             loss, kl = mse, torch.zeros((), device=mse.device)
@@ -202,7 +204,8 @@ class Trainer:
         mean = float(self.scaler.mean_)
         scale = float(self.scaler.scale_)
         preds, mses, omses, keeps = [], [], [], []
-        with torch.inference_mode():
+        with torch.inference_mode(), \
+                matmul_precision(self.cfg.matmul_precision):
             for batch in self._batches(ds, self.cfg.eval_batch_size):
                 pred, _ = self._forward(model, batch)
                 pred = pred.reshape(-1)

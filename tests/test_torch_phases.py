@@ -1,16 +1,20 @@
 """``kernel_phases.py`` builds its cut-down kernel copies from the committed
 sources by string edits; these tests make every copy here, without
 ``nvcc``, so that an edit to a kernel that breaks a cut marker fails on the
-CPU and not on the card.  They also hold the conv-chain wrapper's tile
-width to the kernel's."""
+CPU and not on the card.  They also hold the wrappers' tile width and
+shared-memory formula to the kernels', and check that a build follows the
+attention kernels' shared header (``csrc/attention_common.cuh``): the
+library's hash covers it and the copies' build finds it."""
 
 import importlib.util
 import os
 import re
+import shutil
 
 import pytest
 
 from mgat_graphsage_torch.ops import _build
+from mgat_graphsage_torch.ops import attention as torch_attention
 from mgat_graphsage_torch.ops import cnn as torch_cnn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -22,6 +26,16 @@ _spec.loader.exec_module(kernel_phases)
 
 # every copy kernel_phases.py times: (name, kernel source)
 COPIES = [
+    ("k2 full", "attention"),
+    ("k2 empty", "attention"),
+    ("k2 load only", "attention"),
+    ("k2 load + scores", "attention"),
+    ("k2 load + scores + softmax", "attention"),
+    ("k2 load + softmax", "attention"),
+    ("k2 division per key", "attention"),
+    ("k2 G=1", "attention"),
+    ("k2 G=2", "attention"),
+    ("k2 G=3", "attention"),
     ("k3 full", "attention_bwd"),
     ("k3 load only", "attention_bwd"),
     ("k3 load + phase A", "attention_bwd"),
@@ -81,3 +95,82 @@ def test_chain_wrapper_tile_width_matches_the_kernel():
     m = re.search(r"constexpr int kTW = (\d+);", _source("cnn_chain_bwd"))
     assert m is not None
     assert int(m.group(1)) == torch_cnn._TILE_W
+
+
+@pytest.mark.parametrize("name,kernel", COPIES)
+def test_each_copy_finds_the_headers_it_includes(name, kernel):
+    """A copy is built from a temporary directory: every quoted include
+    must resolve on the ``-I`` path that ``kernel_phases.nvcc_args`` gives
+    nvcc."""
+    _, src = kernel_phases.variants()[name]
+    args = kernel_phases.nvcc_args("copy.cu", "copy.so")
+    dirs = [args[i + 1] for i, a in enumerate(args) if a == "-I"]
+    for header in re.findall(r'^\s*#\s*include\s+"([^"]+)"', src, re.M):
+        assert any(os.path.isfile(os.path.join(d, header)) for d in dirs), \
+            (name, header, dirs)
+
+
+@pytest.mark.parametrize("kernel,follows", [
+    ("attention", True), ("attention_bwd", True), ("cnn_dy3", False),
+    ("cnn_chain_bwd", False), ("adjacency", False)])
+def test_library_path_follows_the_shared_header(tmp_path, monkeypatch,
+                                                kernel, follows):
+    """An edit to ``attention_common.cuh`` gives both attention kernels a
+    new library (no stale ``.so`` is loaded) and leaves the others'."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for fn in os.listdir(_build.CSRC_DIR):
+        if fn.endswith((".cu", ".cuh")):
+            shutil.copy(os.path.join(_build.CSRC_DIR, fn), csrc / fn)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    before = _build.library_path(kernel)
+    with open(csrc / "attention_common.cuh", "a") as fh:
+        fh.write("// edited\n")
+    assert (_build.library_path(kernel) != before) == follows
+    headers = [os.path.basename(p) for p in _build.local_sources(kernel)]
+    assert ("attention_common.cuh" in headers) == follows
+
+
+def _forward_launcher_constants():
+    src = _source("attention")
+    consts = {name: int(m.group(1)) for name in
+              ("kRows", "kMaxWarps", "kSmemLimit")
+              for m in [re.search(rf"constexpr \w+ {name} = (\d+);", src)]}
+    body = re.search(r"int smem_floats\(int n, int fp, int tiles, "
+                     r"int warps\) \{\n\s*return (.+);\n", src)
+    assert body is not None
+    return consts, body.group(1)
+
+
+def test_forward_smem_formula_matches_the_launcher():
+    """``ops/attention.py`` works out the forward's shared memory by the
+    launcher's formula: the same constants, and the same value as the C
+    expression (which is also Python) over the shapes it takes."""
+    consts, expr = _forward_launcher_constants()
+    assert consts["kRows"] == torch_attention._FWD_ROWS
+    assert consts["kMaxWarps"] == torch_attention._FWD_MAX_WARPS
+    assert consts["kSmemLimit"] == torch_attention._SMEM_LIMIT
+    code = compile(expr, "smem_floats", "eval")
+    for n in (1, 2, 3, 5, 37, 80, 84, 127, 128):
+        for fp in (4, 12, 36, 100, 132):
+            for tiles in (1, 2, 7, 20, 32):
+                for warps in (1, 4, 10, 16):
+                    assert eval(code, dict(consts, n=n, fp=fp, tiles=tiles,
+                                           warps=warps)) == \
+                        torch_attention._fwd_smem_floats(n, fp, tiles, warps)
+
+
+@pytest.mark.parametrize("n,f", [(80, 35), (128, 35), (84, 128),
+                                 (128, 128), (1, 1), (5, 3)])
+def test_forward_fits_every_shape_it_takes(n, f):
+    """The forward never refuses a shape ``_forward_fits`` accepts: at the
+    least row-group count that fits, a block stays within 227 KB (N = F =
+    128 needs two groups), and more groups never need more."""
+    smem = torch_attention.forward_smem_bytes(n, f)
+    assert smem <= 232448
+    sizes = [torch_attention.forward_smem_bytes(n, f, g) for g in (1, 2, 3)]
+    assert sizes == sorted(sizes, reverse=True)
+    assert torch_attention._forward_fits(n, f)
+    assert max(torch_attention.forward_smem_bytes(nn, ff)
+               for nn in range(1, 129) for ff in (1, f, 128)) <= 232448
