@@ -9,9 +9,13 @@ Phases (any failure raises and the script exits non-zero):
    name and power limit;
 2. build all five kernels from ``mgat_graphsage_torch/csrc`` (one ``nvcc``
    per source, started together) and hold the adjacency kernel BITWISE
-   against its plain version: the first 64 molecules of the test CSV at the
-   (80, 176) budget, a batch of 61, an all-zero edge mask, duplicate edges,
-   and N=128;
+   against its plain version on a CPU copy of the inputs
+   (``check_adjacency``): the first 64 test and 128 training molecules at
+   the (80, 176) budget, a batch of 61, an all-zero edge mask, duplicate
+   edges, N=128, fractional masks with several edges per cell, N=256 and
+   300, E=175, N=1, B=1 and B=133, out-of-range and negative indices, a
+   NaN mask, unaligned tensors and an edge list past shared memory; a
+   repeat bit for bit, and ``dense_adjacency`` at N=300 on the kernel;
 3. hold the attention forward kernel against its plain version to
    atol=rtol=1e-5 (f32, another summation order): the serving path's own
    q, k_new, v at [64, 80, 35], random [64, 80, 35] with mixed padding and
@@ -30,9 +34,12 @@ Phases (any failure raises and the script exits non-zero):
    must be finite, NaN exactly where the input was unparseable, aligned
    with the input, within 1e-4 pChEMBL of the same model run on the card
    through the plain versions, and within 1e-3 of the port on the CPU;
-5. serving timings: each serving kernel, its plain version and, for the
-   attention, one ``scaled_dot_product_attention`` call plus ``v`` (timed
-   here only; the port never calls it); each kernel's bound; molecules/s
+5. serving timings: each serving kernel, its plain version and the library
+   computing the same function (timed here only; the port never calls
+   it): for the adjacency, at B=64 and at the training batch B=128,
+   ``zeros`` + ``index_add_`` + ``clamp_max_``; for the attention, one
+   ``scaled_dot_product_attention`` call plus ``v``; each kernel's bound
+   and bound share; molecules/s
    split into host featurisation and device time; p50 request latency; a
    ``torch.profiler`` trace of one Predictor call;
 6. the attention backward kernel against its plain version, each output
@@ -154,7 +161,8 @@ def bound(nbytes, flops):
 
 
 # (module, kernel wrapper, plain version) for every kernel: the module is
-# where the main path looks the wrapper up at call time
+# where the main path looks the wrapper up at call time; the plain version
+# sits beside the wrapper, in the module that defines it
 ROUTES = (("ops.graph", "dense_adjacency_cuda", "dense_adjacency_plain"),
           ("ops.attention", "fused_masked_attention_cuda", "attention_plain"),
           ("ops.attention", "attention_bwd_cuda", "attention_bwd_plain"),
@@ -171,9 +179,8 @@ def plain_path():
     mods = [importlib.import_module(f"mgat_graphsage_torch.{m}")
             for m, _, _ in ROUTES]
     saved = [getattr(mod, w) for mod, (_, w, _) in zip(mods, ROUTES)]
-    for mod, (m, w, plain) in zip(mods, ROUTES):
-        setattr(mod, w, getattr(importlib.import_module(
-            "mgat_graphsage_torch." + m), plain))
+    for mod, (_, w, plain), fn in zip(mods, ROUTES, saved):
+        setattr(mod, w, getattr(sys.modules[fn.__module__], plain))
     try:
         yield
     finally:
@@ -206,6 +213,36 @@ def device_events(torch, prof):
             if ev.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(ev, "is_user_annotation", False)
             and not ev.key.startswith(("Optimizer.", "ProfilerStep"))]
+
+
+def bitwise_equal(got, want):
+    """Same shape and the same bits, with NaN where the other has NaN (of
+    any payload)."""
+    import torch
+
+    if got.shape != want.shape:
+        return False
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan) and torch.equal(
+        got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]))
+
+
+def order_sensitive_cells(edges, mask, n):
+    """Cells of a numpy adjacency case whose f32 sum (before the clamp)
+    differs between adding their edges in ascending and in descending
+    order: a check that the case can tell the orders apart."""
+    b, _, e = edges.shape
+    up = np.zeros((b, n, n), np.float32)
+    down = np.zeros((b, n, n), np.float32)
+    for i in range(b):
+        for j in range(e):
+            s, d = edges[i, 0, j], edges[i, 1, j]
+            if 0 <= s < n and 0 <= d < n:
+                up[i, d, s] = np.float32(up[i, d, s] + mask[i, j])
+            s, d = edges[i, 0, e - 1 - j], edges[i, 1, e - 1 - j]
+            if 0 <= s < n and 0 <= d < n:
+                down[i, d, s] = np.float32(down[i, d, s] + mask[i, e - 1 - j])
+    return int((up != down).sum())
 
 
 def rel_err(got, want):
@@ -388,6 +425,135 @@ def check_cnn_kernels(torch, dev, rng, model, fp):
             chain_err)
 
 
+def check_adjacency(torch, dev, rng, seed, edges64, emask64, edges128,
+                    emask128):
+    """Kernel 1 BITWISE against its plain version on a CPU copy of the
+    inputs: the real serving and training batches, a batch of 61, an
+    all-zero mask, duplicate edges, N=128, 256 and 300, N=37 with E=175,
+    N=1, B=1 and B=133, fractional masks with several edges per cell,
+    out-of-range and negative indices, a NaN mask, tensors 4 bytes off a
+    16-byte boundary and an edge list too long for shared memory; a
+    repeat bit for bit; ``dense_adjacency`` at N=300 must launch.
+    Returns the largest |error|."""
+    from mgat_graphsage_torch.ops.adjacency import (
+        dense_adjacency_cuda, dense_adjacency_plain)
+    from mgat_graphsage_torch.ops.graph import dense_adjacency
+
+    n_nodes, n_edges = BUDGET
+
+    def dup_case(b, n, e, frac=False, r=rng):
+        """Random edges, every other one twice, the first k real and the
+        rest padding; masks 1, or in (0, 0.25) when ``frac``."""
+        ed = r.integers(0, n, size=(b, 2, e)).astype(np.int32)
+        m = np.zeros((b, e), np.float32)
+        for i in range(b):
+            k = int(r.integers(1, e + 1))
+            m[i, :k] = r.uniform(0.001, 0.25, k) if frac else 1.0
+            ed[i, :, k:] = 0                      # padding points at node 0
+            ed[i, :, 1:k:2] = ed[i, :, 0:k - 1:2]  # every other edge twice
+        return torch.from_numpy(ed).to(dev), torch.from_numpy(m).to(dev)
+
+    # the fractional and edge cases draw from a stream of their own, so the
+    # five first cases and the later phases keep their data
+    rng1 = np.random.default_rng(seed + 2)
+
+    def oob_case(b, n, e):
+        """Indices in [-3, n + 3) and a few far outside: those edges are
+        dropped."""
+        ed = rng1.integers(-3, n + 3, size=(b, 2, e)).astype(np.int32)
+        ed[:, 0, ::17] = n + 1000
+        ed[:, 1, 5::23] = -(1 << 30)
+        m = rng1.uniform(0.001, 0.5, (b, e)).astype(np.float32)
+        return torch.from_numpy(ed).to(dev), torch.from_numpy(m).to(dev)
+
+    def shifted(t):
+        """A contiguous copy of ``t`` 4 bytes past a 16-byte boundary."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    nan_ed, nan_m = dup_case(8, 16, 64, True, rng1)
+    nan_m[0, 0] = float("nan")                     # edge 0 is real
+    frac_n8 = dup_case(BATCH, 8, n_edges, True, rng1)
+    adj_cases = {
+        "test64": (edges64, emask64, n_nodes),
+        "batch61": (edges64[:61].contiguous(), emask64[:61].contiguous(),
+                    n_nodes),
+        "empty_mask": (edges64, torch.zeros_like(emask64), n_nodes),
+        "duplicates": (*dup_case(BATCH, n_nodes, n_edges), n_nodes),
+        "n128": (*dup_case(BATCH, 128, 320), 128),
+        "train128": (edges128, emask128, n_nodes),
+        "frac_n8": (*frac_n8, 8),
+        "frac_n80": (*dup_case(BATCH, n_nodes, n_edges, True, rng1),
+                     n_nodes),
+        "n256": (*dup_case(16, 256, 560, True, rng1), 256),
+        "n300": (*dup_case(16, 300, 660, True, rng1), 300),
+        "n37_e175": (*dup_case(16, 37, 175, True, rng1), 37),
+        "n1": (*dup_case(4, 1, 8, True, rng1), 1),
+        "b1": (*dup_case(1, n_nodes, n_edges, True, rng1), n_nodes),
+        "b133": (*dup_case(133, n_nodes, n_edges, True, rng1), n_nodes),
+        "out_of_range": (*oob_case(BATCH, n_nodes, n_edges), n_nodes),
+        "nan_mask": (nan_ed, nan_m, 16),
+        "unaligned": (shifted(edges64), shifted(emask64), n_nodes),
+        # 12 bytes an edge past a block's shared memory: the global path
+        "big_e": (*dup_case(2, 300, 20_000, True, rng1), 300),
+    }
+    adj_err = 0.0
+    for name, (ed, em, n) in adj_cases.items():
+        got = dense_adjacency_cuda(ed, em, n)
+        # the reference: the plain version on a CPU copy, on one thread,
+        # which sums each cell in ascending edge order (from 32,768 edges
+        # on, PyTorch's CPU index_put_ adds floats from several threads in
+        # no fixed order).  The plain version on the card may add a cell's
+        # fractional masks in another order too, so it is a reference only
+        # for 0/1 masks, where every order gives the same small integers.
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        want = dense_adjacency_plain(ed.cpu(), em.cpu(), n)
+        torch.set_num_threads(threads)
+        on_card = dense_adjacency_plain(ed, em, n)
+        torch.cuda.synchronize()
+        got = got.cpu()
+        err = (got - want).nan_to_num(nan=0.0).abs().max().item()
+        adj_err = max(adj_err, err)
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"adjacency kernel differs from its plain "
+                                 f"version on {name}: max |err| {err}")
+        binary = bool(((em == 0) | (em == 1)).all())
+        card_same = bitwise_equal(on_card.cpu(), want)
+        if binary and not card_same:
+            raise AssertionError(f"the plain version on the card differs from "
+                                 f"the CPU's on 0/1 masks ({name})")
+        log(f"[2] adjacency {name:<12} {tuple(got.shape)} bitwise equal to "
+            f"the plain version on the CPU ({int((want != 0).sum())} nonzero, "
+            f"masks {'0/1' if binary else 'fractional'}; plain on the card "
+            f"{'equal' if card_same else 'differs'})")
+    # the fractional cases must tell the summation orders apart
+    for name in ("frac_n8", "frac_n80", "n300"):
+        ed, em, n = adj_cases[name]
+        cells = order_sensitive_cells(ed.cpu().numpy(), em.cpu().numpy(), n)
+        if cells == 0:
+            raise AssertionError(f"{name}: no cell depends on the order of "
+                                 "its additions")
+        log(f"[2] adjacency {name}: {cells} cells whose f32 sum "
+            f"changes if the edges are added in descending order")
+    again = dense_adjacency_cuda(*frac_n8, 8).cpu()
+    if not bitwise_equal(again, dense_adjacency_cuda(*frac_n8, 8).cpu()):
+        raise AssertionError("adjacency kernel does not repeat bit for bit")
+    nan_adj = dense_adjacency_cuda(nan_ed, nan_m, 16)
+    if not torch.isnan(nan_adj).any():
+        raise AssertionError("a NaN mask must give a NaN cell")
+    before = dense_adjacency_cuda.launches
+    dense_adjacency(*adj_cases["n300"])
+    if dense_adjacency_cuda.launches != before + 1:
+        raise AssertionError("dense_adjacency at N=300 did not launch the "
+                             "kernel")
+    log("[2] adjacency repeats bit for bit (frac_n8), a NaN mask gives NaN, "
+        "and dense_adjacency at N=300 launches the kernel")
+    return adj_err
+
+
 def first_steps(torch, Trainer, cfg, train, val, steps=4):
     """The losses of the first ``steps`` train steps from cfg.seed, in the
     epoch-0 batch order with the epoch-0 dropout generator."""
@@ -480,43 +646,21 @@ def main(argv=None) -> int:
     emask64 = torch.from_numpy(ds64.edge_mask).to(dev)
     rng = np.random.default_rng(args.seed)
 
-    def dup_case(b, n, e):
-        ed = rng.integers(0, n, size=(b, 2, e)).astype(np.int32)
-        m = np.zeros((b, e), np.float32)
-        for i in range(b):
-            k = int(rng.integers(1, e + 1))
-            m[i, :k] = 1.0
-            ed[i, :, k:] = 0                      # padding points at node 0
-            ed[i, :, 1:k:2] = ed[i, :, 0:k - 1:2]  # every other edge twice
-        return torch.from_numpy(ed).to(dev), torch.from_numpy(m).to(dev)
-
-    adj_cases = {
-        "test64": (edges64, emask64, n_nodes),
-        "batch61": (edges64[:61].contiguous(), emask64[:61].contiguous(),
-                    n_nodes),
-        "empty_mask": (edges64, torch.zeros_like(emask64), n_nodes),
-        "duplicates": (*dup_case(BATCH, n_nodes, n_edges), n_nodes),
-        "n128": (*dup_case(BATCH, 128, 320), 128),
-    }
-    adj_err = 0.0
-    for name, (ed, em, n) in adj_cases.items():
-        got = dense_adjacency_cuda(ed, em, n)
-        want = dense_adjacency_plain(ed, em, n)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        adj_err = max(adj_err, err)
-        if not torch.equal(got, want):
-            raise AssertionError(f"adjacency kernel differs from its plain "
-                                 f"version on {name}: max |err| {err}")
-        log(f"[2] adjacency {name:<10} {tuple(got.shape)} bitwise equal "
-            f"({int(want.sum().item())} ones)")
+    train_smiles, train_y = load_csv(TRAIN_CSV)
+    ds128 = MolecularDataset(train_smiles[:128], train_y[:128],
+                             max_nodes=n_nodes, max_edges=n_edges,
+                             verbose=False)
+    assert len(ds128) == 128, "a train molecule fell outside the budget"
+    edges128 = torch.from_numpy(ds128.edges).to(dev)
+    emask128 = torch.from_numpy(ds128.edge_mask).to(dev)
+    adj_err = check_adjacency(torch, dev, rng, args.seed, edges64, emask64,
+                              edges128, emask128)
 
     # ---- 4a. the model, its checkpoint, and the serving path's q/k/v ----
     cfg = get_config("flagship")
     model = reset_parameters(build_model(cfg),
                              torch.Generator().manual_seed(args.seed))
     n_params = sum(p.numel() for p in model.parameters())
-    _, train_y = load_csv(TRAIN_CSV)
     scaler = StandardScaler().fit(train_y)
     tmp = tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO)
     ckpt = os.path.join(tmp.name, "flagship.pt")
@@ -671,11 +815,30 @@ def main(argv=None) -> int:
     # ---- 5. timings --------------------------------------------------------
     timer = DeviceTimer(torch)
     b, n, f = serve_q.shape
-    e = edges64.shape[2]
+    adj_t = {}        # batch -> kernel, plain, library ms and the bound
+    for ed, em in ((edges64, emask64), (edges128, emask128)):
+        bb, _, e = ed.shape
+        # the library's yardstick: zeros, index_add_ (atomics) and clamp_,
+        # three calls, on the flat index built here, outside the timing
+        ok = ((ed[:, 0] >= 0) & (ed[:, 0] < n) & (ed[:, 1] >= 0)
+              & (ed[:, 1] < n))
+        flat = (torch.arange(bb, device=dev).view(bb, 1) * n * n
+                + ed[:, 1].long() * n + ed[:, 0].long())[ok]
+        vals = em[ok]
+
+        def lib_adj():
+            return torch.zeros(bb * n * n, device=dev).index_add_(
+                0, flat, vals).clamp_max_(1.0)
+
+        if not bitwise_equal(lib_adj().view(bb, n, n),
+                             dense_adjacency_cuda(ed, em, n)):
+            raise AssertionError("index_add_ yardstick differs from the "
+                                 "adjacency kernel on 0/1 masks")
+        adj_t[bb] = (timer(lambda: dense_adjacency_cuda(ed, em, n)),
+                     timer(lambda: dense_adjacency_plain(ed, em, n)),
+                     timer(lib_adj),
+                     bound(bb * 3 * e * 4 + bb * n * n * 4, bb * e))
     with torch.inference_mode():
-        adj_ms = timer(lambda: dense_adjacency_cuda(edges64, emask64, n))
-        adj_plain_ms = timer(lambda: dense_adjacency_plain(edges64, emask64,
-                                                           n))
         attn_ms = timer(lambda: fused_masked_attention_cuda(
             serve_q, serve_k, serve_v, nm64, True))
         attn_plain_ms = timer(lambda: attention_plain(
@@ -684,16 +847,17 @@ def main(argv=None) -> int:
         sdpa = torch.nn.functional.scaled_dot_product_attention
         attn_lib_ms = timer(lambda: sdpa(serve_k, serve_q, serve_v,
                                          attn_mask=key_mask) + serve_v)
-    adj_bound = bound(b * 3 * e * 4 + b * n * n * 4, b * e)
     attn_bound = bound(3 * b * n * f * 4 + b * n * 4 + b * n * f * 4,
                        4 * b * n * n * f + 5 * b * n * n)
     for name, ms, plain, lib, (bms, by) in (
-            ("adjacency", adj_ms, adj_plain_ms, None, adj_bound),
-            ("attention", attn_ms, attn_plain_ms, attn_lib_ms, attn_bound)):
-        log(f"[5] {name} at the serving shape: kernel {ms * 1e3:.2f} us, "
-            f"plain {plain * 1e3:.2f} us, library "
-            f"{'n/a' if lib is None else f'{lib * 1e3:.2f} us'}, bound "
-            f"{bms * 1e3:.3f} us ({by}) on {card}")
+            ("adjacency at B=64 (serving)", *adj_t[64]),
+            ("adjacency at B=128 (training)", *adj_t[128]),
+            ("attention at the serving shape", attn_ms, attn_plain_ms,
+             attn_lib_ms, attn_bound)):
+        log(f"[5] {name}: kernel {ms * 1e3:.2f} us, plain "
+            f"{plain * 1e3:.2f} us, library {lib * 1e3:.2f} us, bound "
+            f"{bms * 1e3:.3f} us ({by}), bound share {bms / ms:.4f} on "
+            f"{card}")
     feat_s, disp_s = full_t["featurize_s"], full_t["dispatch_s"]
     log(f"[5] {n_test} molecules through the Predictor: "
         f"{n_test / (feat_s + disp_s):.1f} mol/s end to end; host "
@@ -730,7 +894,6 @@ def main(argv=None) -> int:
         cnn_chain_bwd_cuda, cnn_chain_bwd_plain, dy3_cuda, dy3_plain)
     from mgat_graphsage_torch.train import Trainer
 
-    train_smiles, _ = load_csv(TRAIN_CSV)
     val_smiles, val_y = load_csv(VAL_CSV)
     t0 = time.perf_counter()
     train_ds = MolecularDataset(train_smiles, train_y, fit_scaler=True,
@@ -981,9 +1144,17 @@ def main(argv=None) -> int:
          "replaces": "mgat_graphsage_tpu/ops/pallas_adjacency.py:56",
          "launches": train_counts["dense_adjacency_cuda"],
          "max_abs_err": adj_err,
-         "ms": adj_ms, "plain_ms": adj_plain_ms, "bound_ms": adj_bound[0],
-         "bound_by": adj_bound[1], "bound_share": adj_bound[0] / adj_ms,
-         "library_ms": None},
+         "ms": adj_t[64][0], "plain_ms": adj_t[64][1],
+         "bound_ms": adj_t[64][3][0], "bound_by": adj_t[64][3][1],
+         "bound_share": adj_t[64][3][0] / adj_t[64][0],
+         "library_ms": adj_t[64][2],
+         "train_ms": adj_t[128][0], "train_plain_ms": adj_t[128][1],
+         "train_bound_ms": adj_t[128][3][0],
+         "train_bound_by": adj_t[128][3][1],
+         "train_bound_share": adj_t[128][3][0] / adj_t[128][0],
+         "train_library_ms": adj_t[128][2],
+         "launches_per_step": train_counts["dense_adjacency_cuda"]
+         / runs[True]["steps"]},
         {"name": "fused_masked_attention", "route": "cuda",
          "source": "mgat_graphsage_torch/csrc/attention.cu",
          "replaces": "mgat_graphsage_tpu/ops/pallas_attention.py:84",

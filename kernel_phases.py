@@ -1,38 +1,46 @@
 #!/usr/bin/env python3
-"""Where the time of kernels 2, 3, 4 and 5 goes, on one CUDA card.
+"""Where the time of kernels 1 to 5 goes, on one CUDA card.
 
     python3 kernel_phases.py [--seed 0] [--only k2]
 
-Builds cut-down copies of ``csrc/attention.cu`` (kernel 2),
-``csrc/attention_bwd.cu`` (kernel 3), ``csrc/cnn_dy3.cu`` (kernel 4) and
-``csrc/cnn_chain_bwd.cu`` (kernel 5), each with one part of the work
-removed, times every copy beside the full kernel with
-``chip_smoke.DeviceTimer``, and prints one line per copy (per shape for
-kernel 2) with the card's name and power limit.  Shapes: kernel 2 at the
-serving batch B=64 and the training batch B=128 (N=80, F=35), the others
-at the training shape (B=128, N=80, F=35; H=256, K=131072; W=1024).  A cut
-copy computes wrong numbers on purpose; only its time is read.  The copies
-are written to and built in a temporary directory, with ``csrc/`` on the
-include path for the headers they include; the sources are not touched.
+Builds cut-down copies of ``csrc/adjacency.cu`` (kernel 1),
+``csrc/attention.cu`` (kernel 2), ``csrc/attention_bwd.cu`` (kernel 3),
+``csrc/cnn_dy3.cu`` (kernel 4) and ``csrc/cnn_chain_bwd.cu`` (kernel 5),
+each with one part of the work removed, times every copy beside the full
+kernel with ``chip_smoke.DeviceTimer``, and prints one line per copy (per
+shape for kernels 1 and 2) with the card's name and power limit.  Shapes:
+kernel 1 on the real edge lists of the first 64 test molecules (the serving
+batch) and of the first 128 training molecules (the training batch) at the
+(N, E) = (80, 176) budget; kernel 2 at the serving batch B=64 and the
+training batch B=128 (N=80, F=35); the others at the training shape (B=128,
+N=80, F=35; H=256, K=131072; W=1024).  A cut copy computes wrong numbers on
+purpose; only its time is read.  The copies are written to and built in a
+temporary directory, with ``csrc/`` on the include path for the headers
+they include; the sources are not touched.
 
-Kernel 2: the full kernel; returning at entry (the launch floor of
-back-to-back launches); stopped after the molecule's load; stopped after
-the scores; after the scores and the softmax; load, scores and softmax
-with attn in each half-warp's scratch but no product; the
-full kernel normalising with a division per key (the backward's way, the
-same bits) in place of one per row; the full kernel at 1, 2 and 3 row
-groups per molecule in place of the launcher's rule.  Kernel 3: the full
-kernel; stopped after the molecule's load; stopped after phase A (attn
-and dscores in shared memory); phase A with the softmax replaced by a
-scale.  Kernel 4: the full kernel; without
-the dy3 stores; with neither stores nor ring refills (the FMAs on
-whatever the first chunks left in shared memory).  Kernel 5: the full
-kernel; each tile's staging alone (the wait for its copies); staging and
-dw3, db3; staging and all of level 3 (d2 too); all but d1 and its sums;
-every phase without the refills (each tile computes on whatever the first
-one left in shared memory).  Kernel 5's inputs have the ReLU pattern of
-real activations: y1, y2 and d3 about half zero, the fingerprint's bits 0
-or 1.  ``--only`` keeps the copies whose name starts with its argument.
+Kernel 1: the full kernel; returning at entry (the launch floor); stopped
+after staging the molecule's edges in shared memory; the rows walked but
+not stored; the full kernel at 1, 2, 3 and 4 row groups per molecule in
+place of the launcher's rule, and at 1, 4 and 8 rows per warp in place of
+2; the full kernel that walks only where the one edge of 32 on its rows is
+the first (the scan without the walk).  Kernel 2: the full kernel;
+returning at entry (the launch floor of back-to-back launches); stopped
+after the molecule's load; stopped after the scores; after the scores and
+the softmax; load, scores and softmax with attn in each half-warp's scratch
+but no product; the full kernel normalising with a division per key (the
+backward's way, the same bits) in place of one per row; the full kernel at
+1, 2 and 3 row groups per molecule in place of the launcher's rule.  Kernel
+3: the full kernel; stopped after the molecule's load; stopped after phase
+A (attn and dscores in shared memory); phase A with the softmax replaced by
+a scale.  Kernel 4: the full kernel; without the dy3 stores; with neither
+stores nor ring refills (the FMAs on whatever the first chunks left in
+shared memory).  Kernel 5: the full kernel; each tile's staging alone (the
+wait for its copies); staging and dw3, db3; staging and all of level 3 (d2
+too); all but d1 and its sums; every phase without the refills (each tile
+computes on whatever the first one left in shared memory).  Kernel 5's
+inputs have the ReLU pattern of real activations: y1, y2 and d3 about half
+zero, the fingerprint's bits 0 or 1.  ``--only`` keeps the copies whose
+name starts with its argument.
 """
 
 from __future__ import annotations
@@ -85,8 +93,30 @@ def cut(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
+# a kernel-1 copy that returns after staging its molecule's edges; the
+# store fires only for a source index no real edge list holds
+K1_STOP = ("  if (num_nodes > 0) {\n"
+           "    if (kStaged && (int)threadIdx.x < 3 * e_n && "
+           "smem[threadIdx.x] == -7)\n"
+           "      out[threadIdx.x] = 0.0f;\n    return;\n  }\n")
+# kernel 1's stores, and the same stores behind a test no mask >= 0 passes
+K1_STORES = (("          *reinterpret_cast<float4*>(row + col) = v;",
+              "          if (v.x == -2.0f) *reinterpret_cast<float4*>(row + "
+              "col) = v;"),
+             ("          if (col < n) row[col] = clamp1(acc[i][j]);",
+              "          if (col < n && acc[i][j] == -2.0f) row[col] = "
+              "clamp1(acc[i][j]);"))
+# the launcher's row-group rule and kernel 1's rows per warp
+K1_GROUPS = "  int groups = row_groups(batch, n, sms);"
+K1_ROWS = "constexpr int kRowsPerWarp = 2;"
+# kernel 1's walk over the set bits, which a copy runs only where the one
+# set bit is edge 0 of its 32
+K1_WALK = "      while (bits) {  // the warp's edges in ascending e"
+
+
 def variants():
     """name -> (kernel source name, source text)."""
+    k1 = open(os.path.join(CSRC, "adjacency.cu")).read()
     k2 = open(os.path.join(CSRC, "attention.cu")).read()
     k3 = open(os.path.join(CSRC, "attention_bwd.cu")).read()
     k4 = open(os.path.join(CSRC, "cnn_dy3.cu")).read()
@@ -97,6 +127,22 @@ def variants():
 
     no_stores = ("            __stcs(", "            if (batch < 0) __stcs(")
     return {
+        "k1 full": ("adjacency", k1),
+        "k1 empty": ("adjacency", cut(k1, "  // ---- load",
+                                      "  if (num_nodes > 0) return;\n"
+                                      "  // ---- load")),
+        "k1 load only": ("adjacency", cut(k1, "  // ---- rows",
+                                          K1_STOP + "  // ---- rows")),
+        "k1 no write-out": ("adjacency", cut(cut(k1, *K1_STORES[0]),
+                                             *K1_STORES[1])),
+        **{f"k1 G={g}": ("adjacency", cut(k1, K1_GROUPS,
+                                          f"  int groups = {g};"))
+           for g in (1, 2, 3, 4)},
+        **{f"k1 R={r}": ("adjacency", cut(
+            k1, K1_ROWS, f"constexpr int kRowsPerWarp = {r};"))
+           for r in (1, 4, 8)},
+        "k1 no walk": ("adjacency", cut(k1, K1_WALK, K1_WALK.replace(
+            "while (bits)", "while (bits == 1u)"))),
         "k2 full": ("attention", k2),
         "k2 empty": ("attention", cut(k2, "  // ---- load",
                                       "  if (residual >= 0) return;\n"
@@ -204,6 +250,22 @@ def main(argv=None) -> int:
     partials = torch.empty(blocks, 31040, device=dev)
     sums = torch.empty(31040, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
+    def k1_call(csv, bb):
+        """kernel 1 on the first ``bb`` molecules of ``csv`` at the (80,
+        176) budget: real edge lists, padding at node 0 with mask 0"""
+        from mgat_graphsage_torch.data import MolecularDataset, load_csv
+
+        smiles, y = load_csv(csv)
+        nn, ne = chip_smoke.BUDGET
+        ds = MolecularDataset(smiles[:bb], y[:bb], max_nodes=nn, max_edges=ne,
+                              verbose=False)
+        assert len(ds) == bb, "a molecule fell outside the budget"
+        ed = torch.from_numpy(ds.edges).to(dev)
+        em = torch.from_numpy(ds.edge_mask).to(dev)
+        adj = torch.empty(bb, nn, nn, device=dev)
+        return lambda fn: fn(ed.data_ptr(), em.data_ptr(), adj.data_ptr(), bb,
+                             ed.shape[2], nn, stream)
+
     def k2_call(bb):
         return lambda fn: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              mask.data_ptr(), o.data_ptr(), bb, n, f,
@@ -223,6 +285,11 @@ def main(argv=None) -> int:
             d3.data_ptr(), y2.data_ptr(), y1.data_ptr(), fp.data_ptr(),
             w3.data_ptr(), w2.data_ptr(), partials.data_ptr(),
             sums.data_ptr(), cb, cw, blocks, stream)}
+    if any(kern == "adjacency" for kern, _ in fns.values()):
+        from mgat_graphsage_torch.data import TEST_CSV, TRAIN_CSV
+
+        calls["adjacency"] = [("B=64", k1_call(TEST_CSV, 64)),
+                              ("B=128", k1_call(TRAIN_CSV, 128))]
     timer = chip_smoke.DeviceTimer(torch)
     for name, (kernel, fn) in fns.items():
         shapes = calls[kernel]

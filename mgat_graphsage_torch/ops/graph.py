@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .adjacency import MAX_NODES, dense_adjacency_cuda, dense_adjacency_plain
+from .adjacency import dense_adjacency_cuda
 
 __all__ = [
     "dense_adjacency",
@@ -31,13 +31,8 @@ def dense_adjacency(edges: torch.Tensor, edge_mask: torch.Tensor,
     destination) + ``[B, E]`` mask -> ``[B, N, N]`` f32 with
     ``adj[b, dst, src] = min(sum mask, 1)``: row ``i`` holds the
     in-neighbourhood of node ``i``, so ``adj @ x`` aggregates sources into
-    destinations.  On CUDA this is the ``csrc/adjacency.cu`` kernel up to
-    its limit of ``N <= MAX_NODES`` (238: one N x N tile in shared memory),
-    decided by the shape before any launch; past it, and on the CPU, the
-    plain scatter version, as the reference falls back to its scatter
-    where its kernel does not apply."""
-    if int(num_nodes) > MAX_NODES:
-        return dense_adjacency_plain(edges, edge_mask, num_nodes)
+    destinations.  On CUDA this is the ``csrc/adjacency.cu`` kernel at any
+    ``N``; on the CPU its plain scatter version."""
     return dense_adjacency_cuda(edges, edge_mask, num_nodes)
 
 

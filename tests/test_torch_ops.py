@@ -245,15 +245,20 @@ def test_gat_layer_routes_by_the_gate(monkeypatch, n, routed):
 
 
 def test_adjacency_routes_past_its_limit_without_a_launch(monkeypatch):
-    """Past MAX_NODES (238) the adjacency takes the scatter version, by
-    the shape, before any launch."""
+    """The kernel has no N limit any more: past the old one (238) the
+    adjacency still goes through the kernel's wrapper, which on the CPU
+    returns the plain scatter version and launches nothing."""
     from mgat_graphsage_torch.ops import graph
 
-    def refuse(*a):
-        raise AssertionError("the kernel wrapper was reached past its limit")
+    calls = []
 
-    monkeypatch.setattr(graph, "dense_adjacency_cuda", refuse)
+    def spy(*a):
+        calls.append(a[2])
+        return dense_adjacency_cuda(*a)
+
+    monkeypatch.setattr(graph, "dense_adjacency_cuda", spy)
     edges, mask = _edges(b=3, n=16, seed=4)
+    before = dense_adjacency_cuda.launches
     out = graph.dense_adjacency(torch.from_numpy(edges),
                                 torch.from_numpy(mask), 240)
     assert out.shape == (3, 240, 240)
@@ -261,9 +266,59 @@ def test_adjacency_routes_past_its_limit_without_a_launch(monkeypatch):
                                   dense_adjacency_plain(
                                       torch.from_numpy(edges),
                                       torch.from_numpy(mask), 16).numpy())
-    with pytest.raises(AssertionError):
-        graph.dense_adjacency(torch.from_numpy(edges),
-                              torch.from_numpy(mask), 16)
+    assert out[:, 16:].sum() == 0 and out[:, :, 16:].sum() == 0
+    graph.dense_adjacency(torch.from_numpy(edges), torch.from_numpy(mask), 16)
+    assert calls == [240, 16]
+    assert dense_adjacency_cuda.launches == before
+
+
+def _ascending_sum(edges, mask, n):
+    """numpy: each cell's masks added one at a time in ascending edge
+    order, in f32, then clamped to 1; out-of-range edges dropped."""
+    b, _, e = edges.shape
+    adj = np.zeros((b, n, n), np.float32)
+    for i in range(b):
+        for j in range(e):
+            s, d = edges[i, 0, j], edges[i, 1, j]
+            if 0 <= s < n and 0 <= d < n:
+                adj[i, d, s] = np.float32(adj[i, d, s] + mask[i, j])
+    return np.minimum(adj, np.float32(1.0))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("b", [1, 5])
+def test_adjacency_plain_sums_in_ascending_edge_order(seed, b):
+    """Fractional masks with many duplicates per cell (N = 6, E = 128) and
+    out-of-range indices: the plain version equals the ascending-order
+    sum bit for bit, the order the CUDA kernel sums in."""
+    rng = np.random.default_rng(100 + seed)
+    n, e = 6, 128
+    edges = rng.integers(-1, n + 1, size=(b, 2, e)).astype(np.int32)
+    mask = rng.uniform(0.001, 0.2, size=(b, e)).astype(np.float32)
+    want = _ascending_sum(edges, mask, n)
+    got = dense_adjacency_plain(torch.from_numpy(edges),
+                                torch.from_numpy(mask), n).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    rev = _ascending_sum(edges[:, :, ::-1], mask[:, ::-1], n)
+    assert (rev != want).any()     # the case tells the orders apart
+
+
+def test_adjacency_at_n300_on_cpu_is_plain_with_no_limit():
+    """N = 300, past the old shared-memory limit: ``dense_adjacency`` on
+    the CPU returns the plain version and counts no launch, and neither
+    ``ops.graph`` nor ``ops.adjacency`` keeps an N limit."""
+    from mgat_graphsage_torch.ops import adjacency, graph
+
+    edges, mask = _edges(b=3, n=300, e=700, seed=6, frac=True)
+    et, mt = torch.from_numpy(edges), torch.from_numpy(mask)
+    before = dense_adjacency_cuda.launches
+    out = dense_adjacency(et, mt, 300)
+    assert out.shape == (3, 300, 300)
+    np.testing.assert_array_equal(out.numpy(),
+                                  dense_adjacency_plain(et, mt, 300).numpy())
+    assert dense_adjacency_cuda.launches == before
+    assert not hasattr(graph, "MAX_NODES")
+    assert not hasattr(adjacency, "MAX_NODES")
 
 
 def test_ptxas_report_names_each_kernel_and_its_registers():

@@ -2,7 +2,9 @@
 sources by string edits; these tests make every copy here, without
 ``nvcc``, so that an edit to a kernel that breaks a cut marker fails on the
 CPU and not on the card.  They also hold the wrappers' tile width and
-shared-memory formula to the kernels', and check that a build follows the
+shared-memory formula to the kernels', run the adjacency launcher's
+row-group rule (C, evaluated here) over the shapes it takes, and check
+that a build follows the
 attention kernels' shared header (``csrc/attention_common.cuh``): the
 library's hash covers it and the copies' build finds it."""
 
@@ -26,6 +28,18 @@ _spec.loader.exec_module(kernel_phases)
 
 # every copy kernel_phases.py times: (name, kernel source)
 COPIES = [
+    ("k1 full", "adjacency"),
+    ("k1 empty", "adjacency"),
+    ("k1 load only", "adjacency"),
+    ("k1 no write-out", "adjacency"),
+    ("k1 G=1", "adjacency"),
+    ("k1 G=2", "adjacency"),
+    ("k1 G=3", "adjacency"),
+    ("k1 G=4", "adjacency"),
+    ("k1 R=1", "adjacency"),
+    ("k1 R=4", "adjacency"),
+    ("k1 R=8", "adjacency"),
+    ("k1 no walk", "adjacency"),
     ("k2 full", "attention"),
     ("k2 empty", "attention"),
     ("k2 load only", "attention"),
@@ -174,3 +188,68 @@ def test_forward_fits_every_shape_it_takes(n, f):
     assert torch_attention._forward_fits(n, f)
     assert max(torch_attention.forward_smem_bytes(nn, ff)
                for nn in range(1, 129) for ff in (1, f, 128)) <= 232448
+
+
+def _c_function(src, name):
+    """A small integer helper of a launcher (``int name(int a, ...)``, its
+    body one ``const int`` line or more and a ``return``) as a Python
+    function: ``std::max``/``std::min`` become ``max``/``min`` and ``/``
+    floor division, which is C's division on the non-negative ints these
+    helpers take."""
+    m = re.search(rf"^int {name}\(([^)]*)\) \{{\n?(.*?)\n?\}}\n", src,
+                  re.M | re.S)
+    assert m is not None, name
+    args = [a.split()[-1] for a in m.group(1).split(",")]
+    body = []
+    for stmt in m.group(2).split(";"):
+        stmt = stmt.strip()
+        if not stmt:
+            continue
+        stmt = re.sub(r"std::(max|min)", r"\1", stmt).replace("/", "//")
+        stmt = re.sub(r"^const int ", "", stmt)
+        body.append("    " + stmt)
+    code = f"def {name}({', '.join(args)}):\n" + "\n".join(body)
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr (?:int|size_t) (\w+) = (\d+);", src)}
+    ns = dict(consts)
+    exec(code, ns)
+    return ns[name], consts
+
+
+def test_adjacency_launcher_covers_every_row_within_its_block_limit():
+    """``csrc/adjacency.cu``'s rule: ``row_groups`` (SMs over B, rounded,
+    in 1..N), ``group_rows`` (rows of a group, with groups added until a
+    block holds at most kMaxWarps warps of kRowsPerWarp rows) and
+    ``warps_for``.  The Python wrapper sizes nothing itself; here the C
+    helpers run over every N up to 400 and batches around the SM count:
+    the grid covers each row once, no group is empty, no block passes
+    kMaxWarps warps, and the rule picks the groups PERF.md reports at
+    N=80 on 132 SMs: 2 groups of 40 rows at B=64, and at B=128 one group by
+    the SM count, two by the block limit."""
+    src = _source("adjacency")
+    row_groups, consts = _c_function(src, "row_groups")
+    group_rows, _ = _c_function(src, "group_rows")
+    warps_for, _ = _c_function(src, "warps_for")
+    assert consts["kMaxWarps"] * 32 <= 1024
+    for batch in (1, 2, 3, 61, 64, 65, 100, 128, 133, 264, 300):
+        for n in range(1, 401):
+            rows = group_rows(n, row_groups(batch, n, 132))
+            blocks = -(-n // rows)
+            assert 1 <= rows <= n
+            assert (blocks - 1) * rows < n <= blocks * rows
+            assert 1 <= warps_for(rows) <= consts["kMaxWarps"]
+    assert row_groups(64, 80, 132) == 2 and group_rows(80, 2) == 40
+    assert row_groups(128, 80, 132) == 1 and group_rows(80, 1) == 40
+
+
+def test_adjacency_kernel_has_no_atomics_and_no_n_limit():
+    """Kernel 1 sums each cell in ascending edge order with no atomics,
+    and its header states the edge count past which it reads the edges
+    from global memory: kSmemLimit over 12 bytes an edge."""
+    src = _source("adjacency")
+    assert "atomic" not in src.lower()
+    limit = int(re.search(r"constexpr size_t kSmemLimit = (\d+);",
+                          src).group(1))
+    assert re.search(r"size_t staged_smem\(int e\) \{ return \(size_t\)e "
+                     r"\* 12; \}", src)
+    assert f"E > {limit // 12:,}" in src
