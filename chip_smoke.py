@@ -73,14 +73,36 @@ Phases (any failure raises and the script exits non-zero):
    the library call computing the same function (timed here only), their
    bounds, bound shares (bound / kernel time) and launches per step; ms
    per train step and molecules/s both ways; a ``torch.profiler`` trace
-   of one training epoch.
+   of one training epoch;
+11. mixed precision at full width: the production preset
+   ``flagship_bf16_bs1024_wc`` (bf16 compute and Adam moments, the carried
+   bf16 working copy, batch 1024: 3 steps an epoch) on the bundled CSVs
+   from seed 42.  The first 3 losses within rel 1e-4 of a run through the
+   plain versions; kernels 1-3 on the first bf16 step's own inputs at
+   B=1024 (recorded on their way in) against their plain versions: the
+   adjacency bit for bit, the attention forward to atol=rtol=1e-5 and its
+   backward to 1e-5 of each output's largest magnitude, as in phases 2, 3
+   and 6; ``Trainer.fit`` for one epoch with the counters from 0
+   (kernels 1-3 must have risen, 4-5 must not), finite metrics, an f32
+   master; the best checkpoint served through ``Predictor(infer_dtype=
+   "bfloat16")`` within 0.05 (normalised) of f32 serving, NaN exactly for
+   ``"C1CC("``.  ``remat=True``: 3 steps within rel 1e-3 of the run
+   without, kernels 1-2 launched twice a step; ``flagship_bf16sr``: 3
+   steps, finite, parameters bf16; ``cnn_pallas_bwd=True`` with bf16
+   compute raises; the CLI with ``--mixed-precision --limit 256``.  For
+   information: ms per train step at batch 1024 for f32 ``flagship`` and
+   the bf16 preset; the f32 ``flagship`` step at its batch of 128 with the
+   port's ``TorchAdam`` and with ``torch.optim.Adam`` (foreach and fused),
+   and each optimizer step alone; the bf16 Predictor's mol/s split into
+   host and device, and the device-busy share of one bf16 epoch under
+   ``torch.profiler``.
 
 Kernel times come from CUDA events around back-to-back launches queued
 behind a device-side sleep, so the host's launch cost is not in them.
 
 The last two lines are one JSON object listing the kernels (launches from
-the ``cnn_pallas_bwd=True`` training epoch), then ``{"ok": true,
-"device": {...}}``.
+the ``cnn_pallas_bwd=True`` training epoch, and ``bf16_launches`` from
+phase 11's bf16 epoch), then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -186,6 +208,42 @@ def plain_path():
     finally:
         for mod, (_, w, _), fn in zip(mods, ROUTES, saved):
             setattr(mod, w, fn)
+
+
+@contextlib.contextmanager
+def first_calls():
+    """Record the arguments of each kernel wrapper's first call on the
+    main path (tensors cloned), passing every call on to the wrapper.
+    Yields name -> argument tuple."""
+    import importlib
+
+    import torch
+
+    mods = [importlib.import_module(f"mgat_graphsage_torch.{m}")
+            for m, _, _ in ROUTES]
+    saved = [getattr(mod, w) for mod, (_, w, _) in zip(mods, ROUTES)]
+    seen = {}
+
+    def spy(name, fn):
+        def call(*args, **kw):
+            if name not in seen:
+                seen[name] = tuple(a.detach().clone() if torch.is_tensor(a)
+                                   else a for a in args)
+            return fn(*args, **kw)
+        # a wrapper counts its launches on the name it is looked up by,
+        # the spy while it stands in: the count moves back afterwards
+        call.launches = fn.launches
+        return call
+
+    spies = [spy(w, fn) for (_, w, _), fn in zip(ROUTES, saved)]
+    for mod, (_, w, _), fn in zip(mods, ROUTES, spies):
+        setattr(mod, w, fn)
+    try:
+        yield seen
+    finally:
+        for mod, (_, w, _), fn, sp in zip(mods, ROUTES, saved, spies):
+            setattr(mod, w, fn)
+            fn.launches = max(fn.launches, sp.launches)
 
 
 def wrappers():
@@ -570,17 +628,249 @@ def first_steps(torch, Trainer, cfg, train, val, steps=4):
 
 
 def time_steps(torch, trainer, state, data, iters=20):
-    """ms per train step in steady state (host clock, synchronised)."""
+    """ms per train step in steady state (host clock, synchronised), with
+    the bf16 working copy carried from step to step as in an epoch."""
     batches = list(trainer._batches(data, trainer.cfg.batch_size,
                                     np.random.default_rng(0)))
+    copy = trainer.compute_copy(state.model)
     for b in batches[:3]:
-        trainer.train_step(state, b)
+        trainer.train_step(state, b, params_c=copy)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(iters):
-        trainer.train_step(state, batches[i % len(batches)])
+        trainer.train_step(state, batches[i % len(batches)], params_c=copy)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def bf16_phase(torch, train_ds, val_ds, val_smiles, test_smiles, tmpdir,
+               card, timer):
+    """Phase 11: the production preset ``flagship_bf16_bs1024_wc`` (bf16
+    compute and Adam moments, the carried bf16 working copy, batch 1024, 3
+    steps an epoch) and the other mixed-precision knobs on the card.
+    Returns the launches of kernels 1-5 in the bf16 epoch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mgat_graphsage_torch.eval.predict import Predictor
+    from mgat_graphsage_torch.ops.adjacency import (
+        dense_adjacency_cuda, dense_adjacency_plain)
+    from mgat_graphsage_torch.ops.attention import (
+        attention_bwd_cuda, attention_bwd_plain, attention_plain,
+        fused_masked_attention_cuda)
+    from mgat_graphsage_torch.train import Trainer, get_config
+    from mgat_graphsage_torch.train.optim import TorchAdam
+
+    t_phase = time.perf_counter()
+    cfg = get_config("flagship_bf16_bs1024_wc", epochs=1)
+    bs = cfg.batch_size
+    # the first 3 steps on the kernels and on the plain versions; bf16
+    # rounds both runs' products alike, so their f32 attention's last
+    # bits are all that differ before the updates
+    with first_calls() as seen:
+        losses = first_steps(torch, Trainer, cfg, train_ds, val_ds, steps=3)
+    with plain_path():
+        plain = first_steps(torch, Trainer, cfg, train_ds, val_ds, steps=3)
+    step_err = float(np.max(np.abs(losses - plain) / np.abs(plain)))
+    if not np.isfinite(losses).all() or step_err > 1e-4:
+        raise AssertionError(f"bf16 preset: first 3 losses {losses} vs plain "
+                             f"path {plain} (limit rel 1e-4)")
+    # kernels 1-3 on the first bf16 step's own inputs at B=1024, against
+    # their plain versions at the limits of phases 2, 3 and 6
+    a = seen["dense_adjacency_cuda"]
+    if a[0].shape[0] != bs or not bitwise_equal(
+            dense_adjacency_cuda(*a), dense_adjacency_plain(*a)):
+        raise AssertionError(f"adjacency kernel at the bf16 step's shape "
+                             f"{tuple(a[0].shape)} differs from its plain "
+                             f"version")
+    a = seen["fused_masked_attention_cuda"]
+    got, want = fused_masked_attention_cuda(*a), attention_plain(*a)
+    fwd_err = (got - want).abs().max().item()
+    if a[0].shape[0] != bs or not (torch.isfinite(got).all() and
+                                   torch.allclose(got, want, atol=1e-5,
+                                                  rtol=1e-5)):
+        raise AssertionError(f"attention kernel at the bf16 step's shape "
+                             f"{tuple(a[0].shape)}: max |err| {fwd_err}")
+    a = seen["attention_bwd_cuda"]
+    bwd_errs = [rel_err(x, y) for x, y in zip(attention_bwd_cuda(*a),
+                                               attention_bwd_plain(*a))]
+    if a[0].shape[0] != bs or not max(bwd_errs) <= 1e-5:
+        raise AssertionError(f"attention backward kernel at the bf16 step's "
+                             f"shape {tuple(a[0].shape)}: relative errors "
+                             f"dq/dk/dv {bwd_errs}")
+    log(f"[11] kernels on the first bf16 step's inputs: adjacency "
+        f"{tuple(seen['dense_adjacency_cuda'][0].shape)} bit for bit, "
+        f"attention {tuple(a[0].shape)} max |err| {fwd_err:.3e} (limit "
+        f"1e-5), attention bwd rel err dq/dk/dv "
+        f"{' '.join(f'{e:.2e}' for e in bwd_errs)} (limit 1e-5)")
+    ckdir = os.path.join(tmpdir, "bf16")
+    trainer = Trainer(cfg, train_ds, val_ds, ckpt_dir=ckdir)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, best, hist = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = read_counts()
+    for name in ("dense_adjacency_cuda", "fused_masked_attention_cuda",
+                 "attention_bwd_cuda"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the bf16 epoch never launched {name}")
+    if counts["dy3_cuda"] or counts["cnn_chain_bwd_cuda"]:
+        raise AssertionError(f"the CNN kernels ran in the bf16 epoch: "
+                             f"{counts}")
+    row = hist[-1]
+    if not all(np.isfinite(row[k]) for k in ("train_loss", "val_mse",
+                                              "original_mse")):
+        raise AssertionError(f"non-finite bf16 training metrics: {row}")
+    if any(p.dtype != torch.float32 for p in best.model.parameters()):
+        raise AssertionError("the bf16 preset's master is not f32")
+    ckpt = os.path.join(ckdir, "best_model.pt")
+    req = list(val_smiles)
+    req.insert(len(req) // 2, BAD)
+    bf16_pred = Predictor(ckpt, infer_dtype="bfloat16")
+    if any(p.dtype != torch.bfloat16 for p in bf16_pred.model.parameters()):
+        raise AssertionError("the bf16 Predictor holds non-bf16 weights")
+    served = bf16_pred(req)
+    served32 = Predictor(ckpt)(req)
+    bad = np.array([s == BAD for s in req])
+    gap = float(np.abs(served[~bad] - served32[~bad]).max()
+                / train_ds.scaler.scale_)
+    if not (np.isnan(served) == ~np.isfinite(served32)).all() \
+            or not np.isnan(served[bad]).all() \
+            or not np.isfinite(served[~bad]).all() or gap > 0.05:
+        raise AssertionError(f"bf16 serving of the best checkpoint: gap "
+                             f"{gap} (normalised, limit 0.05), NaN slots "
+                             f"{np.flatnonzero(np.isnan(served))}")
+    log(f"[11] flagship_bf16_bs1024_wc (batch {bs}, "
+        f"{-(-len(train_ds) // bs)} steps an epoch): first 3 losses "
+        f"{np.round(losses, 6)} vs plain path rel err {step_err:.2e} "
+        f"(limit 1e-4); one epoch {fit_s:.2f} s (train "
+        f"{row['epoch_time_s']:.2f} s incl. first-step warm-up), loss "
+        f"{row['train_loss']:.4f}, val MSE {row['val_mse']:.4f}, original "
+        f"MSE {row['original_mse']:.4f}; launches {counts}; best checkpoint "
+        f"served in bf16 within {gap:.2e} (normalised) of f32 serving, NaN "
+        f"exactly for {BAD!r}")
+
+    # remat: the same 3 steps, the forward's kernels launched twice a step
+    def three_steps(c):
+        t = Trainer(c, train_ds)
+        st = t.init_state()
+        gen = t._dropout_generator(0)
+        copy = t.compute_copy(st.model)
+        reset_counts()
+        batches = t._batches(train_ds, c.batch_size,
+                             np.random.default_rng(c.seed))
+        out = [t.train_step(st, next(batches), gen, copy)["loss"].item()
+               for _ in range(3)]
+        return np.array(out), read_counts(), st
+
+    plain3, c_plain, _ = three_steps(cfg)
+    remat3, c_remat, _ = three_steps(cfg.replace(remat=True))
+    remat_err = float(np.max(np.abs(remat3 - plain3) / np.abs(plain3)))
+    fwd = ("dense_adjacency_cuda", "fused_masked_attention_cuda")
+    if remat_err > 1e-3 or any(c_remat[k] != 2 * c_plain[k] for k in fwd) \
+            or c_remat["attention_bwd_cuda"] != c_plain["attention_bwd_cuda"]:
+        raise AssertionError(f"remat: losses {remat3} vs {plain3}, launches "
+                             f"{c_remat} vs {c_plain}")
+    log(f"[11] remat: 3 steps rel err {remat_err:.2e} (limit 1e-3) from the "
+        f"run without; forward launches doubled "
+        f"({', '.join(f'{k} {c_plain[k]} -> {c_remat[k]}' for k in fwd)}), "
+        f"attention bwd {c_remat['attention_bwd_cuda']}")
+
+    sr3, _, st_sr = three_steps(get_config("flagship_bf16sr", epochs=1))
+    if not np.isfinite(sr3).all() or any(
+            p.dtype != torch.bfloat16 for p in st_sr.model.parameters()):
+        raise AssertionError(f"flagship_bf16sr: losses {sr3}")
+    log(f"[11] flagship_bf16sr (bf16 master, stochastic rounding): 3 steps "
+        f"losses {np.round(sr3, 6)}, parameters bf16")
+    try:
+        Trainer(cfg.replace(cnn_pallas_bwd=True), train_ds)
+    except NotImplementedError as e:
+        if "ROADMAP" not in str(e):
+            raise
+        log(f"[11] cnn_pallas_bwd=True with bf16 compute raises: {e}")
+    else:
+        raise AssertionError("cnn_pallas_bwd=True with bf16 compute did not "
+                             "raise")
+    cli = subprocess.run(
+        [sys.executable, "-m", "mgat_graphsage_torch.train.run", "--preset",
+         "flagship", "--mixed-precision", "--limit", "256", "--epochs", "1",
+         "--ckpt-dir", os.path.join(tmpdir, "cli_bf16")], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    if cli.returncode != 0 or "Training completed" not in cli.stdout:
+        raise AssertionError(f"the bf16 training CLI failed:\n{cli.stdout}\n"
+                             f"{cli.stderr}")
+    log("[11] python -m mgat_graphsage_torch.train.run --preset flagship "
+        "--mixed-precision --limit 256 --epochs 1 on CUDA: "
+        + cli.stdout.strip().splitlines()[0])
+
+    # information: step times at batch 1024, bf16 serving, the epoch profile
+    for name, c in (("flagship f32", get_config("flagship",
+                                                batch_size=bs)),
+                    ("flagship_bf16_bs1024_wc", cfg)):
+        t = Trainer(c, train_ds)
+        ms = time_steps(torch, t, t.init_state(), train_ds, iters=12)
+        log(f"[11] train step, {name} B={bs}: {ms:.3f} ms "
+            f"({bs / ms * 1e3:.1f} mol/s), on {card}")
+    # the f32 flagship's optimizer at its preset's batch: the port's
+    # TorchAdam against torch.optim.Adam (foreach, the default on CUDA,
+    # and fused; timed here only), whole train steps in the order
+    # A B C C B A and the optimizer step alone on random gradients
+    c32 = get_config("flagship")
+    t32 = Trainer(c32, train_ds)
+    kw = dict(lr=c32.lr, weight_decay=c32.weight_decay)
+    makers = {"TorchAdam": lambda ps: TorchAdam(ps, **kw),
+              "torch.optim.Adam": lambda ps: torch.optim.Adam(ps, **kw),
+              "torch.optim.Adam(fused=True)":
+                  lambda ps: torch.optim.Adam(ps, fused=True, **kw)}
+    step32 = {k: [] for k in makers}
+    alone = {}
+    for name in list(makers) + list(makers)[::-1]:
+        st = t32.init_state()
+        st.optimizer = makers[name](st.model.parameters())
+        step32[name].append(time_steps(torch, t32, st, train_ds, iters=20))
+        if name not in alone:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            for q in st.model.parameters():
+                q.grad = torch.randn(q.shape, device="cuda", generator=gen)
+            alone[name] = timer(st.optimizer.step, iters=20)
+    for name in makers:
+        log(f"[11] f32 flagship B={c32.batch_size}, optimizer {name}: train "
+            f"step {' '.join(f'{ms:.3f}' for ms in step32[name])} ms "
+            f"(host clock, two runs), optimizer step alone "
+            f"{alone[name]:.3f} ms (device), on {card}")
+    bf16_pred(test_smiles)
+    bf16_pred(test_smiles)
+    ft = bf16_pred.last_timings
+    n = len(test_smiles)
+    log(f"[11] bf16 Predictor on {n} test molecules: "
+        f"{n / (ft['featurize_s'] + ft['dispatch_s']):.1f} mol/s end to end; "
+        f"host featurisation {ft['featurize_s']:.3f} s "
+        f"({n / ft['featurize_s']:.1f} mol/s), device "
+        f"{ft['dispatch_s']:.3f} s ({n / ft['dispatch_s']:.1f} mol/s), on "
+        f"{card}")
+    st = trainer.init_state()
+    trainer.train_epoch(st, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_epoch(st, 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = device_events(torch, prof)
+    busy_us = sum(ev.self_device_time_total for ev in kern)
+    log(f"[11] profile of one bf16 epoch ({-(-len(train_ds) // bs)} steps of "
+        f"{bs}): wall {wall_us:.0f} us, device busy {busy_us:.0f} us "
+        f"({100 * busy_us / wall_us:.2f}%), on {card}; top kernels:")
+    ranked = sorted(kern, key=lambda ev: -ev.self_device_time_total)
+    ours = ("dense_adjacency_kernel", "masked_attention_kernel",
+            "masked_attention_bwd_kernel")
+    for i, ev in enumerate(ranked):
+        if i < 12 or any(o in ev.key for o in ours):
+            log(f"  #{i + 1:<3d}{ev.self_device_time_total:9.1f} us  "
+                f"x{ev.count:<4d} {ev.key[:90]}")
+    log(f"[11] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -1135,6 +1425,10 @@ def main(argv=None) -> int:
         if i < 12 or any(o in ev.key for o in ours):
             log(f"  #{i + 1:<3d}{ev.self_device_time_total:9.1f} us  "
                 f"x{ev.count:<4d} {ev.key[:90]}")
+
+    # ---- 11. mixed precision at full width --------------------------------
+    bf16_counts = bf16_phase(torch, train_ds, val_ds, val_smiles,
+                             test_smiles, tmp.name, card, timer)
     tmp.cleanup()
 
     train_counts = runs[True]["counts"]
@@ -1143,6 +1437,7 @@ def main(argv=None) -> int:
          "source": "mgat_graphsage_torch/csrc/adjacency.cu",
          "replaces": "mgat_graphsage_tpu/ops/pallas_adjacency.py:56",
          "launches": train_counts["dense_adjacency_cuda"],
+         "bf16_launches": bf16_counts["dense_adjacency_cuda"],
          "max_abs_err": adj_err,
          "ms": adj_t[64][0], "plain_ms": adj_t[64][1],
          "bound_ms": adj_t[64][3][0], "bound_by": adj_t[64][3][1],
@@ -1159,6 +1454,7 @@ def main(argv=None) -> int:
          "source": "mgat_graphsage_torch/csrc/attention.cu",
          "replaces": "mgat_graphsage_tpu/ops/pallas_attention.py:84",
          "launches": train_counts["fused_masked_attention_cuda"],
+         "bf16_launches": bf16_counts["fused_masked_attention_cuda"],
          "max_abs_err": attn_err,
          "ms": attn_ms, "plain_ms": attn_plain_ms,
          "bound_ms": attn_bound[0], "bound_by": attn_bound[1],
@@ -1174,13 +1470,15 @@ def main(argv=None) -> int:
          "source": "mgat_graphsage_torch/csrc/attention_bwd.cu",
          "replaces": "mgat_graphsage_tpu/ops/pallas_attention.py:146",
          "launches": train_counts["attention_bwd_cuda"],
+         "bf16_launches": bf16_counts["attention_bwd_cuda"],
          "max_abs_err": attn_bwd_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "bound_share": k3_bound[0] / k3_ms, "library_ms": k3_lib_ms},
         {"name": "cnn_dy3", "route": "cuda",
          "source": "mgat_graphsage_torch/csrc/cnn_dy3.cu",
          "replaces": "mgat_graphsage_tpu/ops/pallas_cnn.py:127",
-         "launches": train_counts["dy3_cuda"], "max_abs_err": dy3_err,
+         "launches": train_counts["dy3_cuda"],
+         "bf16_launches": bf16_counts["dy3_cuda"], "max_abs_err": dy3_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0],
          "bound_by": k4_bound[1], "bound_share": k4_bound[0] / k4_ms,
          "library_ms": k4_lib_ms},
@@ -1188,6 +1486,7 @@ def main(argv=None) -> int:
          "source": "mgat_graphsage_torch/csrc/cnn_chain_bwd.cu",
          "replaces": "mgat_graphsage_tpu/ops/pallas_cnn.py:264",
          "launches": train_counts["cnn_chain_bwd_cuda"],
+         "bf16_launches": bf16_counts["cnn_chain_bwd_cuda"],
          "max_abs_err": chain_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
          "bound_share": k5_bound[0] / k5_ms, "library_ms": k5_lib_ms},

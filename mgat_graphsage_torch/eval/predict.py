@@ -7,6 +7,13 @@ of ``batch_size`` run in a Python loop under ``torch.inference_mode()``,
 each through the adjacency kernel, the graph branch (with the attention
 kernel), the CNN branch and the head.  Results come back in one copy.
 
+``infer_dtype="bfloat16"`` serves in bf16 (reference ``make_scan_predict``):
+the parameters are cast to bf16 once (``Predictor``) and the inputs per
+batch, the products accumulate in f32, the attention and the adjacency run
+in f32 as in training, and the prediction is cast back to f32 before the
+de-normalisation.  A checkpoint with a bf16 master serves at f32 with its
+parameters upcast.
+
 Entry points run on CUDA unless given ``device="cpu"`` (CLI:
 ``--device cpu``); without CUDA they raise.
 
@@ -39,12 +46,12 @@ __all__ = ["load_model_from_checkpoint", "predict_dataset", "predict_csv",
            "Predictor", "main"]
 
 
-def _check_infer_dtype(infer_dtype: Optional[str]) -> None:
-    if infer_dtype == "bfloat16":
-        raise NotImplementedError(
-            "infer_dtype='bfloat16' is not ported yet; serve in float32")
-    if infer_dtype not in (None, "float32"):
-        raise ValueError(f"unknown infer_dtype {infer_dtype!r}")
+def _check_infer_dtype(infer_dtype: Optional[str]) -> str:
+    """``infer_dtype`` -> the compute dtype's name (None means f32)."""
+    if infer_dtype not in (None, "float32", "bfloat16"):
+        raise ValueError(f"unknown infer_dtype {infer_dtype!r}: None, "
+                         "'float32' or 'bfloat16'")
+    return infer_dtype or "float32"
 
 
 def load_model_from_checkpoint(ckpt_path: str, device=None):
@@ -76,10 +83,17 @@ def predict_dataset(model, cfg: TrainConfig, scaler: StandardScaler,
     (the serving path) rounds the batch count up to a power of two, as
     the reference package does to share one compiled program between
     request sizes.  The batches run at the train step's numerics for
-    ``cfg.matmul_precision`` (``models/layers.py::matmul_precision``).
+    ``cfg.matmul_precision`` and the compute dtype ``infer_dtype``
+    (``models/layers.py::matmul_precision``).  ``"bfloat16"`` takes a
+    model already cast to bf16, as ``Predictor`` casts it.
     """
-    _check_infer_dtype(infer_dtype)
-    dev = next(model.parameters()).device
+    compute = _check_infer_dtype(infer_dtype)
+    cdt = torch.bfloat16 if compute == "bfloat16" else None
+    first = next(model.parameters())
+    if cdt is not None and first.dtype != cdt:
+        raise ValueError("infer_dtype='bfloat16' takes a model cast to "
+                         f"bf16, not one in {first.dtype}")
+    dev = first.device
     n = len(ds)
     n_batches = (n + batch_size - 1) // batch_size
     if bucket:
@@ -100,17 +114,19 @@ def predict_dataset(model, cfg: TrainConfig, scaler: StandardScaler,
     num_nodes = data["nodes"].shape[1]
     mean, scale = float(scaler.mean_), float(scaler.scale_)
     preds = []
-    with torch.inference_mode(), matmul_precision(cfg.matmul_precision):
+    with torch.inference_mode(), matmul_precision(cfg.matmul_precision,
+                                                  compute):
         for i in range(n_batches):
             sel = idx_d[i]
             adj = dense_adjacency(data["edges"][sel], data["edge_mask"][sel],
                                   num_nodes)
             node_mask = data["node_mask"][sel] * smask_d[i].unsqueeze(1)
-            nodes = data["nodes"][sel]
-            if cfg.is_hybrid:
-                pred, _ = model(nodes, adj, node_mask, data["fp"][sel])
-            else:
-                pred = model(nodes, adj, node_mask)
+            args = (data["nodes"][sel], adj, node_mask) + (
+                (data["fp"][sel],) if cfg.is_hybrid else ())
+            if cdt is not None:
+                args = tuple(a.to(cdt) for a in args)
+            out = model(*args)
+            pred = out[0] if cfg.is_hybrid else out
             preds.append(pred.reshape(-1).float() * scale + mean)
         out = torch.cat(preds).cpu().numpy()
     return out[:n]
@@ -155,9 +171,10 @@ class Predictor:
     >>> p(["CCO", "c1ccccc1O"])          # -> np.ndarray of pChEMBL values
 
     The output is index-aligned with the input: unparseable or
-    over-budget molecules get NaN.  ``last_timings`` holds the split of
-    the latest call in seconds: ``featurize_s`` (host) and ``dispatch_s``
-    (upload, device work and the copy back).
+    over-budget molecules get NaN.  ``infer_dtype="bfloat16"`` casts the
+    parameters to bf16 once, here, and serves in bf16.  ``last_timings``
+    holds the split of the latest call in seconds: ``featurize_s`` (host)
+    and ``dispatch_s`` (upload, device work and the copy back).
     """
 
     def __init__(self, ckpt_path: str, infer_dtype: Optional[str] = None,
@@ -167,6 +184,8 @@ class Predictor:
         (self.model, self.cfg, self.scaler,
          (self.max_nodes, self.max_edges)) = \
             load_model_from_checkpoint(ckpt_path, device)
+        if infer_dtype == "bfloat16":
+            self.model.to(torch.bfloat16)
         self.device = next(self.model.parameters()).device
         self.last_timings = {"featurize_s": 0.0, "dispatch_s": 0.0}
 

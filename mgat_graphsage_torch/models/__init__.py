@@ -15,6 +15,7 @@ from .layers import (
     SAGEConv,
     TorchConv1d,
     TorchLinear,
+    bf16_products,
     cnn_fc1_pos_major_to_torch,
     cnn_fc1_torch_to_pos_major,
     ieee_f32,
@@ -27,7 +28,7 @@ __all__ = [
     "build_model",
     "TorchLinear", "TorchConv1d", "CenterTapConv1d", "ModifiedGATLayer",
     "SAGEConv", "CNNNet", "CombinedNet", "Dropout", "ieee_f32",
-    "matmul_precision", "cnn_fc1_torch_to_pos_major",
+    "bf16_products", "matmul_precision", "cnn_fc1_torch_to_pos_major",
     "cnn_fc1_pos_major_to_torch",
     "reset_parameters", "GATGraphSAGE", "HybridModel", "kl_loss",
     "params_from_jax", "params_to_jax", "adam_state_from_jax",

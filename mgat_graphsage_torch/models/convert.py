@@ -16,15 +16,20 @@ CNNNet``), so no permutation is needed.  The tree holds numpy arrays (the
 JAX side converts with ``jax.device_get``); nothing here imports JAX.
 
 The Adam state crosses too: the reference's ``optax.ScaleByAdamState``
-(``count``, and ``mu``, ``nu`` trees shaped like the parameters, f32) maps
-to a ``torch.optim.Adam`` ``state_dict`` (per parameter ``step``,
-``exp_avg``, ``exp_avg_sq``) by the same leaf rules, so a run trained in
-JAX resumes in the port and back.
+(``count``, and ``mu``, ``nu`` trees shaped like the parameters, f32 or
+bf16, with ``(r, c)`` pairs for factored second moments) maps to the
+``state_dict`` of ``torch.optim.Adam`` or of the port's
+``train/optim.py::TorchAdam`` (per parameter ``step``, ``exp_avg``,
+``exp_avg_sq``, or ``exp_avg_sq_row`` and ``exp_avg_sq_col``) by the same
+leaf rules, so a run trained in JAX resumes in the port and back.  numpy
+has no bfloat16 of its own: a bf16 array is recognised by its dtype's
+name and crosses through a 16-bit integer view, so nothing here imports
+``ml_dtypes``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +49,28 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def _from_numpy(a) -> torch.Tensor:
+    """An owned tensor of ``a``.  A bf16 array (``ml_dtypes.bfloat16``,
+    which numpy knows only by name) crosses through its 16-bit view."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t``.  A bf16 tensor comes out as numpy's
+    ``bfloat16`` where a library has registered it (JAX does), else
+    widened to f32, which holds every bf16 value exactly."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        return t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
+    except TypeError:
+        return t.float().numpy()
+
+
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """flax parameter tree of numpy arrays -> port ``state_dict``."""
     sd = {}
@@ -61,24 +88,32 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
         elif leaf not in ("weight", "bias"):
             raise ValueError(f"unknown parameter leaf {'/'.join(path)}")
         key = ".".join(path[:-1] + (leaf,))
-        sd[key] = torch.from_numpy(np.array(a, order="C"))  # owned copy
+        sd[key] = _from_numpy(a)
     return sd
 
 
-def _tree(model: nn.Module, leaf: Callable[[torch.Tensor], torch.Tensor]
-          ) -> Dict:
-    """flax-shaped tree of ``leaf(param)`` for every parameter."""
+def _tree(model: nn.Module, leaf: Callable[[torch.Tensor], object]) -> Dict:
+    """flax-shaped tree of ``leaf(param)`` for every parameter: a tensor,
+    or for a factored second moment the ``(row, col)`` factors of the
+    ``[out, in]`` weight, which are the reference's ``(c, r)`` of its
+    ``[in, out]`` kernel."""
     tree: Dict = {}
     for mname, module in model.named_modules():
         for pname, p in module.named_parameters(recurse=False):
-            a = leaf(p).detach().cpu().numpy()
-            if pname == "weight" and not isinstance(module, CenterTapConv1d):
-                a = a.T if a.ndim == 2 else a.transpose(2, 1, 0)
-                pname = "kernel"
+            a = leaf(p)
+            kernel = pname == "weight" and \
+                not isinstance(module, CenterTapConv1d)
+            if isinstance(a, tuple):              # (row, col) -> (r, c)
+                a = (_to_numpy(a[1]), _to_numpy(a[0]))
+            else:
+                a = _to_numpy(a)
+                if kernel:
+                    a = np.ascontiguousarray(
+                        a.T if a.ndim == 2 else a.transpose(2, 1, 0))
             node = tree
             for part in (mname.split(".") if mname else []):
                 node = node.setdefault(part, {})
-            node[pname] = np.ascontiguousarray(a)
+            node["kernel" if kernel else pname] = a
     return tree
 
 
@@ -92,19 +127,37 @@ def _field(state, name):
     return state[name] if isinstance(state, dict) else getattr(state, name)
 
 
+def _factored_from_jax(nu) -> Tuple[Dict, Dict]:
+    """Split the reference's ``nu`` tree into the full second moments and
+    the factored ones (``(r, c)`` tuples), keyed by ``state_dict`` name."""
+    full, factored = {}, {}
+    for path, v in _flatten(nu):
+        if isinstance(v, tuple):
+            name = ".".join(path[:-1] + ("weight",))
+            r, c = (_from_numpy(x) for x in v)
+            factored[name] = (c, r)       # (row, col) of the [out, in] weight
+        else:
+            full[path] = v
+    tree: Dict = {}
+    for path, v in full.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = v
+    return params_from_jax(tree), factored
+
+
 def adam_state_from_jax(opt_state, model: nn.Module,
                         optimizer: torch.optim.Optimizer) -> Dict:
     """The reference's Adam state (``count``, ``mu``, ``nu`` as numpy
     trees: an ``optax.ScaleByAdamState`` after ``jax.device_get``, or a
-    dict) -> a ``state_dict`` for ``optimizer`` (a ``torch.optim.Adam``
-    over ``model.parameters()``)."""
-    if any(isinstance(v, tuple) for _, v in _flatten(_field(opt_state,
-                                                            "nu"))):
-        raise NotImplementedError("a factored second moment "
-                                  "(adam_factored_v) is not ported yet")
+    dict) -> a ``state_dict`` for ``optimizer`` over
+    ``model.parameters()``.  Moments keep their dtype (f32 or bf16); a
+    factored second moment ``(r, c)`` becomes ``exp_avg_sq_row`` and
+    ``exp_avg_sq_col`` (``train/optim.py::TorchAdam``)."""
     count = int(np.asarray(_field(opt_state, "count")))
     mu = params_from_jax(_field(opt_state, "mu"))
-    nu = params_from_jax(_field(opt_state, "nu"))
+    nu, factored = _factored_from_jax(_field(opt_state, "nu"))
     sd = optimizer.state_dict()
     names = {id(p): n for n, p in model.named_parameters()}
     params = [p for g in optimizer.param_groups for p in g["params"]]
@@ -112,8 +165,12 @@ def adam_state_from_jax(opt_state, model: nn.Module,
     for i, p in enumerate(params):
         n = names[id(p)]
         state[i] = {"step": torch.tensor(float(count)),
-                    "exp_avg": mu[n].to(p.device),
-                    "exp_avg_sq": nu[n].to(p.device)}
+                    "exp_avg": mu[n].to(p.device)}
+        if n in factored:
+            state[i]["exp_avg_sq_row"] = factored[n][0].to(p.device)
+            state[i]["exp_avg_sq_col"] = factored[n][1].to(p.device)
+        else:
+            state[i]["exp_avg_sq"] = nu[n].to(p.device)
     return {"state": state, "param_groups": sd["param_groups"]}
 
 
@@ -121,15 +178,19 @@ def adam_state_to_jax(model: nn.Module,
                       optimizer: torch.optim.Optimizer) -> Dict:
     """The inverse of :func:`adam_state_from_jax`: ``{"count": int32,
     "mu": tree, "nu": tree}`` of numpy arrays (zeros before the first
-    step)."""
+    step), bf16 moments as bf16 (see :func:`_to_numpy`), a factored
+    second moment as its ``(r, c)`` pair."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
     index = {id(p): i for i, p in enumerate(params)}
     state = optimizer.state_dict()["state"]
+    mdt = getattr(optimizer, "moment_dtype", None)
 
     def moment(key):
         def leaf(p):
             s = state.get(index[id(p)])
-            return s[key] if s else torch.zeros_like(p)
+            if s and key == "exp_avg_sq" and "exp_avg_sq_row" in s:
+                return s["exp_avg_sq_row"], s["exp_avg_sq_col"]
+            return s[key] if s else torch.zeros_like(p, dtype=mdt)
         return _tree(model, leaf)
 
     steps = {int(s["step"]) for s in state.values()} or {0}
@@ -137,4 +198,3 @@ def adam_state_to_jax(model: nn.Module,
         raise ValueError(f"parameters were stepped unevenly: {steps}")
     return {"count": np.int32(steps.pop()), "mu": moment("exp_avg"),
             "nu": moment("exp_avg_sq")}
-

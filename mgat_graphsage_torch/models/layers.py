@@ -33,6 +33,7 @@ __all__ = [
     "CombinedNet",
     "Dropout",
     "ieee_f32",
+    "bf16_products",
     "matmul_precision",
     "cnn_fc1_torch_to_pos_major",
     "cnn_fc1_pos_major_to_torch",
@@ -252,15 +253,43 @@ def ieee_f32():
          torch.backends.cuda.matmul.allow_tf32) = prev
 
 
-def matmul_precision(precision: str):
-    """The context in which a config's f32 train step, evaluation and
-    prediction run, for its ``matmul_precision`` (``train/config.py``
-    states the mapping and why): ``"float32"`` and ``"bfloat16"`` both
-    mean :func:`ieee_f32`, TF32 off in cuBLAS and cuDNN.  The entry
-    points hold it around the whole model, the CNN branch's convolutions
-    included."""
+@contextlib.contextmanager
+def bf16_products():
+    """The numerics of the bf16 train step, evaluation and prediction:
+    bf16 products accumulated in f32, as ``preferred_element_type=
+    jnp.float32`` gives the reference in every layer.  cuBLAS may reduce
+    the partial sums of a split-K bf16 product in bf16
+    (``allow_bf16_reduced_precision_reduction``, on by default); this turns
+    that off, with TF32 for the f32 parts of the step (the attention
+    internals, the loss), and restores all three after.
+
+    ``F.linear`` adds the bias in the GEMM's f32 epilogue and rounds once,
+    where the reference rounds the product to bf16 and then adds a bf16
+    bias: a difference inside the bf16 noise floor, left as it is."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        with ieee_f32():
+            yield
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = prev
+
+
+def matmul_precision(precision: str, compute_dtype: str = "float32"):
+    """The context in which a config's train step, evaluation and
+    prediction run (``train/config.py`` states the mapping and why).  For
+    f32 compute, ``"float32"`` and ``"bfloat16"`` both mean
+    :func:`ieee_f32`, TF32 off in cuBLAS and cuDNN; for bf16 compute, both
+    mean :func:`bf16_products`.  The entry points hold it around the whole
+    model, the CNN branch's convolutions included."""
     if precision not in ("float32", "bfloat16"):
         raise ValueError(f"unknown matmul_precision {precision!r}: "
+                         "'float32' or 'bfloat16'")
+    if compute_dtype == "bfloat16":
+        return bf16_products()
+    if compute_dtype != "float32":
+        raise ValueError(f"unknown compute dtype {compute_dtype!r}: "
                          "'float32' or 'bfloat16'")
     return ieee_f32()
 

@@ -48,12 +48,15 @@ class TrainConfig:
     # selection: 'original_mse' (train.py:284) or 'val_mse' (baselines)
     select_metric: str = "original_mse"
     # precision and storage knobs of the reference package's trainer;
-    # carried so that sidecars round-trip.  matmul_precision on the H100,
-    # for f32 compute: "float32" and "bfloat16" both run IEEE f32, with
-    # TF32 off in cuBLAS and cuDNN, in the train step, evaluation and
-    # prediction alike (models/layers.py::matmul_precision).  The port
-    # keeps the reference numerics until the bf16 slice (ROADMAP Queue 1
-    # item 3) decides on TF32 or bf16 products.
+    # carried so that sidecars round-trip.  matmul_precision on the H100
+    # (models/layers.py::matmul_precision), in the train step, evaluation
+    # and prediction alike, chosen by the compute dtype:
+    # - compute_dtype="float32": both values run IEEE f32, TF32 off in
+    #   cuBLAS and cuDNN (the reference-numerics mode keeps no tensor-core
+    #   f32);
+    # - compute_dtype="bfloat16": both values run bf16 products with f32
+    #   accumulation, cuBLAS's bf16 split-K reduction off, as the
+    #   reference's preferred_element_type=f32 gives it in every layer.
     matmul_precision: str = "bfloat16"
     adam_moment_dtype: str = "float32"
     compute_dtype: str = "float32"

@@ -4,14 +4,17 @@ PyTorch and CUDA).
     python -m mgat_graphsage_torch.train.run --preset flagship \\
         [--epochs N] [--batch-size B] [--lr LR] [--seed S] [--limit ROWS] \\
         [--ckpt-dir checkpoints] [--log metrics.jsonl] [--resume CKPT] \\
-        [--device cuda|cpu]
+        [--mixed-precision] [--fast-optimizer] [--remat] [--device cuda|cpu]
 
 trains on the bundled train and validation CSVs (or ``--train-csv``,
 ``--val-csv``) and writes ``<ckpt-dir>/<preset>/best_model.pt`` with its
 JSON sidecar, which ``eval/predict.py`` serves.  It runs on CUDA unless
 given ``--device cpu``, and raises without CUDA.  Only the presets the port
-can build are offered; the reference's flags for meshes, bf16, remat and
-compact storage are accepted and raise "not ported yet".
+can build are offered, the bf16 ones (``flagship_bf16_bs1024_wc``, the
+production preset, among them) included.  ``--mixed-precision`` (bf16
+compute), ``--fast-optimizer`` (bf16 Adam moments) and ``--remat`` set
+their config fields as the reference's flags do; the reference's flags for
+meshes and compact storage are accepted and raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -30,9 +33,6 @@ _NOT_PORTED_FLAGS = {
     "data_parallel": "multi-GPU training (ROADMAP Queue 1 item 10)",
     "model_parallel": "multi-GPU training (ROADMAP Queue 1 item 10)",
     "distributed": "multi-GPU training (ROADMAP Queue 1 item 10)",
-    "fast_optimizer": "bf16 Adam moments (ROADMAP Queue 1 item 3)",
-    "mixed_precision": "bf16 compute (ROADMAP Queue 1 item 3)",
-    "remat": "remat (ROADMAP Queue 1 item 3)",
     "dataset_storage": "compact dataset storage (ROADMAP Queue 1 item 6)",
 }
 
@@ -65,8 +65,15 @@ def main(argv=None):
     ap.add_argument("--log", default=None, help="JSONL metrics log path")
     ap.add_argument("--resume", default=None, help="checkpoint to resume")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    for flag in ("data-parallel", "distributed", "fast-optimizer",
-                 "mixed-precision", "remat"):
+    ap.add_argument("--fast-optimizer", action="store_true",
+                    help="bf16 Adam moment storage (f32 arithmetic)")
+    ap.add_argument("--mixed-precision", action="store_true",
+                    help="bf16 compute in the forward and backward (f32 "
+                         "master parameters and accumulation)")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute the forward's activations in the "
+                         "backward (memory for FLOPs)")
+    for flag in ("data-parallel", "distributed"):
         ap.add_argument(f"--{flag}", action="store_true",
                         help="not ported yet")
     ap.add_argument("--model-parallel", type=int, default=1,
@@ -84,6 +91,12 @@ def main(argv=None):
     overrides = {k: v for k, v in dict(
         epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
         seed=args.seed).items() if v is not None}
+    if args.fast_optimizer:
+        overrides["adam_moment_dtype"] = "bfloat16"
+    if args.mixed_precision:
+        overrides["compute_dtype"] = "bfloat16"
+    if args.remat:
+        overrides["remat"] = True
     cfg = get_config(args.preset, **overrides)
 
     sm, y = load_csv(args.train_csv)

@@ -18,14 +18,30 @@ one XLA program).
   seeded per epoch, so a resumed run repeats an uninterrupted one;
 - validation is the mean of per-batch MSEs on both scales (reference
   ``train.py:278``), with best-state selection on ``select_metric``;
-- ``cfg.matmul_precision`` sets the numerics of the train step (forward
-  and backward) and of :meth:`Trainer.evaluate` alike, through
-  ``models/layers.py::matmul_precision``: IEEE f32, TF32 off, for both
-  of its values (``train/config.py``).
+- ``cfg.matmul_precision`` and ``cfg.compute_dtype`` set the numerics of
+  the train step (forward and backward) and of :meth:`Trainer.evaluate`
+  alike, through ``models/layers.py::matmul_precision``: IEEE f32 for f32
+  compute, bf16 products with f32 accumulation for bf16 (``train/
+  config.py``).
+
+Mixed precision (``compute_dtype="bfloat16"``, reference ``trainer.py:
+278-411``): the module keeps the f32 master parameters; the forward runs
+on a bf16 working copy (``torch.func.functional_call``) with the inputs
+cast to bf16 and its outputs cast back to f32 before the loss.  The
+gradients land on the copy in bf16; the optimizer (``train/optim.py::
+TorchAdam``) does its f32 math against the master and writes the new
+master and the next step's copy in one pass, so the copy is carried from
+step to step and the master is cast once per epoch.  With
+``master_dtype="bfloat16"`` the module's parameters are themselves bf16
+(the compute copy) and the update rounds them stochastically.  ``remat``
+recomputes the forward in the backward (``torch.utils.checkpoint``), with
+the same dropout masks.
 
 On CUDA each step runs the adjacency kernel, the attention kernels
 (forward and backward) and, with ``cnn_pallas_bwd``, the CNN backward
-kernels.  Entry points run on CUDA unless given ``device="cpu"``.
+kernels (f32 compute only).  The attention and the adjacency run in f32
+inside the bf16 step too, as in the reference.  Entry points run on CUDA
+unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -40,6 +56,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..data import MolecularDataset
 from ..device import resolve_device
@@ -48,7 +66,14 @@ from ..models.layers import matmul_precision
 from ..ops import dense_adjacency
 from .checkpoint import load_checkpoint, save_checkpoint
 from .config import TrainConfig
-from .optim import check_ported, lr_schedule, make_optimizer, set_lr
+from .optim import (
+    DTYPES,
+    check_ported,
+    lr_schedule,
+    make_optimizer,
+    set_lr,
+    step_salt,
+)
 
 __all__ = ["TrainState", "Trainer"]
 
@@ -81,7 +106,16 @@ class Trainer:
             raise NotImplementedError("meshes (multi-GPU training) are not "
                                       "ported yet (ROADMAP Queue 1 item 10)")
         check_ported(cfg)
+        if cfg.cnn_pallas_bwd and cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                "cnn_pallas_bwd=True with compute_dtype="
+                f"{cfg.compute_dtype!r}: the CNN backward kernels take f32 "
+                "only; their bf16 variants are not ported yet (ROADMAP "
+                "Queue 1 item 3b)")
         self.cfg = cfg
+        self._cdt = None if cfg.compute_dtype == "float32" \
+            else DTYPES[cfg.compute_dtype]
+        self._master_narrow = cfg.master_dtype != "float32"
         self.device = resolve_device(device)
         self.train_ds = train_ds
         self.val_ds = val_ds
@@ -102,6 +136,10 @@ class Trainer:
         gen = torch.Generator().manual_seed(
             self.cfg.seed if seed is None else seed)
         model = reset_parameters(build_model(self.cfg), gen).to(self.device)
+        if self._master_narrow:
+            # drawn in f32, quantized once; every later update is rounded
+            # stochastically (train/optim.py::TorchAdam)
+            model.to(DTYPES[self.cfg.master_dtype])
         return TrainState(step=0, model=model,
                           optimizer=make_optimizer(self.cfg, model))
 
@@ -142,14 +180,38 @@ class Trainer:
             yield batch
 
     def _forward(self, model: nn.Module, batch: Dict[str, torch.Tensor],
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 params: Optional[Dict[str, torch.Tensor]] = None):
+        """``(pred, latent)`` in f32.  Under bf16 compute the inputs go in
+        as bf16 (the adjacency is built in f32 and cast after, as in the
+        reference) and the model runs on ``params``, the working copy,
+        when given."""
         adj = dense_adjacency(batch["edges"], batch["edge_mask"],
                               batch["nodes"].shape[1])
         node_mask = batch["node_mask"] * batch["sample_mask"].unsqueeze(1)
-        if self.cfg.is_hybrid:
-            return model(batch["nodes"], adj, node_mask, batch["fp"],
-                         generator)
-        return model(batch["nodes"], adj, node_mask, generator), None
+        nodes, fp = batch["nodes"], batch["fp"]
+        if self._cdt is not None:
+            nodes, adj, node_mask, fp = (t.to(self._cdt) for t in
+                                         (nodes, adj, node_mask, fp))
+        args = (nodes, adj, node_mask, fp, generator) if self.cfg.is_hybrid \
+            else (nodes, adj, node_mask, generator)
+        out = model(*args) if params is None \
+            else functional_call(model, params, args)
+        pred, latent = out if self.cfg.is_hybrid else (out, None)
+        if self._cdt is not None:
+            pred = pred.float()
+            latent = None if latent is None else latent.float()
+        return pred, latent
+
+    def compute_copy(self, model: nn.Module, grad: bool = True
+                     ) -> Optional[Dict[str, torch.Tensor]]:
+        """The bf16 working copy of the f32 master (name -> leaf tensor that
+        collects its gradient), or None where the forward runs on the
+        module's own parameters (f32 compute, or the bf16 master)."""
+        if self._cdt is None or self._master_narrow:
+            return None
+        return {n: p.detach().to(self._cdt).requires_grad_(grad)
+                for n, p in model.named_parameters()}
 
     def _dropout_generator(self, epoch: int) -> torch.Generator:
         seed = np.random.SeedSequence([self.cfg.seed, 1234, epoch])
@@ -158,14 +220,28 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   params_c: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Dict[str, torch.Tensor]:
         """One optimizer step; returns the step's ``loss``, ``mse`` and
-        ``kl`` as device tensors (no host sync)."""
+        ``kl`` as device tensors (no host sync).
+
+        Under bf16 compute ``params_c`` is the working copy the forward runs
+        on (:meth:`compute_copy`, made here when not given); the optimizer
+        writes the next step's copy into it.  A bf16 master is rounded
+        stochastically with the salt of this step's count
+        (``train/optim.py::step_salt``)."""
         cfg, model = self.cfg, state.model
         model.train()
-        with matmul_precision(cfg.matmul_precision):
-            pred, latent = self._forward(model, batch, generator)
+        if params_c is None:
+            params_c = self.compute_copy(model)
+        with matmul_precision(cfg.matmul_precision, cfg.compute_dtype):
+            if cfg.remat:
+                pred, latent = self._remat_forward(model, batch, generator,
+                                                   params_c)
+            else:
+                pred, latent = self._forward(model, batch, generator,
+                                             params_c)
             mse = _masked_mse(pred, batch["y"], batch["sample_mask"])
             loss, kl = mse, torch.zeros((), device=mse.device)
             if cfg.is_hybrid and cfg.kl_lambda > 0:
@@ -175,16 +251,40 @@ class Trainer:
             loss.backward()
         set_lr(state.optimizer, self._lr(state.step + 1)
                if callable(self._lr) else self._lr)
-        state.optimizer.step()
+        if params_c is not None:
+            state.optimizer.step(copies=list(params_c.values()))
+        elif self._master_narrow:
+            state.optimizer.step(salt=step_salt(cfg.seed, state.step))
+        else:
+            state.optimizer.step()
         state.step += 1
         return {"loss": loss.detach(), "mse": mse.detach(),
                 "kl": kl.detach()}
+
+    def _remat_forward(self, model, batch, generator, params_c):
+        """The forward under ``torch.utils.checkpoint``: its activations are
+        recomputed in the backward.  The recompute restores the dropout
+        generator to its state before the forward, so it draws the same
+        masks and leaves the generator where the forward left it."""
+        start = None if generator is None else generator.get_state()
+        runs = []
+
+        def run():
+            if runs and generator is not None:
+                generator.set_state(start)
+            runs.append(1)
+            return self._forward(model, batch, generator, params_c)
+
+        return checkpoint(run, use_reentrant=False)
 
     def train_epoch(self, state: TrainState, epoch: int
                     ) -> Tuple[TrainState, Dict]:
         t0 = time.perf_counter()
         gen = self._dropout_generator(epoch)
-        losses = [self.train_step(state, batch, gen)["loss"]
+        # the bf16 working copy: cast from the master once per epoch, then
+        # carried (each step's optimizer writes the next step's copy)
+        params_c = self.compute_copy(state.model)
+        losses = [self.train_step(state, batch, gen, params_c)["loss"]
                   for batch in self._batches(
                       self.train_ds, self.cfg.batch_size,
                       np.random.default_rng(self.cfg.seed + epoch))]
@@ -205,9 +305,11 @@ class Trainer:
         scale = float(self.scaler.scale_)
         preds, mses, omses, keeps = [], [], [], []
         with torch.inference_mode(), \
-                matmul_precision(self.cfg.matmul_precision):
+                matmul_precision(self.cfg.matmul_precision,
+                                 self.cfg.compute_dtype):
+            params_c = self.compute_copy(model, grad=False)
             for batch in self._batches(ds, self.cfg.eval_batch_size):
-                pred, _ = self._forward(model, batch)
+                pred, _ = self._forward(model, batch, params=params_c)
                 pred = pred.reshape(-1)
                 smask = batch["sample_mask"]
                 mses.append(_masked_mse(pred, batch["y"], smask))

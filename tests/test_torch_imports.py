@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: no JAX, flax, optax or reference-package
-import anywhere in it or in ``chip_smoke.py``, and importing it neither
-imports ``triton`` nor builds a kernel."""
+"""The PyTorch port stands alone: no JAX, flax, optax, ml_dtypes or
+reference-package import anywhere in it or in ``chip_smoke.py``, and
+importing it neither imports ``triton`` nor builds a kernel."""
 
 import ast
 import os
@@ -11,7 +11,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mgat_graphsage_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mgat_graphsage_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
+             "mgat_graphsage_tpu")
 
 
 def _port_files():

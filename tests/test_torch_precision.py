@@ -69,3 +69,42 @@ def test_entry_point_runs_the_model_in_ieee_f32(data, entry, precision):
 def test_unknown_matmul_precision_raises():
     with pytest.raises(ValueError, match="matmul_precision"):
         matmul_precision("tf32")
+
+
+def _bf16_flags():
+    return (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+            ) + _flags()
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_bf16_entry_point_accumulates_products_in_f32(data, entry):
+    """Under bf16 compute each entry point runs the model with cuBLAS's
+    bf16 split-K reduction off and TF32 off (``models/layers.py::
+    bf16_products``), in bf16, and restores the caller's three flags."""
+    cfg = get_config("flagship", cnn_fc_hidden=8, batch_size=BATCH,
+                     eval_batch_size=BATCH, compute_dtype="bfloat16")
+    trainer = Trainer(cfg, data, data, device="cpu")
+    state = trainer.init_state()
+    seen = []
+    state.model.register_forward_hook(
+        lambda module, args, out: seen.append((_bf16_flags(), out[0].dtype)))
+    prev = _bf16_flags()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    _set_flags(True, True)
+    try:
+        if entry == "train_step":
+            trainer.train_step(state, next(trainer._batches(data, BATCH)))
+        elif entry == "evaluate":
+            trainer.evaluate(state)
+        else:
+            # cast once, as ``Predictor`` casts its model
+            predict_dataset(state.model.to(torch.bfloat16), cfg, data.scaler,
+                            data, BATCH, infer_dtype="bfloat16")
+        after = _bf16_flags()
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            prev[0]
+        _set_flags(*prev[1:])
+    assert seen and all(s == ((False,) * 3, torch.bfloat16)
+                        for s in seen), seen
+    assert after == (True,) * 3
