@@ -1,0 +1,137 @@
+"""ctypes binding of the native C++ featurizer (``csrc/featurizer.cpp``).
+
+Featurisation is the host side of every serving call and dataset build.
+The C++ library computes the same graphs and Morgan fingerprints as the
+Python chemistry layer (``chem/smiles.py``, ``chem/featurize.py``,
+``chem/fingerprints.py``), bit for bit (``tests/test_torch_native.py``),
+at a multiple of its rate (``PERF.md``).
+
+The library is built with the host ``g++`` at first use,
+
+    g++ -O3 -shared -fPIC -std=c++17 csrc/featurizer.cpp \\
+        -o csrc/build/featurizer-<hash>.so
+
+named by a hash of the source and the flags and moved into place from a
+temporary file of the building process (``ops/_build.py``), so concurrent
+builds are safe.  Nothing falls back silently: a failed build or load
+raises with the compiler's or the loader's message.  The Python path runs
+only where a caller asks for it (``MolecularDataset(use_native=False)``)
+or for a configuration the library does not cover
+(``MolecularDataset._featurize_native``).  The library keeps no mutable
+state, so threads may call it at once (ctypes releases the GIL).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from ..ops import _build
+
+__all__ = ["native_available", "featurize_batch_native", "get_lib",
+           "GXX_FLAGS", "SOURCE"]
+
+SOURCE = os.path.join(_build.CSRC_DIR, "featurizer.cpp")
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+
+_lock = threading.Lock()
+_lib = None
+
+_P_I32 = ctypes.POINTER(ctypes.c_int32)
+_P_F32 = ctypes.POINTER(ctypes.c_float)
+
+
+def library_path() -> str:
+    return _build.hashed_path("featurizer", [SOURCE], GXX_FLAGS)
+
+
+def get_lib():
+    """The loaded library, built first if needed.  Raises
+    ``RuntimeError`` when ``g++`` fails (with its output) and ``OSError``
+    when the library does not load."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            out = library_path()
+            _build.finish_build(
+                _build.start_build(["g++", *GXX_FLAGS, SOURCE], out),
+                "g++ building csrc/featurizer.cpp")
+            lib = ctypes.CDLL(out)
+            lib.mgat_featurize_batch.restype = ctypes.c_int
+            lib.mgat_featurize_batch.argtypes = [
+                ctypes.c_char_p, _P_I32,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                _P_F32, _P_I32, _P_I32, _P_F32,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, _P_I32,
+            ]
+            _lib = lib
+    return _lib
+
+
+def native_available() -> bool:
+    """Whether the library builds and loads here (a probe: it raises
+    nothing; :func:`get_lib` says why it does not)."""
+    try:
+        get_lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def _ptr(a: Optional[np.ndarray], kind):
+    return None if a is None else a.ctypes.data_as(kind)
+
+
+def featurize_batch_native(
+    smiles_list: List[str],
+    feat_dim: int,
+    max_nodes: int,
+    max_edges: int,
+    fp_bits: int = 0,
+    fp_radius: int = 2,
+    use_features: bool = False,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+           Optional[np.ndarray], np.ndarray]:
+    """Featurise a batch of SMILES with the native library.
+
+    Returns ``(nodes [n, max_nodes, feat_dim], edges [n, 2, max_edges],
+    node_mask, edge_mask, fp [n, fp_bits] or None, status [n])`` where
+    ``status[i]`` is the atom count, -1 for a SMILES that does not parse,
+    -2 past ``max_nodes`` and -3 past ``max_edges``.
+    """
+    lib = get_lib()
+    n = len(smiles_list)
+    # the library reads each SMILES up to its NUL, so one holding a NUL
+    # would be read cut short; it goes in empty, which fails to parse (-1)
+    # as the Python parser fails on the NUL
+    encoded = [b"" if "\x00" in s else s.encode("utf-8")
+               for s in smiles_list]
+    blob = b"\x00".join(encoded) + b"\x00"
+    lengths = np.fromiter((len(e) + 1 for e in encoded), np.int64, n)
+    offsets = np.zeros(n, np.int32)
+    if n:
+        offsets[1:] = np.cumsum(lengths)[:-1]
+
+    nodes = np.zeros((n, max_nodes, feat_dim), np.float32)
+    edges = np.zeros((n, 2, max_edges), np.int32)
+    n_edges = np.zeros(n, np.int32)
+    fp = np.zeros((n, fp_bits), np.float32) if fp_bits else None
+    status = np.zeros(n, np.int32)
+    lib.mgat_featurize_batch(
+        blob, _ptr(offsets, _P_I32), n, feat_dim, max_nodes, max_edges,
+        _ptr(nodes, _P_F32), _ptr(edges, _P_I32), _ptr(n_edges, _P_I32),
+        _ptr(fp, _P_F32), fp_bits, fp_radius, 1 if use_features else 0,
+        _ptr(status, _P_I32))
+
+    ok = status > 0
+    node_mask = (np.arange(max_nodes) < np.where(ok, status, 0)[:, None]
+                 ).astype(np.float32)
+    edge_mask = (np.arange(max_edges) < np.where(ok, n_edges, 0)[:, None]
+                 ).astype(np.float32)
+    return nodes, edges, node_mask, edge_mask, fp, status

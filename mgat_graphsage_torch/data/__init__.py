@@ -1,13 +1,17 @@
-"""Data layer: CSV ingestion, target scaling, fixed-shape padding, and the
-paths of the bundled splits (``<repo>/datasets``)."""
+"""Data layer: CSV ingestion, target scaling, native or Python
+featurisation, fixed-shape padding and batching, bucketing, compact
+storage (``packed.py``), and the paths of the bundled splits
+(``<repo>/datasets``)."""
 
 import os as _os
 
 from .dataset import (
+    GraphBatch,
     MolecularDataset,
     StandardScaler,
     load_csv,
     pad_to_multiple,
+    write_csv,
 )
 
 DATASET_DIR = _os.path.join(_os.path.dirname(_os.path.dirname(
@@ -18,6 +22,7 @@ TEST_CSV = _os.path.join(DATASET_DIR, "test_data.csv")
 FULL_CSV = _os.path.join(DATASET_DIR, "full_data.csv")
 
 __all__ = [
-    "MolecularDataset", "StandardScaler", "load_csv", "pad_to_multiple",
+    "GraphBatch", "MolecularDataset", "StandardScaler", "load_csv",
+    "pad_to_multiple", "write_csv",
     "DATASET_DIR", "TRAIN_CSV", "VAL_CSV", "TEST_CSV", "FULL_CSV",
 ]

@@ -2,17 +2,24 @@
 ``mgat_graphsage_tpu/data/dataset.py``, numpy only).
 
 Read a ``Smiles,pchembl`` CSV, standardize targets with a train-fit
-scaler (reference ``train.py:173-181``), featurize each molecule with the
-pure-Python chemistry layer, and pad every molecule to one
-``(max_nodes, max_edges)`` budget: ``nodes [n, N, F]``,
-``edges [n, 2, E]``, ``node_mask [n, N]``, ``edge_mask [n, E]``,
-``fp [n, nbits]``.  Dense adjacency is built on the device from the edge
-lists (``ops/graph.py``).
+scaler (reference ``train.py:173-181``), featurize each molecule, and pad
+every molecule to one ``(max_nodes, max_edges)`` budget:
+``nodes [n, N, F]``, ``edges [n, 2, E]``, ``node_mask [n, N]``,
+``edge_mask [n, E]``, ``fp [n, nbits]``.  Dense adjacency is built on the
+device from the edge lists (``ops/graph.py``).
+
+Featurisation goes through the native C++ library by default
+(``chem/native.py``; bit for bit the Python chemistry layer's output),
+through the Python layer with ``use_native=False`` or for a configuration
+the library does not cover.  As in the reference package, the native path
+featurises within a ``(128, 288)`` budget and drops a molecule past it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import dataclasses
+import os
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -21,10 +28,20 @@ from ..chem.fingerprints import FINGERPRINTS
 
 __all__ = [
     "StandardScaler",
+    "GraphBatch",
     "MolecularDataset",
     "load_csv",
     "pad_to_multiple",
+    "write_csv",
 ]
+
+# the native library's per-molecule budget (atoms, directed edges), as in
+# the reference package; a molecule past it is dropped
+NATIVE_BUDGET = (128, 288)
+# fingerprint -> (bits, FCFP invariants) for the ones the library computes
+_NATIVE_FPS = {None: (0, False), "ecfp1024": (1024, False),
+               "ecfp2048": (2048, False), "morgan1024": (1024, False),
+               "morgan2048": (2048, False), "fcfp1024": (1024, True)}
 
 
 class StandardScaler:
@@ -58,6 +75,27 @@ class StandardScaler:
         return cls(d["mean"], d["scale"])
 
 
+@dataclasses.dataclass
+class GraphBatch:
+    """One fixed-shape batch of numpy arrays on the host."""
+
+    nodes: np.ndarray        # [B, N, F] float32
+    edges: np.ndarray        # [B, 2, E] int32 (COO, both directions)
+    node_mask: np.ndarray    # [B, N] float32
+    edge_mask: np.ndarray    # [B, E] float32
+    fp: np.ndarray           # [B, nbits] float32 (zeros if no fingerprint)
+    y: np.ndarray            # [B] float32 (normalized target)
+    y_orig: np.ndarray       # [B] float32 (original-scale target)
+    sample_mask: np.ndarray  # [B] float32 (0 = padding row)
+
+    def as_dict(self) -> Dict[str, np.ndarray]:
+        return dataclasses.asdict(self)
+
+    @property
+    def batch_size(self) -> int:
+        return self.nodes.shape[0]
+
+
 def pad_to_multiple(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
@@ -82,8 +120,9 @@ class MolecularDataset:
 
     Invalid SMILES are skipped with a log line (reference
     ``train.py:184-194``); with an explicit ``(max_nodes, max_edges)``
-    budget, molecules over it are dropped too.  ``kept_indices`` maps
-    every kept molecule back to its input row.
+    budget, molecules over it are dropped too, and so are molecules past
+    :data:`NATIVE_BUDGET` on the native path.  ``kept_indices`` maps every
+    kept molecule back to its input row.
     """
 
     def __init__(
@@ -98,25 +137,15 @@ class MolecularDataset:
         max_edges: Optional[int] = None,
         node_multiple: int = 8,
         verbose: bool = True,
+        use_native: bool = True,
     ):
         targets = np.asarray(targets, dtype=np.float32).reshape(-1)
-        graphs, fps, kept_targets, kept_smiles, kept_indices = \
-            [], [], [], [], []
-        fp_fn = FINGERPRINTS[fingerprint] if fingerprint else None
-        for i, (smi, y) in enumerate(zip(smiles, targets)):
-            try:
-                feats, edge_index = smiles_to_graph(str(smi),
-                                                    featurizer=featurizer)
-                fp = fp_fn(str(smi))[0] if fp_fn else None
-            except ValueError as e:
-                if verbose:
-                    print(e)
-                continue
-            graphs.append((feats, edge_index))
-            fps.append(fp)
-            kept_targets.append(y)
-            kept_smiles.append(str(smi))
-            kept_indices.append(i)
+        native = use_native and fingerprint in _NATIVE_FPS \
+            and featurizer in ("35", "5")
+        featurize = self._featurize_native if native \
+            else self._featurize_python
+        graphs, fps, kept_targets, kept_smiles, kept_indices = featurize(
+            smiles, targets, fingerprint, featurizer, verbose)
 
         if not graphs:
             raise ValueError("No valid molecules in dataset")
@@ -175,5 +204,186 @@ class MolecularDataset:
                 self.fp[i] = fps[i]
         self.n = n
 
+    @staticmethod
+    def _featurize_python(smiles, targets, fingerprint, featurizer,
+                          verbose):
+        """(graphs, fps, targets, smiles, indices) of the molecules that
+        parse, through the Python chemistry layer."""
+        graphs, fps, kept_targets, kept_smiles, kept_indices = \
+            [], [], [], [], []
+        fp_fn = FINGERPRINTS[fingerprint] if fingerprint else None
+        for i, (smi, y) in enumerate(zip(smiles, targets)):
+            try:
+                feats, edge_index = smiles_to_graph(str(smi),
+                                                    featurizer=featurizer)
+                fp = fp_fn(str(smi))[0] if fp_fn else None
+            except ValueError as e:
+                if verbose:
+                    print(e)
+                continue
+            graphs.append((feats, edge_index))
+            fps.append(fp)
+            kept_targets.append(y)
+            kept_smiles.append(str(smi))
+            kept_indices.append(i)
+        return graphs, fps, kept_targets, kept_smiles, kept_indices
+
+    @staticmethod
+    def _featurize_native(smiles, targets, fingerprint, featurizer,
+                          verbose):
+        """The same lists as :meth:`_featurize_python`, through the C++
+        library (bit for bit the same graphs and fingerprints), for the
+        molecules that parse and fit :data:`NATIVE_BUDGET`."""
+        from ..chem.native import featurize_batch_native
+
+        fp_bits, use_features = _NATIVE_FPS[fingerprint]
+        nodes, edges, _, edge_mask, fp, status = featurize_batch_native(
+            [str(s) for s in smiles], 35 if featurizer == "35" else 5,
+            *NATIVE_BUDGET, fp_bits=fp_bits, use_features=use_features)
+        graphs, fps, kept_targets, kept_smiles, kept_indices = \
+            [], [], [], [], []
+        n_edges = edge_mask.sum(axis=1).astype(np.int64)
+        for i, smi in enumerate(smiles):
+            if status[i] <= 0:
+                if verbose:
+                    print(f"Invalid SMILES string: {smi!r}"
+                          if status[i] == -1 else
+                          f"[data] molecule exceeds native budget: {smi!r}")
+                continue
+            graphs.append((nodes[i, :status[i]], edges[i, :, :n_edges[i]]))
+            fps.append(fp[i] if fp is not None else None)
+            kept_targets.append(targets[i])
+            kept_smiles.append(str(smi))
+            kept_indices.append(i)
+        return graphs, fps, kept_targets, kept_smiles, kept_indices
+
     def __len__(self) -> int:
         return self.n
+
+    def batches(self, batch_size: int, shuffle: bool = False,
+                seed: int = 0, drop_last: bool = False,
+                pad_final: bool = True) -> Iterator[GraphBatch]:
+        """Yield fixed-shape batches; the final partial batch is padded to
+        ``batch_size`` with ``sample_mask`` zeros (rows of molecule 0)."""
+        idx = np.arange(self.n)
+        if shuffle:
+            idx = np.random.default_rng(seed).permutation(self.n)
+        for start in range(0, self.n, batch_size):
+            sel = idx[start:start + batch_size]
+            mask = np.ones(len(sel), np.float32)
+            if len(sel) < batch_size:
+                if drop_last:
+                    return
+                if pad_final:
+                    pad = batch_size - len(sel)
+                    sel = np.concatenate([sel, np.zeros(pad, sel.dtype)])
+                    mask = np.concatenate([mask, np.zeros(pad, np.float32)])
+            yield self._batch(sel, mask)
+
+    def _batch(self, sel: np.ndarray, mask: np.ndarray,
+               nodes: Optional[int] = None, edges: Optional[int] = None
+               ) -> GraphBatch:
+        """Rows ``sel``, trimmed to ``nodes`` and ``edges`` when given."""
+        return GraphBatch(
+            nodes=self.nodes[sel, :nodes],
+            edges=self.edges[sel, :, :edges],
+            node_mask=self.node_mask[sel, :nodes],
+            edge_mask=self.edge_mask[sel, :edges],
+            fp=self.fp[sel],
+            y=self.y[sel],
+            y_orig=self.y_orig[sel],
+            sample_mask=mask,
+        )
+
+    def num_batches(self, batch_size: int, drop_last: bool = False) -> int:
+        if drop_last:
+            return self.n // batch_size
+        return (self.n + batch_size - 1) // batch_size
+
+    # ---- multi-bucket batching ----
+    def bucket_plan(self, buckets: Tuple[int, ...] = (32, 48, 64, 96)
+                    ) -> List[Tuple[int, int, np.ndarray]]:
+        """Route each molecule to the smallest node bucket it fits.
+
+        Returns ``[(bucket_nodes, bucket_edges, indices), ...]`` for the
+        non-empty buckets, in ascending bucket order.  ``bucket_nodes`` is
+        capped at ``self.max_nodes``; molecules over the largest bucket
+        land in a final ``self.max_nodes`` bucket.  Each bucket's edge
+        budget is the member maximum padded to a multiple of 16.
+        """
+        n_atoms = self.node_mask.sum(axis=1).astype(np.int64)
+        n_edges = self.edge_mask.sum(axis=1).astype(np.int64)
+        bounds = sorted({min(b, self.max_nodes) for b in buckets if b > 0})
+        if not bounds or bounds[-1] < self.max_nodes:
+            bounds.append(self.max_nodes)
+        plan: List[Tuple[int, int, np.ndarray]] = []
+        assigned = np.zeros(self.n, dtype=bool)
+        for bn in bounds:
+            idx = np.nonzero(~assigned & (n_atoms <= bn))[0]
+            if idx.size == 0:
+                continue
+            assigned[idx] = True
+            be = pad_to_multiple(max(int(n_edges[idx].max()), 1), 16)
+            plan.append((bn, min(be, self.max_edges), idx))
+        return plan
+
+    def bucket_view(self, bucket_nodes: int, bucket_edges: int,
+                    idx: np.ndarray) -> "MolecularDataset":
+        """A dataset restricted to ``idx`` and trimmed to a bucket's
+        ``(bucket_nodes, bucket_edges)`` budget: array slicing of the
+        featurised arrays, no featurisation.  Valid edge indices are
+        below ``n_atoms <= bucket_nodes`` by :meth:`bucket_plan`'s
+        construction; the trimmed tails are padding only."""
+        idx = np.asarray(idx, dtype=np.int64)
+        ds = object.__new__(MolecularDataset)
+        ds.smiles = [self.smiles[i] for i in idx]
+        ds.kept_indices = self.kept_indices[idx]
+        ds.y_orig = self.y_orig[idx]
+        ds.scaler = self.scaler
+        ds.y = self.y[idx]
+        ds.max_nodes = int(bucket_nodes)
+        ds.max_edges = int(bucket_edges)
+        ds.feature_dim = self.feature_dim
+        ds.fp_dim = self.fp_dim
+        ds.fingerprint = self.fingerprint
+        # contiguous copies: a view would pin the full-width arrays
+        ds.nodes = np.ascontiguousarray(self.nodes[idx][:, :bucket_nodes])
+        ds.edges = np.ascontiguousarray(self.edges[idx][:, :, :bucket_edges])
+        ds.node_mask = np.ascontiguousarray(
+            self.node_mask[idx][:, :bucket_nodes])
+        ds.edge_mask = np.ascontiguousarray(
+            self.edge_mask[idx][:, :bucket_edges])
+        ds.fp = self.fp[idx]
+        ds.n = int(idx.size)
+        return ds
+
+    def bucketed_batches(self, batch_size: int,
+                         buckets: Tuple[int, ...] = (32, 48, 64, 96),
+                         shuffle: bool = False, seed: int = 0,
+                         pad_final: bool = True) -> Iterator[GraphBatch]:
+        """Fixed-shape batches per node bucket, trimmed to the bucket's
+        (nodes, edges) budget.  Shuffling permutes within each bucket; a
+        final partial batch is padded with masked copies of its first
+        row."""
+        rng = np.random.default_rng(seed)
+        for bn, be, idx in self.bucket_plan(buckets):
+            if shuffle:
+                idx = rng.permutation(idx)
+            for start in range(0, idx.size, batch_size):
+                sel = idx[start:start + batch_size]
+                mask = np.ones(sel.size, np.float32)
+                if sel.size < batch_size and pad_final:
+                    pad = batch_size - sel.size
+                    sel = np.concatenate([sel, np.full(pad, sel[0],
+                                                       sel.dtype)])
+                    mask = np.concatenate([mask, np.zeros(pad, np.float32)])
+                yield self._batch(sel, mask, bn, be)
+
+
+def write_csv(path: str, smiles: List[str], targets) -> None:
+    """``Smiles,pchembl`` CSV, targets to 4 decimals."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        f.write("Smiles,pchembl\n")
+        for s, y in zip(smiles, targets):
+            f.write(f"{s},{y:.4f}\n")

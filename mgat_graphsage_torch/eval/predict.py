@@ -2,7 +2,9 @@
 on PyTorch and CUDA).
 
 A checkpoint of the port (``train/checkpoint.py``) plus SMILES in,
-de-normalised pChEMBL out.  The dataset goes to the device once; batches
+de-normalised pChEMBL out.  The SMILES are featurised on the host by the
+native library (``chem/native.py``, through ``MolecularDataset``), as in
+the reference package.  The dataset goes to the device once; batches
 of ``batch_size`` run in a Python loop under ``torch.inference_mode()``,
 each through the adjacency kernel, the graph branch (with the attention
 kernel), the CNN branch and the head.  Results come back in one copy.
@@ -73,19 +75,20 @@ def load_model_from_checkpoint(ckpt_path: str, device=None):
 
 def predict_dataset(model, cfg: TrainConfig, scaler: StandardScaler,
                     ds: MolecularDataset, batch_size: int = 64,
-                    bucket: bool = False,
                     infer_dtype: Optional[str] = None) -> np.ndarray:
     """De-normalised predictions for every molecule in ``ds``, on the
     model's device.
 
     Padded rows of the last batch repeat molecule 0 with their node mask
-    zeroed, so they are inert; their outputs are dropped.  ``bucket=True``
-    (the serving path) rounds the batch count up to a power of two, as
-    the reference package does to share one compiled program between
-    request sizes.  The batches run at the train step's numerics for
-    ``cfg.matmul_precision`` and the compute dtype ``infer_dtype``
-    (``models/layers.py::matmul_precision``).  ``"bfloat16"`` takes a
-    model already cast to bf16, as ``Predictor`` casts it.
+    zeroed, so they are inert; their outputs are dropped.  The batch count
+    is not rounded up to a power of two as the reference package's
+    ``bucket=True`` does to share one compiled program between request
+    sizes: eager PyTorch has no program to share, and the extra inert
+    batches only cost time (``PERF.md``).  The batches run at the train step's
+    numerics for ``cfg.matmul_precision`` and the compute dtype
+    ``infer_dtype`` (``models/layers.py::matmul_precision``).
+    ``"bfloat16"`` takes a model already cast to bf16, as ``Predictor``
+    casts it.
     """
     compute = _check_infer_dtype(infer_dtype)
     cdt = torch.bfloat16 if compute == "bfloat16" else None
@@ -96,8 +99,6 @@ def predict_dataset(model, cfg: TrainConfig, scaler: StandardScaler,
     dev = first.device
     n = len(ds)
     n_batches = (n + batch_size - 1) // batch_size
-    if bucket:
-        n_batches = 1 << (n_batches - 1).bit_length()
     rows = n_batches * batch_size
     idx = np.zeros(rows, np.int64)
     idx[:n] = np.arange(n)
@@ -171,7 +172,9 @@ class Predictor:
     >>> p(["CCO", "c1ccccc1O"])          # -> np.ndarray of pChEMBL values
 
     The output is index-aligned with the input: unparseable or
-    over-budget molecules get NaN.  ``infer_dtype="bfloat16"`` casts the
+    over-budget molecules get NaN (past the checkpoint's budget, or past
+    the native featuriser's ``data/dataset.py::NATIVE_BUDGET``).
+    ``infer_dtype="bfloat16"`` casts the
     parameters to bf16 once, here, and serves in bf16.  ``last_timings``
     holds the split of the latest call in seconds: ``featurize_s`` (host)
     and ``dispatch_s`` (upload, device work and the copy back).
@@ -209,8 +212,7 @@ class Predictor:
             return out  # no valid molecules at all
         t1 = time.perf_counter()
         preds = predict_dataset(self.model, self.cfg, self.scaler, ds,
-                                batch_size, bucket=True,
-                                infer_dtype=self.infer_dtype)
+                                batch_size, infer_dtype=self.infer_dtype)
         out[ds.kept_indices] = preds
         self.last_timings = {"featurize_s": t1 - t0,
                              "dispatch_s": time.perf_counter() - t1}

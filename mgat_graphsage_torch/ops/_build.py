@@ -19,6 +19,10 @@ source at once, for callers that want every kernel ready up front.
 toolkit's standard location.  A failed build raises with nvcc's output;
 a build's output (ptxas's registers and spills per kernel) is kept in
 :data:`BUILD_LOGS` and summarised by :func:`ptxas_report`.
+
+:func:`hashed_path`, :func:`start_build` and :func:`finish_build` (a
+content-hashed name, a per-process temporary file moved into place with
+``os.replace``) also build the host featuriser (``chem/native.py``).
 """
 
 from __future__ import annotations
@@ -29,11 +33,12 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from typing import Dict, Iterable, List
 
 __all__ = ["KERNELS", "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "BUILD_LOGS",
            "load", "build_all", "library_path", "local_sources",
-           "ptxas_report"]
+           "ptxas_report", "hashed_path", "start_build", "finish_build"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -93,42 +98,62 @@ def local_sources(name: str) -> List[str]:
     return [os.path.join(CSRC_DIR, rel) for rel in seen]
 
 
-def library_path(name: str) -> str:
+def hashed_path(stem: str, sources: Iterable[str], flags: Iterable[str]
+                ) -> str:
+    """``BUILD_DIR/<stem>-<hash>.so``, the hash over the sources' bytes
+    and the flags: an edited source, header or flag names a new file."""
     h = hashlib.sha1()
-    for src in local_sources(name):
+    for src in sources:
         with open(src, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+    h.update(" ".join(flags).encode())
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:12]}.so")
 
 
-def _start(name: str):
-    """Start nvcc for ``name`` unless its library exists; return
-    ``(proc, tmp, out)`` or None."""
-    out = library_path(name)
+def library_path(name: str) -> str:
+    return hashed_path(name, local_sources(name), NVCC_FLAGS)
+
+
+def start_build(cmd: List[str], out: str):
+    """Start ``cmd -o <tmp>`` unless ``out`` exists; return the job for
+    :func:`finish_build`, or None.  The temporary name is the process's and
+    the thread's own, so builds that race (test workers, request threads)
+    never write one file."""
     if os.path.exists(out):
         return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC_DIR, name + ".cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.Popen([*cmd, "-o", tmp], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def _finish(name: str, job) -> None:
+def finish_build(job, what: str) -> str:
+    """Wait for a :func:`start_build` job and move its output into place;
+    return the compiler's output ("" for no job).  Raises with that output
+    when the compiler fails."""
     if job is None:
-        return
+        return ""
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"nvcc failed to build csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
-    BUILD_LOGS[name] = log
+        raise RuntimeError(f"{what} failed (exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return log
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists."""
+    return start_build([_nvcc(), *NVCC_FLAGS,
+                        os.path.join(CSRC_DIR, name + ".cu")],
+                       library_path(name))
+
+
+def _finish(name: str, job) -> None:
+    if job is not None:
+        BUILD_LOGS[name] = finish_build(job, f"nvcc building csrc/{name}.cu")
 
 
 def build_all(names: Iterable[str] = tuple(KERNELS)) -> List[str]:

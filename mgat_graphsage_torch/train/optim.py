@@ -21,8 +21,8 @@ a step is a few dozen launches on the card rather than ~20 a parameter.
 
 The schedule is the reference formula evaluated in f32 on the host once
 per step.  The factored second moment (``adam_factored_v``) is ported
-too.  :func:`check_ported` refuses the one optimizer-side knob that is
-not: compact dataset storage.
+too.  :func:`check_ported` refuses the values and combinations of the
+config that the reference's trainer refuses.
 """
 
 from __future__ import annotations
@@ -43,21 +43,13 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # moment under adam_factored_v (reference trainer.py::make_optimizer)
 FACTORED_V_MIN_SIZE = 1 << 20
 
-# what each knob that is not ported yet waits for (ROADMAP.md, Queue 1)
-_NOT_PORTED = {
-    "dataset_storage": ("float32", "compact dataset storage is not ported "
-                        "yet (ROADMAP Queue 1 item 6)"),
-}
-
 
 def check_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config knob the port's trainer
-    does not have yet, naming the ROADMAP item that brings it; and
-    ``ValueError`` for the combinations the reference's trainer refuses."""
-    for field, (ported, msg) in _NOT_PORTED.items():
-        if getattr(cfg, field) != ported:
-            raise NotImplementedError(f"{field}={getattr(cfg, field)!r}: "
-                                      f"{msg}")
+    """Raise ``ValueError`` for the config values and combinations the
+    reference's trainer refuses."""
+    if cfg.dataset_storage not in ("float32", "compact"):
+        raise ValueError(f"dataset_storage={cfg.dataset_storage!r}; "
+                         "expected 'float32' or 'compact'")
     for field in ("compute_dtype", "master_dtype", "adam_moment_dtype"):
         if getattr(cfg, field) not in DTYPES:
             raise ValueError(f"{field}={getattr(cfg, field)!r}; expected "

@@ -4,7 +4,8 @@ PyTorch and CUDA).
     python -m mgat_graphsage_torch.train.run --preset flagship \\
         [--epochs N] [--batch-size B] [--lr LR] [--seed S] [--limit ROWS] \\
         [--ckpt-dir checkpoints] [--log metrics.jsonl] [--resume CKPT] \\
-        [--mixed-precision] [--fast-optimizer] [--remat] [--device cuda|cpu]
+        [--mixed-precision] [--fast-optimizer] [--remat] \\
+        [--dataset-storage float32|compact] [--device cuda|cpu]
 
 trains on the bundled train and validation CSVs (or ``--train-csv``,
 ``--val-csv``) and writes ``<ckpt-dir>/<preset>/best_model.pt`` with its
@@ -12,9 +13,10 @@ JSON sidecar, which ``eval/predict.py`` serves.  It runs on CUDA unless
 given ``--device cpu``, and raises without CUDA.  Only the presets the port
 can build are offered, the bf16 ones (``flagship_bf16_bs1024_wc``, the
 production preset, among them) included.  ``--mixed-precision`` (bf16
-compute), ``--fast-optimizer`` (bf16 Adam moments) and ``--remat`` set
-their config fields as the reference's flags do; the reference's flags for
-meshes and compact storage are accepted and raise "not ported yet".
+compute), ``--fast-optimizer`` (bf16 Adam moments), ``--remat`` and
+``--dataset-storage`` set their config fields as the reference's flags
+do; the reference's flags for meshes are accepted and raise "not ported
+yet".
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ import os
 from ..chem.fingerprints import FINGERPRINTS
 from ..data import TRAIN_CSV, VAL_CSV, MolecularDataset, load_csv
 from .config import PRESETS, get_config
-from .optim import check_ported
 from .trainer import Trainer
 
 # flag -> the ROADMAP item (Queue 1) that brings it
@@ -33,15 +34,10 @@ _NOT_PORTED_FLAGS = {
     "data_parallel": "multi-GPU training (ROADMAP Queue 1 item 10)",
     "model_parallel": "multi-GPU training (ROADMAP Queue 1 item 10)",
     "distributed": "multi-GPU training (ROADMAP Queue 1 item 10)",
-    "dataset_storage": "compact dataset storage (ROADMAP Queue 1 item 6)",
 }
 
 
 def _ported(cfg) -> bool:
-    try:
-        check_ported(cfg)
-    except NotImplementedError:
-        return False
     return (cfg.model in ("hybrid", "gat_graphsage")
             and cfg.attention == "modified"
             and (cfg.fingerprint is None or cfg.fingerprint in FINGERPRINTS))
@@ -79,12 +75,15 @@ def main(argv=None):
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="not ported yet")
     ap.add_argument("--dataset-storage", default=None,
-                    choices=["float32", "compact"], help="not ported yet")
+                    choices=["float32", "compact"],
+                    help="compact: the dataset packed on the device (int8 "
+                         "nodes, uint8 edges, bit-packed fingerprints), "
+                         "unpacked per batch to the same bits")
     args = ap.parse_args(argv)
 
     for dest, what in _NOT_PORTED_FLAGS.items():
         value = getattr(args, dest)
-        if value != ap.get_default(dest) and value != "float32":
+        if value != ap.get_default(dest):
             raise NotImplementedError(f"--{dest.replace('_', '-')}: {what} "
                                       "is not ported yet")
 
@@ -97,6 +96,8 @@ def main(argv=None):
         overrides["compute_dtype"] = "bfloat16"
     if args.remat:
         overrides["remat"] = True
+    if args.dataset_storage:
+        overrides["dataset_storage"] = args.dataset_storage
     cfg = get_config(args.preset, **overrides)
 
     sm, y = load_csv(args.train_csv)

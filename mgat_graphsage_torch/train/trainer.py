@@ -11,6 +11,10 @@ one XLA program).
   batch's ``sample_mask``, so the rows padding the final batch are inert;
 - torch Adam with L2 coupled into the gradient (``train/optim.py``), the
   constant or warmup+cosine lr on the 1-based step count;
+- ``dataset_storage="compact"`` keeps the dataset on the device packed
+  (int8 nodes, uint8 edges, masks as counts, bit-packed fingerprints;
+  ``data/packed.py``) and unpacks each batch there to the same bits, so
+  the run is the float32 run's, bit for bit, in ~5x less device memory;
 - the epoch permutation comes from ``np.random.default_rng(seed +
   epoch)`` and the final batch is padded with masked copies of row 0, so
   the batch order is the reference's, bit for bit;
@@ -60,6 +64,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..data import MolecularDataset
+from ..data.packed import gather_batch, pack_dataset, to_device
 from ..device import resolve_device
 from ..models import build_model, kl_loss, reset_parameters
 from ..models.layers import matmul_precision
@@ -144,11 +149,14 @@ class Trainer:
                           optimizer=make_optimizer(self.cfg, model))
 
     def _device_dataset(self, ds: MolecularDataset) -> Dict[str, torch.Tensor]:
-        """A dataset's padded arrays on the device, uploaded once."""
+        """A dataset's arrays on the device, uploaded once: the padded
+        float32 arrays, or with ``dataset_storage="compact"`` their packed
+        form (``data/packed.py``), unpacked per batch by :meth:`_batches`
+        to the same bits."""
         if id(ds) not in self._dev_cache:
-            self._dev_cache[id(ds)] = {
-                k: torch.from_numpy(np.ascontiguousarray(getattr(ds, k))
-                                    ).to(self.device) for k in _FIELDS}
+            host = pack_dataset(ds) if self.cfg.dataset_storage == "compact" \
+                else {k: getattr(ds, k) for k in _FIELDS}
+            self._dev_cache[id(ds)] = to_device(host, self.device)
         return self._dev_cache[id(ds)]
 
     @staticmethod
@@ -175,7 +183,7 @@ class Trainer:
         perm = torch.from_numpy(perm).to(self.device)
         smask = torch.from_numpy(smask).to(self.device)
         for i in range(perm.shape[0]):
-            batch = {k: v[perm[i]] for k, v in data.items()}
+            batch = gather_batch(data, perm[i], ds.fp.shape[1])
             batch["sample_mask"] = smask[i]
             yield batch
 

@@ -124,9 +124,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(ckpts, entry, monkeypatch):
         getattr(tpredict, entry)(*args)
 
 
-def test_bf16_inference_is_not_ported_yet(ckpts, smiles24):
-    """bf16 serving is ported now (the name is kept from when it raised):
-    ``infer_dtype="bfloat16"`` casts the weights once and serves within
+def test_bf16_inference_serves_close_to_f32(ckpts, smiles24):
+    """``infer_dtype="bfloat16"`` casts the weights once and serves within
     0.05 pChEMBL of f32 here (scale 1.375; ``tests/
     test_torch_mixed_precision.py`` holds it against the reference), with
     NaN in the same slot; an unknown dtype raises, and so does

@@ -354,14 +354,13 @@ def test_cli_limit_smoke(tmp_path, capsys):
 
 def test_not_ported_configs_and_flags_raise(data, monkeypatch):
     tr, va, _, _ = data
-    for kw in (dict(dataset_storage="compact"),
-               dict(compute_dtype="bfloat16", cnn_pallas_bwd=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(get_config("flagship", **kw), tr, va, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(get_config("flagship", compute_dtype="bfloat16",
+                           cnn_pallas_bwd=True), tr, va, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(get_config("flagship"), tr, va, use_mesh=True, device="cpu")
-    for flag in (["--data-parallel"], ["--dataset-storage", "compact"],
-                 ["--distributed"], ["--model-parallel", "2"]):
+    for flag in (["--data-parallel"], ["--distributed"],
+                 ["--model-parallel", "2"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             run_main(["--device", "cpu"] + flag)
     with pytest.raises(SystemExit):
