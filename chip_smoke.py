@@ -118,7 +118,25 @@ Phases (any failure raises and the script exits non-zero):
    ``dataset_storage="compact"`` beside ``"float32"``: every batch equal
    bit for bit, the first 4 losses (with cuDNN's deterministic
    algorithms) within the gap between two float32 runs (0: bit for bit),
-   kernels 1-3 launched, and the device bytes of both.
+   kernels 1-3 launched, and the device bytes of both;
+13. the six baselines and the gat10 ablation: ``gcn``, ``graphsage``,
+   ``gat``, ``gat_gcn``, ``gin``, ``chebnet`` and ``model1`` at their
+   published widths and batch sizes on the bundled train and validation
+   CSVs (no fingerprint; 5-dim nodes for ``gcn``), seed 42.  Each: the
+   first 4 losses within rel 1e-4 of a run through the plain versions;
+   ``Trainer.fit`` for one epoch with the counters from 0, in which the
+   adjacency kernel must launch exactly once per train step and eval batch
+   and no other kernel at all; finite metrics; GIN's running statistics
+   moved from 0 and 1 and still f32; the best checkpoint served through
+   ``Predictor`` within 1e-4 pChEMBL of the trainer's own predictions; ms
+   per train step.  Then kernel 1 bit for bit against its plain version on
+   the first ``gcn`` (B=32) and ``gat_gcn`` (B=64) batches, timed at B=32
+   beside its plain version, the library yardstick and its bound; a GIN
+   checkpoint behind ``serve.make_server(port=0, device="cuda")`` answering
+   64 SMILES with ``"C1CC("`` among them, ``null`` exactly there; and the
+   training CLI with ``--preset gcn --limit 256`` on CUDA; a
+   ``torch.profiler`` trace of one GIN epoch (device busy share, device
+   launches a step).
 
 Kernel times come from CUDA events around back-to-back launches queued
 behind a device-side sleep, so the host's launch cost is not in them.
@@ -126,7 +144,9 @@ behind a device-side sleep, so the host's launch cost is not in them.
 The last two lines are one JSON object listing the kernels (launches from
 the ``cnn_pallas_bwd=True`` training epoch, ``bf16_launches`` from phase
 11's bf16 epoch, ``serve_launches`` and ``compact_launches`` from phase
-12's server and compact epoch), then ``{"ok": true, "device": {...}}``.
+12's server and compact epoch, ``baseline_launches`` from phase 13's seven
+epochs; the adjacency row also has its times at gcn's B=32 as ``gcn_*``),
+then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -635,6 +655,35 @@ def check_adjacency(torch, dev, rng, seed, edges64, emask64, edges128,
     log("[2] adjacency repeats bit for bit (frac_n8), a NaN mask gives NaN, "
         "and dense_adjacency at N=300 launches the kernel")
     return adj_err
+
+
+def adjacency_times(torch, timer, ed, em, n):
+    """Kernel 1, its plain version and the library's yardstick (zeros,
+    ``index_add_`` with atomics and ``clamp_max_``: three calls, on the flat
+    index built here, outside the timing) in ms on 0/1 masks, and the
+    kernel's bound (bytes or operations)."""
+    from mgat_graphsage_torch.ops.adjacency import (
+        dense_adjacency_cuda, dense_adjacency_plain)
+
+    bb, _, e = ed.shape
+    ok = ((ed[:, 0] >= 0) & (ed[:, 0] < n) & (ed[:, 1] >= 0)
+          & (ed[:, 1] < n))
+    flat = (torch.arange(bb, device=ed.device).view(bb, 1) * n * n
+            + ed[:, 1].long() * n + ed[:, 0].long())[ok]
+    vals = em[ok]
+
+    def lib_adj():
+        return torch.zeros(bb * n * n, device=ed.device).index_add_(
+            0, flat, vals).clamp_max_(1.0)
+
+    if not bitwise_equal(lib_adj().view(bb, n, n),
+                         dense_adjacency_cuda(ed, em, n)):
+        raise AssertionError("index_add_ yardstick differs from the "
+                             "adjacency kernel on 0/1 masks")
+    return (timer(lambda: dense_adjacency_cuda(ed, em, n)),
+            timer(lambda: dense_adjacency_plain(ed, em, n)),
+            timer(lib_adj),
+            bound(bb * 3 * e * 4 + bb * n * n * 4, bb * e))
 
 
 def first_steps(torch, Trainer, cfg, train, val, steps=4):
@@ -1187,6 +1236,196 @@ def serve_phase(torch, ckpt, predictor, test_smiles, train_smiles, train_y,
     return serve_counts, compact_counts
 
 
+# ---------------------------------------------------------------------------
+# the baselines and the gat10 ablation
+# ---------------------------------------------------------------------------
+
+BASELINES = ("gcn", "graphsage", "gat", "gat_gcn", "gin", "chebnet",
+             "model1")
+
+
+def baselines_phase(torch, train_smiles, train_y, val_smiles, val_y, tmpdir,
+                    card, timer):
+    """Phase 13: the six baselines and ``model1`` (gat10) at their
+    published widths and batch sizes.  Returns the launches of kernels 1-5
+    over the seven epochs, kernel 1's times at gcn's B=32 and the largest
+    |error| of kernel 1 on the recorded batches."""
+    from mgat_graphsage_torch.data import MolecularDataset
+    from mgat_graphsage_torch.eval.predict import Predictor
+    from mgat_graphsage_torch.models import MaskedBatchNorm
+    from mgat_graphsage_torch.ops.adjacency import (
+        dense_adjacency_cuda, dense_adjacency_plain)
+    from mgat_graphsage_torch.serve import make_server
+    from mgat_graphsage_torch.train import Trainer, get_config
+
+    t_phase = time.perf_counter()
+    data = {}
+    for feat in ("35", "5"):
+        tr = MolecularDataset(train_smiles, train_y, fingerprint=None,
+                              featurizer=feat, verbose=False)
+        va = MolecularDataset(val_smiles, val_y, scaler=tr.scaler,
+                              fingerprint=None, featurizer=feat,
+                              max_nodes=tr.max_nodes,
+                              max_edges=tr.max_edges, verbose=False)
+        if tr.nodes.shape[-1] != int(feat) or tr.fp_dim:
+            raise AssertionError(f"featurizer {feat}: nodes "
+                                 f"{tr.nodes.shape}, fingerprint bits "
+                                 f"{tr.fp_dim}")
+        data[feat] = (tr, va)
+    log(f"[13] featurised {len(data['35'][0])} train + "
+        f"{len(data['35'][1])} validation molecules twice (35- and 5-dim "
+        f"nodes, no fingerprint) in {time.perf_counter() - t_phase:.1f} s")
+    total = {w: 0 for w in wrappers()}
+    first, ckpts = {}, {}
+    for name in BASELINES:
+        cfg = get_config(name, epochs=1)
+        tr, va = data[cfg.featurizer]
+        with first_calls() as seen:
+            losses = first_steps(torch, Trainer, cfg, tr, va)
+        first[name] = seen["dense_adjacency_cuda"]
+        with plain_path():
+            plain = first_steps(torch, Trainer, cfg, tr, va)
+        step_err = float(np.max(np.abs(losses - plain) / np.abs(plain)))
+        if not np.isfinite(losses).all() or step_err > 1e-4:
+            raise AssertionError(f"{name}: first 4 losses {losses} vs plain "
+                                 f"path {plain}")
+        ckdir = os.path.join(tmpdir, f"baseline_{name}")
+        trainer = Trainer(cfg, tr, va, ckpt_dir=ckdir)
+        reset_counts()
+        t0 = time.perf_counter()
+        _, best, hist = trainer.fit(verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts()
+        steps = -(-len(tr) // cfg.batch_size)
+        evals = -(-len(va) // cfg.eval_batch_size)
+        if counts["dense_adjacency_cuda"] != steps + evals or any(
+                v for k, v in counts.items() if k != "dense_adjacency_cuda"):
+            raise AssertionError(f"{name}: one epoch of {steps} steps and "
+                                 f"{evals} eval batches launched {counts}")
+        for k, v in counts.items():
+            total[k] += v
+        row = hist[-1]
+        if not all(np.isfinite(row[k]) for k in ("train_loss", "val_mse",
+                                                  "original_mse")):
+            raise AssertionError(f"{name}: non-finite metrics {row}")
+        bns = [m for m in best.model.modules()
+               if isinstance(m, MaskedBatchNorm)]
+        for m in bns:
+            if m.mean.dtype != torch.float32 or m.var.dtype != torch.float32 \
+                    or not (m.mean != 0).any() or not (m.var != 1).any():
+                raise AssertionError(f"{name}: running statistics "
+                                     f"{m.mean.dtype} {m.var.dtype} did not "
+                                     "move from 0 and 1")
+        ckpts[name] = os.path.join(ckdir, "best_model.pt")
+        served = Predictor(ckpts[name])(val_smiles)
+        ev = trainer.evaluate(best)
+        serve_err = float(np.abs(served[va.kept_indices]
+                                 - ev["pred_denorm"]).max())
+        if not np.isfinite(served).all() or serve_err > 1e-4:
+            raise AssertionError(f"{name}: best checkpoint serves "
+                                 f"{serve_err} pChEMBL from the trainer")
+        step_ms = time_steps(torch, trainer, trainer.init_state(), tr)
+        log(f"[13] {name} (B={cfg.batch_size}, "
+            f"{sum(p.numel() for p in best.model.parameters())} parameters"
+            f"{f', {len(bns)} batch norms' if bns else ''}): first 4 losses "
+            f"{np.round(losses, 6)} vs plain path rel err {step_err:.2e} "
+            f"(limit 1e-4); one epoch {fit_s:.2f} s (train "
+            f"{row['epoch_time_s']:.2f} s), loss {row['train_loss']:.4f}, "
+            f"val MSE {row['val_mse']:.4f}; adjacency launches "
+            f"{counts['dense_adjacency_cuda']} = {steps} steps + {evals} "
+            f"eval batches, no other kernel; served max |err| "
+            f"{serve_err:.2e} pChEMBL; train step {step_ms:.3f} ms "
+            f"({cfg.batch_size / step_ms * 1e3:.1f} mol/s), on {card}")
+
+    # kernel 1 bit for bit on the first gcn and gat_gcn batches
+    adj_err = 0.0
+    for name, b in (("gcn", 32), ("gat_gcn", 64)):
+        ed, em, n = first[name]
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        want = dense_adjacency_plain(ed.cpu(), em.cpu(), n)
+        torch.set_num_threads(threads)
+        got = dense_adjacency_cuda(ed, em, n).cpu()
+        adj_err = max(adj_err, (got - want).abs().max().item())
+        if ed.shape[0] != b or not bitwise_equal(got, want):
+            raise AssertionError(f"{name}: adjacency kernel on the first "
+                                 f"batch {tuple(ed.shape)} differs from its "
+                                 "plain version")
+        log(f"[13] adjacency on the first {name} batch {tuple(got.shape)} "
+            f"bit for bit equal to the plain version on the CPU")
+    adj32 = adjacency_times(torch, timer, *first["gcn"])
+    log(f"[13] adjacency at gcn's B=32: kernel {adj32[0] * 1e3:.2f} us, "
+        f"plain {adj32[1] * 1e3:.2f} us, library {adj32[2] * 1e3:.2f} us, "
+        f"bound {adj32[3][0] * 1e3:.2f} us ({adj32[3][1]}), on {card}")
+
+    # a GIN checkpoint behind the HTTP server
+    req = list(val_smiles[:64])
+    req[17] = BAD
+    server = make_server(ckpts["gin"], port=0, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, body = http(
+            f"http://127.0.0.1:{server.server_address[1]}/predict",
+            {"smiles": req})
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.backend.close()
+        thread.join(timeout=60)
+    nulls = [i for i, p in enumerate(body.get("predictions", []))
+             if p is None]
+    if status != 200 or nulls != [17]:
+        raise AssertionError(f"gin served over HTTP: {status}, nulls at "
+                             f"{nulls}")
+    got = np.array([np.nan if p is None else p for p in body["predictions"]])
+    direct = Predictor(ckpts["gin"])(req)
+    http_err = float(np.nanmax(np.abs(got - direct)))
+    if http_err > 1e-4:
+        raise AssertionError(f"gin over HTTP: max |err| {http_err}")
+    log(f"[13] gin checkpoint over HTTP: 64 SMILES, null exactly at "
+        f"{BAD!r}, max |err| {http_err:.2e} against Predictor")
+
+    cli = subprocess.run(
+        [sys.executable, "-m", "mgat_graphsage_torch.train.run", "--preset",
+         "gcn", "--limit", "256", "--ckpt-dir",
+         os.path.join(tmpdir, "cli_gcn")], cwd=REPO, capture_output=True,
+        text=True, timeout=600)
+    if cli.returncode != 0 or "Training completed" not in cli.stdout:
+        raise AssertionError(f"the training CLI failed on gcn:\n"
+                             f"{cli.stdout}\n{cli.stderr}")
+    log("[13] python -m mgat_graphsage_torch.train.run --preset gcn "
+        "--limit 256 on CUDA: " + cli.stdout.strip().splitlines()[-2])
+    # where a baseline step's time goes: one GIN epoch (the slowest step)
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config("gin", epochs=1)
+    trainer = Trainer(cfg, *data["35"])
+    state = trainer.init_state()
+    trainer.train_epoch(state, 0)                  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_epoch(state, 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = device_events(torch, prof)
+    busy_us = sum(ev.self_device_time_total for ev in kern)
+    launches = sum(ev.count for ev in kern)
+    steps = -(-len(data["35"][0]) // cfg.batch_size)
+    log(f"[13] profile of one gin epoch ({steps} steps): wall {wall_us:.0f} "
+        f"us, device busy {busy_us:.0f} us ({100 * busy_us / wall_us:.2f}%), "
+        f"{launches / steps:.1f} device kernels and copies a step; top:")
+    for ev in sorted(kern, key=lambda ev: -ev.self_device_time_total)[:6]:
+        log(f"  {ev.self_device_time_total:9.1f} us  x{ev.count:<5d} "
+            f"{ev.key[:90]}")
+    log(f"[13] launches over the seven epochs: {total}")
+    log(f"[13] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return total, adj32, adj_err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1442,29 +1681,8 @@ def main(argv=None) -> int:
     # ---- 5. timings --------------------------------------------------------
     timer = DeviceTimer(torch)
     b, n, f = serve_q.shape
-    adj_t = {}        # batch -> kernel, plain, library ms and the bound
-    for ed, em in ((edges64, emask64), (edges128, emask128)):
-        bb, _, e = ed.shape
-        # the library's yardstick: zeros, index_add_ (atomics) and clamp_,
-        # three calls, on the flat index built here, outside the timing
-        ok = ((ed[:, 0] >= 0) & (ed[:, 0] < n) & (ed[:, 1] >= 0)
-              & (ed[:, 1] < n))
-        flat = (torch.arange(bb, device=dev).view(bb, 1) * n * n
-                + ed[:, 1].long() * n + ed[:, 0].long())[ok]
-        vals = em[ok]
-
-        def lib_adj():
-            return torch.zeros(bb * n * n, device=dev).index_add_(
-                0, flat, vals).clamp_max_(1.0)
-
-        if not bitwise_equal(lib_adj().view(bb, n, n),
-                             dense_adjacency_cuda(ed, em, n)):
-            raise AssertionError("index_add_ yardstick differs from the "
-                                 "adjacency kernel on 0/1 masks")
-        adj_t[bb] = (timer(lambda: dense_adjacency_cuda(ed, em, n)),
-                     timer(lambda: dense_adjacency_plain(ed, em, n)),
-                     timer(lib_adj),
-                     bound(bb * 3 * e * 4 + bb * n * n * 4, bb * e))
+    adj_t = {ed.shape[0]: adjacency_times(torch, timer, ed, em, n)
+             for ed, em in ((edges64, emask64), (edges128, emask128))}
     with torch.inference_mode():
         attn_ms = timer(lambda: fused_masked_attention_cuda(
             serve_q, serve_k, serve_v, nm64, True))
@@ -1778,6 +1996,11 @@ def main(argv=None) -> int:
         torch, ckpt, predictor, test_smiles, train_smiles, train_y,
         test_feats, plain_preds, train_ds, val_ds, card,
         (native_cmd, native_build[0]))
+
+    # ---- 13. the baselines and the gat10 ablation --------------------------
+    base_counts, adj32, base_adj_err = baselines_phase(
+        torch, train_smiles, train_y, val_smiles, val_y, tmp.name, card,
+        timer)
     tmp.cleanup()
 
     train_counts = runs[True]["counts"]
@@ -1787,7 +2010,7 @@ def main(argv=None) -> int:
          "replaces": "mgat_graphsage_tpu/ops/pallas_adjacency.py:56",
          "launches": train_counts["dense_adjacency_cuda"],
          "bf16_launches": bf16_counts["dense_adjacency_cuda"],
-         "max_abs_err": adj_err,
+         "max_abs_err": max(adj_err, base_adj_err),
          "ms": adj_t[64][0], "plain_ms": adj_t[64][1],
          "bound_ms": adj_t[64][3][0], "bound_by": adj_t[64][3][1],
          "bound_share": adj_t[64][3][0] / adj_t[64][0],
@@ -1797,6 +2020,10 @@ def main(argv=None) -> int:
          "train_bound_by": adj_t[128][3][1],
          "train_bound_share": adj_t[128][3][0] / adj_t[128][0],
          "train_library_ms": adj_t[128][2],
+         "gcn_ms": adj32[0], "gcn_plain_ms": adj32[1],
+         "gcn_bound_ms": adj32[3][0], "gcn_bound_by": adj32[3][1],
+         "gcn_bound_share": adj32[3][0] / adj32[0],
+         "gcn_library_ms": adj32[2],
          "launches_per_step": train_counts["dense_adjacency_cuda"]
          / runs[True]["steps"]},
         {"name": "fused_masked_attention", "route": "cuda",
@@ -1843,6 +2070,7 @@ def main(argv=None) -> int:
     for row, (_, w, _) in zip(kernels, ROUTES):
         row["serve_launches"] = serve_counts[w]
         row["compact_launches"] = compact_counts[w]
+        row["baseline_launches"] = base_counts[w]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,11 +8,16 @@ the reference package.  The dataset goes to the device once; batches
 of ``batch_size`` run in a Python loop under ``torch.inference_mode()``,
 each through the adjacency kernel, the graph branch (with the attention
 kernel), the CNN branch and the head.  Results come back in one copy.
+Every model of ``models/zoo.py`` serves this way: a baseline or a
+``gat_graphsage`` checkpoint has no fingerprint branch, so none is
+computed, and GIN's batch norms serve with their running statistics (the
+model is in eval mode).
 
 ``infer_dtype="bfloat16"`` serves in bf16 (reference ``make_scan_predict``):
-the parameters are cast to bf16 once (``Predictor``) and the inputs per
-batch, the products accumulate in f32, the attention and the adjacency run
-in f32 as in training, and the prediction is cast back to f32 before the
+the parameters are cast to bf16 once (``Predictor``; the batch norms'
+running statistics stay f32) and the inputs per batch, the products
+accumulate in f32, the attention and the adjacency run in f32 as in
+training, and the prediction is cast back to f32 before the
 de-normalisation.  A checkpoint with a bf16 master serves at f32 with its
 parameters upcast.
 

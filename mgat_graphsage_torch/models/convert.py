@@ -4,12 +4,17 @@ port's ``state_dict``.
 The flax tree of ``HybridModel`` is ``gat_graphsage/{conv1/{query,key,
 value,linear}_transform, conv1/{conv3,conv5}, conv2/{lin_l,lin_r}, fc_g1,
 fc_g2, out}``, ``cnn/{conv1..3, fc1, fc2}`` and ``combined/{fc1, fc2}``;
-the port's modules carry the same names, so a path maps to a key by
-joining it with dots.  Leaves:
+the baselines' are their layers' names (``conv1/lin``, ``gcn1/att_src``,
+``bn1/scale``, ...).  The port's modules carry the same names, so a path
+maps to a key by joining it with dots.  Leaves:
 
 - ``kernel [in, out]`` (dense) -> ``weight = kernel.T``;
 - ``kernel [K, I, O]`` (conv)  -> ``weight = kernel.transpose(2, 1, 0)``;
-- ``weight [out, in, k]`` (center-tap conv) and ``bias`` -> as they are.
+- ``weight [out, in, k]`` (center-tap conv), ``bias``, GAT's ``att_src``
+  and ``att_dst [1, H, C]`` and batch norm's ``scale`` -> as they are.
+
+The ``batch_stats`` collection (``MaskedBatchNorm``'s running ``mean`` and
+``var``) maps to the modules' buffers of the same names, f32 both sides.
 
 The CNN fc1 rows are pos-major on both sides (``models/layers.py::
 CNNNet``), so no permutation is needed.  The tree holds numpy arrays (the
@@ -37,8 +42,11 @@ from torch import nn
 
 from .layers import CenterTapConv1d
 
-__all__ = ["params_from_jax", "params_to_jax", "adam_state_from_jax",
-           "adam_state_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "batch_stats_to_jax",
+           "adam_state_from_jax", "adam_state_to_jax"]
+
+# leaves that cross as they are (no transpose)
+_AS_IS = ("weight", "bias", "att_src", "att_dst", "scale")
 
 
 def _flatten(tree, prefix=()):
@@ -71,9 +79,14 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
         return t.float().numpy()
 
 
-def params_from_jax(tree) -> Dict[str, torch.Tensor]:
-    """flax parameter tree of numpy arrays -> port ``state_dict``."""
+def params_from_jax(tree, batch_stats=None) -> Dict[str, torch.Tensor]:
+    """flax parameter tree of numpy arrays (and its ``batch_stats`` tree,
+    where the model has batch norms) -> port ``state_dict``."""
     sd = {}
+    for path, a in _flatten(batch_stats or {}):
+        if path[-1] not in ("mean", "var"):
+            raise ValueError(f"unknown batch_stats leaf {'/'.join(path)}")
+        sd[".".join(path)] = _from_numpy(np.asarray(a))
     for path, a in _flatten(tree):
         a = np.asarray(a)
         leaf = path[-1]
@@ -85,7 +98,7 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"unexpected kernel rank at {path}")
             leaf = "weight"
-        elif leaf not in ("weight", "bias"):
+        elif leaf not in _AS_IS:
             raise ValueError(f"unknown parameter leaf {'/'.join(path)}")
         key = ".".join(path[:-1] + (leaf,))
         sd[key] = _from_numpy(a)
@@ -121,6 +134,19 @@ def params_to_jax(model: nn.Module) -> Dict:
     """Port module -> flax parameter tree of numpy arrays (the inverse of
     :func:`params_from_jax`)."""
     return _tree(model, lambda p: p)
+
+
+def batch_stats_to_jax(model: nn.Module) -> Dict:
+    """Port module -> flax ``batch_stats`` tree of numpy arrays (the
+    buffers; empty for a model with no batch norm)."""
+    tree: Dict = {}
+    for name, b in model.named_buffers():
+        *mods, leaf = name.split(".")
+        node = tree
+        for part in mods:
+            node = node.setdefault(part, {})
+        node[leaf] = _to_numpy(b)
+    return tree
 
 
 def _field(state, name):

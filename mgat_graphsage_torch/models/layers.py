@@ -1,4 +1,4 @@
-"""Layers of the flagship hybrid (port of
+"""Layers of the flagship hybrid and of the baselines (port of
 ``mgat_graphsage_tpu/models/layers.py``).
 
 Every layer works on the padded-dense batch layout: node features
@@ -6,8 +6,10 @@ Every layer works on the padded-dense batch layout: node features
 [B, N]``.  Weights follow PyTorch's layout (``Linear.weight [out, in]``,
 ``Conv1d.weight [out, in, k]``); ``models/convert.py`` carries the
 reference package's flax trees over.  Initialisation is PyTorch's default,
-U(+-1/sqrt(fan_in)), drawn from an explicit ``torch.Generator``; so are
-the dropout masks in training (``generator=`` of each ``forward``).
+U(+-1/sqrt(fan_in)), or PyG's Glorot-uniform for the baselines' layers,
+drawn from an explicit ``torch.Generator``; so are the dropout masks in
+training (``generator=`` of each ``forward``).  The baselines' dense
+products are plain PyTorch, as they are plain ``einsum`` in the reference.
 """
 
 from __future__ import annotations
@@ -20,7 +22,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import attention_plain, cnn_tail, fused_masked_attention
+from ..ops import (
+    add_self_loops,
+    attention_plain,
+    cnn_tail,
+    fused_masked_attention,
+    gcn_norm_adjacency,
+    masked_softmax,
+)
 from ..ops.attention import kernels_support
 
 __all__ = [
@@ -29,6 +38,13 @@ __all__ = [
     "CenterTapConv1d",
     "ModifiedGATLayer",
     "SAGEConv",
+    "GlorotLinear",
+    "GCNConv",
+    "GATConv",
+    "GINConv",
+    "ChebConvRef",
+    "MaskedBatchNorm",
+    "frozen_running_stats",
     "CNNNet",
     "CombinedNet",
     "Dropout",
@@ -65,6 +81,12 @@ def _uniform_(t: torch.Tensor, bound: float,
               generator: Optional[torch.Generator]) -> None:
     with torch.no_grad():
         t.uniform_(-bound, bound, generator=generator)
+
+
+def _glorot_(t: torch.Tensor, fan_in: int, fan_out: int,
+             generator: Optional[torch.Generator]) -> None:
+    """Glorot-uniform, U(+-sqrt(6 / (fan_in + fan_out)))."""
+    _uniform_(t, math.sqrt(6.0 / (fan_in + fan_out)), generator)
 
 
 class Dropout(nn.Module):
@@ -235,6 +257,205 @@ class SAGEConv(nn.Module):
         return self.lin_l(agg) + self.lin_r(x)
 
 
+class GlorotLinear(nn.Module):
+    """Bias-free dense layer with PyG's Glorot-uniform weight ``[out, in]``
+    (the ``lin`` of :class:`GCNConv` and :class:`GATConv`, which add their
+    own bias after the aggregation)."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        out_f, in_f = self.weight.shape
+        _glorot_(self.weight, in_f, out_f, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight)
+
+
+class GCNConv(nn.Module):
+    """Kipf-Welling GCN conv, PyG semantics (reference ``gnn/gcn.py:46-48``):
+    ``D^-1/2 (A + I) D^-1/2 (x W)`` with a Glorot ``lin`` (no bias) and a
+    zero-initialised ``bias`` added after the aggregation, as PyG adds it
+    (the two places differ once the bias trains away from zero)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.lin = GlorotLinear(in_features, features)
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor,
+                node_mask: torch.Tensor) -> torch.Tensor:
+        norm_adj = gcn_norm_adjacency(adj, node_mask)
+        return torch.matmul(norm_adj, self.lin(x)) + self.bias
+
+
+class GATConv(nn.Module):
+    """Multi-head graph attention, PyG semantics (reference ``gnn/gat.py:
+    54-55``, ``ablation/model1.py:57``)::
+
+        e_ij = LeakyReLU_0.2(a_dst . (W x_i) + a_src . (W x_j))
+        alpha_ij = softmax over j in N(i) + {i} of e_ij   (self-loops added)
+        out_i = concat over heads of sum_j alpha_ij W x_j, + bias
+
+    ``att_src`` and ``att_dst`` are ``[1, H, C]``; the attention
+    coefficients ``[B, H, N, N]`` take dropout in training, from the
+    ``generator`` of ``forward``."""
+
+    def __init__(self, in_features: int, features: int, heads: int = 1,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.heads, self.features = heads, features
+        self.lin = GlorotLinear(in_features, heads * features)
+        self.att_src = nn.Parameter(torch.empty(1, heads, features))
+        self.att_dst = nn.Parameter(torch.empty(1, heads, features))
+        self.bias = nn.Parameter(torch.zeros(heads * features))
+        self.attn_dropout = Dropout(dropout)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        # flax's glorot over [1, H, C]: fan_in H, fan_out C
+        for att in (self.att_src, self.att_dst):
+            _glorot_(att, self.heads, self.features, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor,
+                node_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        wx = self.lin(x).unflatten(-1, (self.heads, self.features))
+        a_src = (wx * self.att_src).sum(-1).transpose(-1, -2)  # [B, H, N]
+        a_dst = (wx * self.att_dst).sum(-1).transpose(-1, -2)
+        # logits[b, h, i, j] = dst_i + src_j
+        logits = F.leaky_relu(a_dst.unsqueeze(-1) + a_src.unsqueeze(-2), 0.2)
+        attn = masked_softmax(logits,
+                              add_self_loops(adj, node_mask).unsqueeze(-3))
+        attn = self.attn_dropout(attn, generator).to(wx.dtype)
+        out = torch.matmul(attn, wx.transpose(-2, -3)).transpose(-2, -3)
+        return out.flatten(-2) + self.bias
+
+
+class GINConv(nn.Module):
+    """Graph isomorphism conv, PyG semantics (reference ``gnn/gin.py:64``):
+    ``mlp_1(relu(mlp_0((1 + eps) x + sum_{j in N(i)} x_j)))`` with eps = 0,
+    the MLP ``in -> dim -> dim``."""
+
+    def __init__(self, in_features: int, dim: int):
+        super().__init__()
+        self.mlp_0 = TorchLinear(in_features, dim)
+        self.mlp_1 = TorchLinear(dim, dim)
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor,
+                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = x + torch.matmul(adj, x)
+        return self.mlp_1(F.relu(self.mlp_0(h)))
+
+
+class ChebConvRef(nn.Module):
+    """The reference's hand-rolled "Chebyshev" conv (``gnn/chebnet.py:
+    50-73``), its nonstandard pseudo-Laplacian kept as it is::
+
+        L = -(A + D);  T_0 = I, T_1 = L, T_2 = 2 L T_1 - T_0
+        out = lin((T_0 + T_1 + T_2) x)                     (K = 3)
+
+    Per molecule on the padded batch: edges never cross molecules, so the
+    reference's batch-wide L is block-diagonal and gives the same
+    numbers."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.lin = TorchLinear(in_features, features)
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor,
+                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        lap = -adj - torch.diag_embed(adj.sum(-1))
+        t1 = torch.matmul(lap, x)
+        out = (x + t1) + (2.0 * torch.matmul(lap, t1) - x)
+        return self.lin(out.to(x.dtype))
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm1d over the node axis with padding-aware statistics
+    (reference ``gnn/gin.py:65-80`` normalises the batch's real nodes).
+
+    In training the statistics are taken in f32 (f64 for f64 input) over
+    the nodes where ``node_mask`` is set (the biased variance), and the
+    running ``mean``
+    and ``var`` follow torch's convention: ``new = 0.9 old + 0.1 batch``,
+    with the unbiased variance; in eval the running ones are used.  The
+    running buffers stay f32 whatever dtype the module is cast to, as the
+    reference keeps ``batch_stats`` f32 and casts only ``params``.
+    ``update_running`` off (:func:`frozen_running_stats`) leaves them be."""
+
+    momentum = 0.1
+    eps = 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.update_running = True
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+        with torch.no_grad():
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def _apply(self, fn, recurse=True):
+        kept = {n: b for n, b in self._buffers.items()
+                if b is not None and b.dtype == torch.float32}
+        super()._apply(fn, recurse)
+        for n, b in kept.items():
+            new = self._buffers[n]
+            if new.dtype != torch.float32:
+                self._buffers[n] = b.to(new.device)
+        return self
+
+    def forward(self, x: torch.Tensor,
+                node_mask: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            mean, var = self.mean, self.var
+        else:
+            acc = torch.promote_types(x.dtype, torch.float32)
+            xf = x.to(acc)
+            w = node_mask.to(acc).unsqueeze(-1)
+            dims = tuple(range(x.dim() - 1))
+            cnt = torch.clamp_min(w.sum(), 1.0)
+            mean = (xf * w).sum(dims) / cnt
+            var = (((xf - mean) ** 2) * w).sum(dims) / cnt
+            if self.update_running:
+                with torch.no_grad():
+                    m = self.momentum
+                    unbiased = var * cnt / torch.clamp_min(cnt - 1.0, 1.0)
+                    self.mean.copy_((1 - m) * self.mean + m * mean)
+                    self.var.copy_((1 - m) * self.var + m * unbiased)
+        return (x - mean.to(x.dtype)) \
+            * torch.rsqrt(var + self.eps).to(x.dtype) * self.scale + self.bias
+
+
+@contextlib.contextmanager
+def frozen_running_stats(model: nn.Module):
+    """Hold every :class:`MaskedBatchNorm`'s running statistics still
+    (a forward recomputed for its backward must not update them twice)."""
+    bns = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
+    prev = [m.update_running for m in bns]
+    for m in bns:
+        m.update_running = False
+    try:
+        yield
+    finally:
+        for m, p in zip(bns, prev):
+            m.update_running = p
+
+
 @contextlib.contextmanager
 def ieee_f32():
     """Turn TF32 off for cuDNN convolutions and cuBLAS products, and
@@ -354,11 +575,17 @@ class CombinedNet(nn.Module):
         return self.fc2(self.dropout(F.relu(self.fc1(x)), generator))
 
 
+_OWN_PARAMETERS = (TorchLinear, TorchConv1d, CenterTapConv1d, GlorotLinear,
+                   GCNConv, GATConv, MaskedBatchNorm)
+
+
 def reset_parameters(model: nn.Module,
                      generator: Optional[torch.Generator] = None) -> nn.Module:
     """Re-draw every parameter of ``model`` from ``generator``, in module
-    order (the seed fixes the weights)."""
+    order (the seed fixes the weights), and reset the batch norms' running
+    statistics.  Each layer's ``reset_parameters`` sets the parameters it
+    holds itself, not those of its submodules."""
     for m in model.modules():
-        if isinstance(m, (TorchLinear, TorchConv1d, CenterTapConv1d)):
+        if isinstance(m, _OWN_PARAMETERS):
             m.reset_parameters(generator)
     return model

@@ -10,9 +10,12 @@ PyTorch and CUDA).
 trains on the bundled train and validation CSVs (or ``--train-csv``,
 ``--val-csv``) and writes ``<ckpt-dir>/<preset>/best_model.pt`` with its
 JSON sidecar, which ``eval/predict.py`` serves.  It runs on CUDA unless
-given ``--device cpu``, and raises without CUDA.  Only the presets the port
-can build are offered, the bf16 ones (``flagship_bf16_bs1024_wc``, the
-production preset, among them) included.  ``--mixed-precision`` (bf16
+given ``--device cpu``, and raises without CUDA.  Every preset whose
+fingerprint the port computes is offered: the flagship, the bf16 ones
+(``flagship_bf16_bs1024_wc``, the production preset, among them), the
+ablation ladder ``model1``-``model6`` and the six baselines (``gcn``,
+``graphsage``, ``gat``, ``gat_gcn``, ``gin``, ``chebnet``); ``maccs``,
+``smifp`` and ``bci`` are not.  ``--mixed-precision`` (bf16
 compute), ``--fast-optimizer`` (bf16 Adam moments), ``--remat`` and
 ``--dataset-storage`` set their config fields as the reference's flags
 do; the reference's flags for meshes are accepted and raise "not ported
@@ -38,9 +41,9 @@ _NOT_PORTED_FLAGS = {
 
 
 def _ported(cfg) -> bool:
-    return (cfg.model in ("hybrid", "gat_graphsage")
-            and cfg.attention == "modified"
-            and (cfg.fingerprint is None or cfg.fingerprint in FINGERPRINTS))
+    """Every model is ported; the MACCS, SMIFP and BCI fingerprints are not
+    yet (ROADMAP Queue 1 item 8)."""
+    return cfg.fingerprint is None or cfg.fingerprint in FINGERPRINTS
 
 
 PORTED_PRESETS = sorted(n for n, c in PRESETS.items() if _ported(c))

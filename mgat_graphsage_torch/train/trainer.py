@@ -8,7 +8,13 @@ one XLA program).
 
 - loss = masked MSE + ``kl_lambda`` * KL over the hybrid's latent
   (reference ``train.py:244-246``); ``node_mask`` is multiplied by the
-  batch's ``sample_mask``, so the rows padding the final batch are inert;
+  batch's ``sample_mask``, so the rows padding the final batch are inert,
+  in the batch norms' statistics too;
+- every model of ``models/zoo.py`` trains here: the hybrid, the
+  ``gat_graphsage`` ablations and the six baselines.  GIN's batch norms
+  update their running statistics in the train step (the reference's
+  ``batch_stats``) and :meth:`Trainer.evaluate` uses them; they are
+  buffers, so checkpoints and the best state carry them;
 - torch Adam with L2 coupled into the gradient (``train/optim.py``), the
   constant or warmup+cosine lr on the 1-based step count;
 - ``dataset_storage="compact"`` keeps the dataset on the device packed
@@ -42,10 +48,11 @@ recomputes the forward in the backward (``torch.utils.checkpoint``), with
 the same dropout masks.
 
 On CUDA each step runs the adjacency kernel, the attention kernels
-(forward and backward) and, with ``cnn_pallas_bwd``, the CNN backward
-kernels (f32 compute only).  The attention and the adjacency run in f32
-inside the bf16 step too, as in the reference.  Entry points run on CUDA
-unless given ``device="cpu"``.
+(forward and backward; the modified attention only) and, with
+``cnn_pallas_bwd``, the CNN backward kernels (f32 compute only).  The
+baselines' layers are plain PyTorch after the adjacency kernel.  The
+attention and the adjacency run in f32 inside the bf16 step too, as in
+the reference.  Entry points run on CUDA unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -67,7 +74,7 @@ from ..data import MolecularDataset
 from ..data.packed import gather_batch, pack_dataset, to_device
 from ..device import resolve_device
 from ..models import build_model, kl_loss, reset_parameters
-from ..models.layers import matmul_precision
+from ..models.layers import frozen_running_stats, matmul_precision
 from ..ops import dense_adjacency
 from .checkpoint import load_checkpoint, save_checkpoint
 from .config import TrainConfig
@@ -273,15 +280,20 @@ class Trainer:
         """The forward under ``torch.utils.checkpoint``: its activations are
         recomputed in the backward.  The recompute restores the dropout
         generator to its state before the forward, so it draws the same
-        masks and leaves the generator where the forward left it."""
+        masks and leaves the generator where the forward left it, and it
+        holds the batch norms' running statistics still, so they update
+        once a step."""
         start = None if generator is None else generator.get_state()
         runs = []
 
         def run():
-            if runs and generator is not None:
+            if not runs:
+                runs.append(1)
+                return self._forward(model, batch, generator, params_c)
+            if generator is not None:
                 generator.set_state(start)
-            runs.append(1)
-            return self._forward(model, batch, generator, params_c)
+            with frozen_running_stats(model):
+                return self._forward(model, batch, generator, params_c)
 
         return checkpoint(run, use_reentrant=False)
 

@@ -134,5 +134,18 @@ def test_fc1_permutation_helpers_match_reference():
 
 
 def test_gat10_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        HybridModel(fp_dim=64, attention="gat10")
+    """``attention="gat10"`` (a 10-head GATConv, the model1 ablation's
+    graph layer) builds, and the hybrid around it matches the flax model
+    forward, latent included."""
+    jm, params, tm = _pair(attention="gat10")
+    assert tm.gat_graphsage.conv1.att_src.shape == (1, 10, 35)
+    for seed in (1, 2):
+        nodes, edges, nm, em, fp = _batch(seed=seed)
+        adj = jdense(jnp.asarray(edges), jnp.asarray(em), nodes.shape[1])
+        jpred, jlat = jm.apply({"params": params}, nodes, adj, nm, fp)
+        with torch.no_grad():
+            tpred, tlat = tm(torch.from_numpy(nodes),
+                             torch.from_numpy(np.array(adj)),
+                             torch.from_numpy(nm), torch.from_numpy(fp))
+        np.testing.assert_allclose(tpred.numpy(), np.asarray(jpred), **TOL)
+        np.testing.assert_allclose(tlat.numpy(), np.asarray(jlat), **TOL)

@@ -364,7 +364,7 @@ def test_not_ported_configs_and_flags_raise(data, monkeypatch):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             run_main(["--device", "cpu"] + flag)
     with pytest.raises(SystemExit):
-        run_main(["--preset", "gcn", "--device", "cpu"])
+        run_main(["--preset", "maccs", "--device", "cpu"])
     # no CUDA and no device given: the entry points raise, no CPU fallback
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
