@@ -136,7 +136,33 @@ Phases (any failure raises and the script exits non-zero):
    64 SMILES with ``"C1CC("`` among them, ``null`` exactly there; and the
    training CLI with ``--preset gcn --limit 256`` on CUDA; a
    ``torch.profiler`` trace of one GIN epoch (device busy share, device
-   launches a step).
+   launches a step);
+14. the fingerprint suite: ``maccs`` (167 bits), ``smifp`` and ``bci``
+   (1024 each) at full width, seed 42, on the bundled train and
+   validation CSVs; ``bci`` on the first 1024 + 256 molecules only, as
+   its host featurisation (Python, descriptors) runs at a few tens of
+   molecules a second.  Each: host featurisation in mol/s; the first 4
+   losses within rel 1e-4 of a run through the plain versions;
+   ``Trainer.fit`` for one epoch with the counters from 0, in which
+   kernels 1-3 must launch and kernels 4-5 must not; finite metrics; the
+   best checkpoint served through ``Predictor`` within 1e-4 pChEMBL of
+   the trainer's own predictions; ms per train step;
+15. interpretability: ``explain.hybrid_analysis_strategy`` on the phase-8
+   flagship checkpoint (``cnn_pallas_bwd`` off) over the 961 test
+   molecules, 200 in detail, ``make_figures=False``, on CUDA, with the
+   counters from 0: the launches of kernels 1-3 must equal the counts
+   derived from the batches (Stage 1: one adjacency, one forward and one
+   backward a batch of 512; Stage 3: per batch of 64, one adjacency and
+   one forward for the target and a forward and a backward for each of
+   100 mask steps), kernels 4-5 none; ``analysis_results.json`` with 200
+   entries, GNNExplainer's importances (no fallback).  Stage 1's
+   predictions within 1e-4 pChEMBL of the same stage through the plain
+   versions on the card; on every molecule, Stage 1's importances within
+   1e-4, Stage 3's per-atom mask norms within 1e-5 and its importances
+   within 1e-3 of the plain path (same selection, same generator seed);
+   Stage 3 repeats bit for bit.  Stage 1 in
+   mol/s, Stage 3 in s, and the host share of the call (device busy time
+   of Stages 1 and 3 from a ``torch.profiler`` repeat).
 
 Kernel times come from CUDA events around back-to-back launches queued
 behind a device-side sleep, so the host's launch cost is not in them.
@@ -145,8 +171,10 @@ The last two lines are one JSON object listing the kernels (launches from
 the ``cnn_pallas_bwd=True`` training epoch, ``bf16_launches`` from phase
 11's bf16 epoch, ``serve_launches`` and ``compact_launches`` from phase
 12's server and compact epoch, ``baseline_launches`` from phase 13's seven
-epochs; the adjacency row also has its times at gcn's B=32 as ``gcn_*``),
-then ``{"ok": true, "device": {...}}``.
+epochs, ``fingerprint_launches`` from phase 14's three epochs and
+``explain_launches`` from phase 15's pipeline call; the adjacency row also
+has its times at gcn's B=32 as ``gcn_*``), then ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -155,7 +183,6 @@ import argparse
 import contextlib
 import dataclasses
 import json
-import math
 import os
 import shutil
 import subprocess
@@ -1426,6 +1453,208 @@ def baselines_phase(torch, train_smiles, train_y, val_smiles, val_y, tmpdir,
     return total, adj32, adj_err
 
 
+# ---------------------------------------------------------------------------
+# the fingerprint suite and interpretability
+# ---------------------------------------------------------------------------
+
+# preset -> (train, validation) molecules of phase 14: BCI's host
+# featurisation runs at a few tens of molecules a second, so it takes the
+# first 1024 + 256 only
+FINGERPRINT_PRESETS = {"maccs": (None, None), "smifp": (None, None),
+                       "bci": (1024, 256)}
+KERNELS_1_3 = ("dense_adjacency_cuda", "fused_masked_attention_cuda",
+               "attention_bwd_cuda")
+
+
+def fingerprint_phase(torch, train_smiles, train_y, val_smiles, val_y,
+                      tmpdir, card):
+    """Phase 14: the ``maccs``, ``smifp`` and ``bci`` presets at full
+    width.  Returns the launches of kernels 1-5 over the three epochs."""
+    from mgat_graphsage_torch.data import MolecularDataset
+    from mgat_graphsage_torch.eval.predict import Predictor
+    from mgat_graphsage_torch.train import Trainer, get_config
+
+    t_phase = time.perf_counter()
+    total = {w: 0 for w in wrappers()}
+    for name, (n_tr, n_va) in FINGERPRINT_PRESETS.items():
+        cfg = get_config(name, epochs=1)
+        sm, y = train_smiles[:n_tr], train_y[:n_tr]
+        vs, vy = val_smiles[:n_va], val_y[:n_va]
+        t0 = time.perf_counter()
+        tr = MolecularDataset(sm, y, fit_scaler=True,
+                              fingerprint=cfg.fingerprint, verbose=False)
+        va = MolecularDataset(vs, vy, scaler=tr.scaler,
+                              fingerprint=cfg.fingerprint,
+                              max_nodes=tr.max_nodes,
+                              max_edges=tr.max_edges, verbose=False)
+        feat_s = time.perf_counter() - t0
+        losses = first_steps(torch, Trainer, cfg, tr, va)
+        with plain_path():
+            plain = first_steps(torch, Trainer, cfg, tr, va)
+        step_err = float(np.max(np.abs(losses - plain) / np.abs(plain)))
+        if not np.isfinite(losses).all() or step_err > 1e-4:
+            raise AssertionError(f"{name}: first 4 losses {losses} vs plain "
+                                 f"path {plain}")
+        ckdir = os.path.join(tmpdir, f"fingerprint_{name}")
+        trainer = Trainer(cfg, tr, va, ckpt_dir=ckdir)
+        reset_counts()
+        t0 = time.perf_counter()
+        _, best, hist = trainer.fit(verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts()
+        if any(counts[k] <= 0 for k in KERNELS_1_3) or any(
+                counts[k] for k in counts if k not in KERNELS_1_3):
+            raise AssertionError(f"{name}: one epoch launched {counts}")
+        for k, v in counts.items():
+            total[k] += v
+        row = hist[-1]
+        if not all(np.isfinite(row[k]) for k in ("train_loss", "val_mse",
+                                                  "original_mse")):
+            raise AssertionError(f"{name}: non-finite metrics {row}")
+        served = Predictor(os.path.join(ckdir, "best_model.pt"))(vs)
+        ev = trainer.evaluate(best)
+        serve_err = float(np.abs(served[va.kept_indices]
+                                 - ev["pred_denorm"]).max())
+        if not np.isfinite(served[va.kept_indices]).all() or \
+                serve_err > 1e-4:
+            raise AssertionError(f"{name}: best checkpoint serves "
+                                 f"{serve_err} pChEMBL from the trainer")
+        step_ms = time_steps(torch, trainer, trainer.init_state(), tr)
+        cut = "" if n_tr is None else (f" (cut to the first {n_tr} train + "
+                                       f"{n_va} validation molecules: host "
+                                       f"featurisation)")
+        log(f"[14] {name} ({tr.fp_dim}-bit fingerprint, fc1 "
+            f"{tuple(best.model.cnn.fc1.weight.shape)}, "
+            f"{sum(p.numel() for p in best.model.parameters())} parameters)"
+            f"{cut}: featurised {len(tr)} + {len(va)} molecules in "
+            f"{feat_s:.2f} s ({(len(tr) + len(va)) / feat_s:.1f} mol/s, "
+            f"Python path); first 4 losses {np.round(losses, 6)} vs plain "
+            f"path rel err {step_err:.2e} (limit 1e-4); one epoch "
+            f"{fit_s:.2f} s, loss {row['train_loss']:.4f}, val MSE "
+            f"{row['val_mse']:.4f}; launches {counts}; served max |err| "
+            f"{serve_err:.2e} pChEMBL; train step {step_ms:.3f} ms "
+            f"({cfg.batch_size / step_ms * 1e3:.1f} mol/s), on {card}")
+    log(f"[14] launches over the three epochs: {total}")
+    log(f"[14] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def explain_phase(torch, ckpt, tmpdir, card):
+    """Phase 15: the interpretability pipeline on the phase-8 flagship
+    checkpoint over the 961 test molecules.  Returns the launches of
+    kernels 1-5 in the pipeline's call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mgat_graphsage_torch.data import TEST_CSV, MolecularDataset, load_csv
+    from mgat_graphsage_torch.eval.predict import load_model_from_checkpoint
+    from mgat_graphsage_torch.explain import (
+        hybrid_analysis_strategy, quick_importance_analysis_all)
+    from mgat_graphsage_torch.explain.pipeline import detailed_importance
+
+    t_phase = time.perf_counter()
+    target, stage1_batch, batch = 200, 512, 64
+    out = os.path.join(tmpdir, "explain")
+    reset_counts()
+    # one call, profiled: its own wall time and device busy time give the
+    # host share of that call
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = hybrid_analysis_strategy(
+            TEST_CSV, ckpt, target, output_dir=out,
+            stage1_batch=stage1_batch, batch_size=batch, make_figures=False,
+            verbose=False)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    busy_s = sum(ev.self_device_time_total
+                 for ev in device_events(torch, prof)) / 1e6
+    tm = res["timings"]
+    n, sel = res["n_molecules"], res["selected_indices"]
+    nb1 = -(-n // min(stage1_batch, n))
+    nb3 = -(-len(sel) // batch)
+    want = {"dense_adjacency_cuda": nb1 + nb3,
+            "fused_masked_attention_cuda": nb1 + nb3 * 101,
+            "attention_bwd_cuda": nb1 + nb3 * 100,
+            "dy3_cuda": 0, "cnn_chain_bwd_cuda": 0}
+    if counts != want:
+        raise AssertionError(f"explain launched {counts}, expected {want} "
+                             f"({nb1} Stage 1 batches, {nb3} Stage 3 "
+                             "batches of 1 target + 100 steps)")
+    with open(os.path.join(out, "analysis_results.json")) as f:
+        written = json.load(f)
+    if len(written["selected_indices"]) != target or len(sel) != target \
+            or res["detailed_method"] != "gnnexplainer":
+        raise AssertionError(f"analysis_results.json holds "
+                             f"{len(written['selected_indices'])} entries, "
+                             f"method {res['detailed_method']}")
+    stage1 = res["stage1"]
+    detailed = [res["detailed_importances"][i] for i in sel]
+    if any(np.array_equal(d, stage1["importances"][i])
+           for d, i in zip(detailed, sel)):
+        raise AssertionError("a Stage 3 importance equals its Stage 1 one "
+                             "(no GNNExplainer result)")
+    log(f"[15] explain on {os.path.relpath(ckpt, REPO)}: {n} molecules, "
+        f"{len(sel)} in detail, make_figures=False; launches {counts} "
+        f"(= {nb1} Stage 1 batches of {stage1_batch} + {nb3} Stage 3 "
+        f"batches of {batch} x (1 target + 100 steps)); "
+        f"analysis_results.json with {len(written['selected_indices'])} "
+        f"entries; no fallback")
+
+    # the same stages through the plain versions on the card
+    t_cmp = time.perf_counter()
+    model, cfg, scaler, (mn, me) = load_model_from_checkpoint(ckpt)
+    branch = model.gat_graphsage
+    smiles, y = load_csv(TEST_CSV)
+    ds = MolecularDataset(smiles, y, scaler=scaler, fingerprint=None,
+                          max_nodes=mn, max_edges=me, verbose=False)
+    dd = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+               for a in (ds.nodes, ds.edges, ds.edge_mask, ds.node_mask))
+    with plain_path():
+        plain1 = quick_importance_analysis_all(ds, branch, scaler,
+                                               stage1_batch, False, dd)
+        plain_norms, plain3 = detailed_importance(ds, branch, sel, batch, dd)
+    pred_err = float(np.abs(stage1["prediction"]
+                            - plain1["prediction"]).max())
+    gap1 = np.array([np.abs(a - b).max() for a, b in
+                     zip(stage1["importances"], plain1["importances"])])
+    gap3 = np.array([np.abs(a - b).max() for a, b in zip(detailed, plain3)])
+    # Stage 3's per-atom mask norms before the min-max scaling
+    raw3 = np.abs(res["detailed_norms"] - plain_norms).max(axis=1)
+    # per molecule, every molecule (importances are min-max scaled, so a
+    # molecule's gap is its largest over its atoms)
+    checks = (("Stage 1 importances", gap1, 1e-4),
+              ("Stage 3 mask norms", raw3, 1e-5),
+              ("Stage 3 importances", gap3, 1e-3))
+    log(f"[15] kernels vs plain path on the card: Stage 1 predictions max "
+        f"|err| {pred_err:.2e} pChEMBL (limit 1e-4); " + "; ".join(
+            f"{what} max |err| {gap.max():.2e} over {len(gap)} molecules "
+            f"(limit {lim:g})" for what, gap, lim in checks)
+        + f"; {time.perf_counter() - t_cmp:.1f} s")
+    for what, gap, lim in checks:
+        past = np.where(gap > lim)[0]
+        if len(past):
+            log(f"[15] {what} past {lim:g}: molecules "
+                f"{[int(i) for i in past[:20]]}, |err| "
+                f"{np.round(gap[past[:20]], 5).tolist()}")
+    if not pred_err <= 1e-4 or any((gap > lim).any()
+                                   for _, gap, lim in checks):
+        raise AssertionError("explain: the kernel path parts from the plain "
+                             "path beyond the limits above")
+
+    host = 1.0 - busy_s / tm["total_s"]
+    log(f"[15] under the CUDA-activity profiler: Stage 1 "
+        f"{tm['stage1_s']:.3f} s ({n / tm['stage1_s']:.1f} mol/s); Stage 2 "
+        f"{tm['stage2_s']:.3f} s; Stage 3 GNNExplainer "
+        f"{tm['stage3_gnnexplainer_s']:.3f} s ({len(sel)} molecules, "
+        f"{nb3 * 100} mask steps, "
+        f"{tm['stage3_gnnexplainer_s'] / (nb3 * 100) * 1e3:.2f} ms a "
+        f"step), substructures {tm['stage3_substructures_s']:.3f} s; "
+        f"load + featurise {tm['load_s']:.3f} s; report {tm['stage4_s']:.3f} "
+        f"s; whole call {tm['total_s']:.3f} s, device busy {busy_s:.3f} s "
+        f"in that call: host share {100 * host:.1f}%, on {card}")
+    log(f"[15] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2001,6 +2230,15 @@ def main(argv=None) -> int:
     base_counts, adj32, base_adj_err = baselines_phase(
         torch, train_smiles, train_y, val_smiles, val_y, tmp.name, card,
         timer)
+
+    # ---- 14. the fingerprint suite -----------------------------------------
+    fp_counts = fingerprint_phase(torch, train_smiles, train_y, val_smiles,
+                                  val_y, tmp.name, card)
+
+    # ---- 15. interpretability on the phase-8 checkpoint ------------------
+    explain_counts = explain_phase(
+        torch, os.path.join(tmp.name, "train_pb0", "best_model.pt"),
+        tmp.name, card)
     tmp.cleanup()
 
     train_counts = runs[True]["counts"]
@@ -2071,6 +2309,8 @@ def main(argv=None) -> int:
         row["serve_launches"] = serve_counts[w]
         row["compact_launches"] = compact_counts[w]
         row["baseline_launches"] = base_counts[w]
+        row["fingerprint_launches"] = fp_counts[w]
+        row["explain_launches"] = explain_counts[w]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,14 +5,15 @@
   ``train.py:19-55``;
 - the 5-dim "raw" featurizer of the GCN baseline (``gnn/gcn.py:14-40``).
 
-Output is the unpadded ``(features [N, F], edge_index [2, 2E])`` pair;
-``data/dataset.py`` pads it to the dataset's ``(max_nodes, max_edges)``
-budget.
+``smiles_to_graph`` gives the unpadded ``(features [N, F], edge_index
+[2, 2E])`` pair, which ``data/dataset.py`` pads to the dataset's
+``(max_nodes, max_edges)`` budget; ``smiles_to_padded_graph`` pads one
+molecule to a given budget.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -31,6 +32,7 @@ __all__ = [
     "atom_features_5",
     "mol_to_graph",
     "smiles_to_graph",
+    "smiles_to_padded_graph",
 ]
 
 # Vocabularies — byte-for-byte the lists from reference train.py:34-42.
@@ -115,3 +117,32 @@ def smiles_to_graph(smiles: str, featurizer: str = "35") -> Tuple[np.ndarray, np
     (reference ``train.py:25-28`` skip semantics)."""
     mol = parse_smiles(smiles)  # raises SmilesParseError (a ValueError)
     return mol_to_graph(mol, featurizer=featurizer)
+
+
+def smiles_to_padded_graph(
+    smiles: str,
+    max_nodes: int,
+    max_edges: int,
+    featurizer: str = "35",
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
+    """Fixed-shape graph: (nodes [N_max,F], edges [2,E_max], node_mask,
+    edge_mask).
+
+    Padded edge slots point at node ``0`` but are masked; padded node rows are
+    zero.  Returns ``None`` if the molecule exceeds the budget (caller decides
+    whether to re-bucket or skip).
+    """
+    feats, edge_index = smiles_to_graph(smiles, featurizer=featurizer)
+    n, e = feats.shape[0], edge_index.shape[1]
+    if n > max_nodes or e > max_edges:
+        return None
+    fdim = feats.shape[1]
+    nodes = np.zeros((max_nodes, fdim), dtype=np.float32)
+    nodes[:n] = feats
+    edges = np.zeros((2, max_edges), dtype=np.int32)
+    edges[:, :e] = edge_index
+    node_mask = np.zeros((max_nodes,), dtype=np.float32)
+    node_mask[:n] = 1.0
+    edge_mask = np.zeros((max_edges,), dtype=np.float32)
+    edge_mask[:e] = 1.0
+    return nodes, edges, node_mask, edge_mask

@@ -104,8 +104,17 @@ def load_csv(path: str, smiles_column: str = "Smiles",
              target_column: str = "pchembl") -> Tuple[List[str], np.ndarray]:
     """CSV reader for the reference ``Smiles,pchembl`` schema
     (``train.py:163-168``).  Stdlib ``csv``, so RFC-4180 quoting parses;
-    extra columns are ignored and column order is free."""
+    extra columns are ignored and column order is free.  A bundled split
+    path that does not exist (an installed package's cache) is written
+    first (``data.ensure_bundled_datasets``)."""
     import csv
+
+    if not os.path.exists(path):
+        from . import (FULL_CSV, TEST_CSV, TRAIN_CSV, VAL_CSV,
+                       ensure_bundled_datasets)
+
+        if path in (TRAIN_CSV, VAL_CSV, TEST_CSV, FULL_CSV):
+            ensure_bundled_datasets()
 
     smiles, targets = [], []
     with open(path, newline="") as f:

@@ -10,16 +10,18 @@ PyTorch and CUDA).
 trains on the bundled train and validation CSVs (or ``--train-csv``,
 ``--val-csv``) and writes ``<ckpt-dir>/<preset>/best_model.pt`` with its
 JSON sidecar, which ``eval/predict.py`` serves.  It runs on CUDA unless
-given ``--device cpu``, and raises without CUDA.  Every preset whose
-fingerprint the port computes is offered: the flagship, the bf16 ones
+given ``--device cpu``, and raises without CUDA.  Every preset of
+``train/config.py`` is offered: the flagship, the bf16 ones
 (``flagship_bf16_bs1024_wc``, the production preset, among them), the
-ablation ladder ``model1``-``model6`` and the six baselines (``gcn``,
-``graphsage``, ``gat``, ``gat_gcn``, ``gin``, ``chebnet``); ``maccs``,
-``smifp`` and ``bci`` are not.  ``--mixed-precision`` (bf16
-compute), ``--fast-optimizer`` (bf16 Adam moments), ``--remat`` and
-``--dataset-storage`` set their config fields as the reference's flags
-do; the reference's flags for meshes are accepted and raise "not ported
-yet".
+ablation ladder ``model1``-``model6``, the six baselines (``gcn``,
+``graphsage``, ``gat``, ``gat_gcn``, ``gin``, ``chebnet``) and the
+fingerprint suite (``morgan1024``, ``morgan2048``, ``ecfp2048``,
+``fcfp``, ``maccs``, ``smifp``, ``bci``; the last three featurise in
+Python, BCI at a few tens of molecules a second).
+``--mixed-precision`` (bf16 compute), ``--fast-optimizer`` (bf16 Adam
+moments), ``--remat`` and ``--dataset-storage`` set their config fields
+as the reference's flags do; the reference's flags for meshes are
+accepted and raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ from __future__ import annotations
 import argparse
 import os
 
-from ..chem.fingerprints import FINGERPRINTS
 from ..data import TRAIN_CSV, VAL_CSV, MolecularDataset, load_csv
 from .config import PRESETS, get_config
 from .trainer import Trainer
@@ -40,18 +41,9 @@ _NOT_PORTED_FLAGS = {
 }
 
 
-def _ported(cfg) -> bool:
-    """Every model is ported; the MACCS, SMIFP and BCI fingerprints are not
-    yet (ROADMAP Queue 1 item 8)."""
-    return cfg.fingerprint is None or cfg.fingerprint in FINGERPRINTS
-
-
-PORTED_PRESETS = sorted(n for n, c in PRESETS.items() if _ported(c))
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", default="flagship", choices=PORTED_PRESETS)
+    ap.add_argument("--preset", default="flagship", choices=sorted(PRESETS))
     ap.add_argument("--train-csv", default=TRAIN_CSV)
     ap.add_argument("--val-csv", default=VAL_CSV)
     ap.add_argument("--epochs", type=int, default=None)

@@ -133,7 +133,7 @@ def test_fc1_permutation_helpers_match_reference():
                                       np.asarray(ref(k)))
 
 
-def test_gat10_is_not_ported_yet():
+def test_gat10_is_ported_and_matches_flax():
     """``attention="gat10"`` (a 10-head GATConv, the model1 ablation's
     graph layer) builds, and the hybrid around it matches the flax model
     forward, latent included."""
