@@ -7,7 +7,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device report: torch and CUDA versions, the card, and ``nvidia-smi``'s
    name and power limit;
-2. build all five kernels from ``mgat_graphsage_torch/csrc`` (one ``nvcc``
+2. build the five kernel sources (kernels 1-5, and 4-5's bf16 variants)
+   from ``mgat_graphsage_torch/csrc`` (one ``nvcc``
    per source, started together) and the native host featuriser
    (``csrc/featurizer.cpp``, ``g++`` in a thread beside them; every later
    phase featurises through it), and hold the adjacency kernel BITWISE
@@ -162,7 +163,38 @@ Phases (any failure raises and the script exits non-zero):
    within 1e-3 of the plain path (same selection, same generator seed);
    Stage 3 repeats bit for bit.  Stage 1 in
    mol/s, Stage 3 in s, and the host share of the call (device busy time
-   of Stages 1 and 3 from a ``torch.profiler`` repeat).
+   of Stages 1 and 3 from a ``torch.profiler`` repeat);
+16. kernels 4-5 in bf16: ``flagship_bf16_bs1024_wc`` with
+   ``cnn_pallas_bwd=True``, seed 42, on the bundled CSVs.  The first 3
+   losses within rel 1e-3 of a run through the plain versions; on the
+   first step's own B=1024, W=1024 inputs and at B=3, W=37 and B=5,
+   W=2048, ``dy3`` within one bf16 ulp per element (or, where the f32 sum
+   cancels, within its summation bound ``2 H 2^-24 sum_h |dy w|``) and
+   equal on >= 99% of elements, the six gradients within 2e-3 of each
+   output's largest magnitude (the limit ``tests/test_torch_cnn_bf16.py``
+   states), both kernels bit-for-bit repeatable; one epoch with the
+   counters from 0: kernels 1-3 and the bf16 kernels 4-5, these exactly
+   once a train step, the f32 ones never; finite metrics, the best
+   checkpoint served; remat and ``flagship_bf16sr`` (3 steps each, bf16
+   kernels 4-5 once a step).  For information: the two kernels' times,
+   their plain versions', their library calls' (bf16 ``torch.matmul`` +
+   ``where``; three bf16 ``convolution_backward`` + two ReLU masks), their
+   bounds (bytes at 3.35 TB/s against operations at the dense bf16 rate,
+   989 TFLOP/s) and shares; ms per bf16 step with and without
+   ``cnn_pallas_bwd``; a profile of one epoch;
+17. checkpoint interchange and utils: a seeded ``compare.torch_ref.
+   TorchHybrid`` on the card written as a reference composite ``.pth``
+   (its scaler the fitted ``mean_``/``scale_`` that ``compat`` reads: the
+   card's machine has no scikit-learn), imported with ``compat`` and
+   served through ``Predictor`` on the 961 test molecules within 1e-4
+   pChEMBL of the oracle's own predictions on the card (one molecule a
+   call, as the reference infers), kernels 1-2 launched; the export's
+   state dicts (``compat.reference_state_dicts``) equal to the composite's
+   bit for bit, and their re-import to the first import bit for bit; a
+   seeded ``TorchGINNet`` ``state_dict`` imported and served within 1e-4
+   of the oracle; ``utils.probe_backend()`` returns ``"cuda"``,
+   ``device_memory_stats()`` names the card, ``trace()`` writes a Chrome
+   trace holding device kernels.
 
 Kernel times come from CUDA events around back-to-back launches queued
 behind a device-side sleep, so the host's launch cost is not in them.
@@ -173,8 +205,9 @@ the ``cnn_pallas_bwd=True`` training epoch, ``bf16_launches`` from phase
 12's server and compact epoch, ``baseline_launches`` from phase 13's seven
 epochs, ``fingerprint_launches`` from phase 14's three epochs and
 ``explain_launches`` from phase 15's pipeline call; the adjacency row also
-has its times at gcn's B=32 as ``gcn_*``), then ``{"ok": true, "device":
-{...}}``.
+has its times at gcn's B=32 as ``gcn_*``; the bf16 rows of kernels 4-5,
+``"dtype": "bfloat16"``, with their launches from phase 16's epoch), then
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -196,6 +229,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, data sheet
 F32_FLOPS_PER_S = 67e12      # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12    # H100 SXM, dense bf16 on the tensor cores
 BUDGET = (80, 176)
 BATCH = 64
 BAD = "C1CC("
@@ -248,9 +282,11 @@ class DeviceTimer:
         return s.elapsed_time(e) / iters
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
+    """Least time in ms for ``nbytes`` and ``flops`` (at the peak of their
+    type: f32, or ``BF16_FLOPS_PER_S``), and which of the two sets it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -303,8 +339,9 @@ def first_calls():
                                    else a for a in args)
             return fn(*args, **kw)
         # a wrapper counts its launches on the name it is looked up by,
-        # the spy while it stands in: the count moves back afterwards
-        call.launches = fn.launches
+        # the spy while it stands in: the counts move back afterwards
+        for c in counters(fn):
+            setattr(call, c, getattr(fn, c))
         return call
 
     spies = [spy(w, fn) for (_, w, _), fn in zip(ROUTES, saved)]
@@ -315,7 +352,8 @@ def first_calls():
     finally:
         for mod, (_, w, _), fn, sp in zip(mods, ROUTES, saved, spies):
             setattr(mod, w, fn)
-            fn.launches = max(fn.launches, sp.launches)
+            for c in counters(fn):
+                setattr(fn, c, max(getattr(fn, c), getattr(sp, c)))
 
 
 def wrappers():
@@ -326,13 +364,26 @@ def wrappers():
             for m, w, _ in ROUTES}
 
 
+def counters(fn):
+    """A wrapper's launch counters: ``launches`` (f32), and
+    ``launches_bf16`` for kernels 4-5, which count their bf16 launches
+    apart."""
+    return [c for c in ("launches", "launches_bf16") if hasattr(fn, c)]
+
+
 def reset_counts():
     for fn in wrappers().values():
-        fn.launches = 0
+        for c in counters(fn):
+            setattr(fn, c, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """name -> f32 launches, and name + "_bf16" -> bf16 launches."""
+    out = {}
+    for name, fn in wrappers().items():
+        for c in counters(fn):
+            out[name + c[len("launches"):]] = getattr(fn, c)
+    return out
 
 
 def device_events(torch, prof):
@@ -744,6 +795,22 @@ def time_steps(torch, trainer, state, data, iters=20):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def three_steps(Trainer, c, train_ds):
+    """The first 3 train steps of config ``c`` (its epoch-0 batch order,
+    dropout generator and carried working copy), counters from 0:
+    ``(losses, launches, state)``."""
+    t = Trainer(c, train_ds)
+    st = t.init_state()
+    gen = t._dropout_generator(0)
+    copy = t.compute_copy(st.model)
+    reset_counts()
+    batches = t._batches(train_ds, c.batch_size,
+                         np.random.default_rng(c.seed))
+    out = [t.train_step(st, next(batches), gen, copy)["loss"].item()
+           for _ in range(3)]
+    return np.array(out), read_counts(), st
+
+
 def bf16_phase(torch, train_ds, val_ds, val_smiles, test_smiles, tmpdir,
                card, timer):
     """Phase 11: the production preset ``flagship_bf16_bs1024_wc`` (bf16
@@ -815,7 +882,8 @@ def bf16_phase(torch, train_ds, val_ds, val_smiles, test_smiles, tmpdir,
                  "attention_bwd_cuda"):
         if counts[name] <= 0:
             raise AssertionError(f"the bf16 epoch never launched {name}")
-    if counts["dy3_cuda"] or counts["cnn_chain_bwd_cuda"]:
+    if any(counts[k] for k in ("dy3_cuda", "cnn_chain_bwd_cuda",
+                               "dy3_cuda_bf16", "cnn_chain_bwd_cuda_bf16")):
         raise AssertionError(f"the CNN kernels ran in the bf16 epoch: "
                              f"{counts}")
     row = hist[-1]
@@ -852,20 +920,9 @@ def bf16_phase(torch, train_ds, val_ds, val_smiles, test_smiles, tmpdir,
         f"exactly for {BAD!r}")
 
     # remat: the same 3 steps, the forward's kernels launched twice a step
-    def three_steps(c):
-        t = Trainer(c, train_ds)
-        st = t.init_state()
-        gen = t._dropout_generator(0)
-        copy = t.compute_copy(st.model)
-        reset_counts()
-        batches = t._batches(train_ds, c.batch_size,
-                             np.random.default_rng(c.seed))
-        out = [t.train_step(st, next(batches), gen, copy)["loss"].item()
-               for _ in range(3)]
-        return np.array(out), read_counts(), st
-
-    plain3, c_plain, _ = three_steps(cfg)
-    remat3, c_remat, _ = three_steps(cfg.replace(remat=True))
+    plain3, c_plain, _ = three_steps(Trainer, cfg, train_ds)
+    remat3, c_remat, _ = three_steps(Trainer, cfg.replace(remat=True),
+                                     train_ds)
     remat_err = float(np.max(np.abs(remat3 - plain3) / np.abs(plain3)))
     fwd = ("dense_adjacency_cuda", "fused_masked_attention_cuda")
     if remat_err > 1e-3 or any(c_remat[k] != 2 * c_plain[k] for k in fwd) \
@@ -877,21 +934,13 @@ def bf16_phase(torch, train_ds, val_ds, val_smiles, test_smiles, tmpdir,
         f"({', '.join(f'{k} {c_plain[k]} -> {c_remat[k]}' for k in fwd)}), "
         f"attention bwd {c_remat['attention_bwd_cuda']}")
 
-    sr3, _, st_sr = three_steps(get_config("flagship_bf16sr", epochs=1))
+    sr3, _, st_sr = three_steps(Trainer, get_config("flagship_bf16sr",
+                                                    epochs=1), train_ds)
     if not np.isfinite(sr3).all() or any(
             p.dtype != torch.bfloat16 for p in st_sr.model.parameters()):
         raise AssertionError(f"flagship_bf16sr: losses {sr3}")
     log(f"[11] flagship_bf16sr (bf16 master, stochastic rounding): 3 steps "
         f"losses {np.round(sr3, 6)}, parameters bf16")
-    try:
-        Trainer(cfg.replace(cnn_pallas_bwd=True), train_ds)
-    except NotImplementedError as e:
-        if "ROADMAP" not in str(e):
-            raise
-        log(f"[11] cnn_pallas_bwd=True with bf16 compute raises: {e}")
-    else:
-        raise AssertionError("cnn_pallas_bwd=True with bf16 compute did not "
-                             "raise")
     cli = subprocess.run(
         [sys.executable, "-m", "mgat_graphsage_torch.train.run", "--preset",
          "flagship", "--mixed-precision", "--limit", "256", "--epochs", "1",
@@ -972,6 +1021,438 @@ def bf16_phase(torch, train_ds, val_ds, val_smiles, test_smiles, tmpdir,
                 f"x{ev.count:<4d} {ev.key[:90]}")
     log(f"[11] phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# kernels 4-5 in bf16 on the bf16 training path
+# ---------------------------------------------------------------------------
+
+CHAIN_BF16_LIMIT = 2e-3   # tests/test_torch_cnn_bf16.py states and measures it
+
+
+def bf16_ulp(torch, x):
+    """The spacing of bf16 values at |x| (f32 tensor): the next bf16 above
+    |x| minus |x|."""
+    a = x.abs().float()
+    return (a.view(torch.int32) + 0x10000).view(torch.float32) - a
+
+
+def check_dy3_bf16(torch, dy, fc1_w, y3, where):
+    """Kernel 4 in bf16 against its plain version: each element within one
+    bf16 ulp, or, where the f32 sum cancels below its own rounding error,
+    within that error's bound 2 H 2^-24 sum_h |dy w| (the two sum in other
+    orders, then round once); equal on >= 99% of elements; bit-for-bit
+    repeats.  Returns the max |err|."""
+    from mgat_graphsage_torch.ops.cnn import dy3_cuda, dy3_plain
+
+    got = dy3_cuda(dy, fc1_w, y3)
+    want = dy3_plain(dy, fc1_w, y3)
+    again = dy3_cuda(dy, fc1_w, y3)
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or not torch.equal(
+            got.view(torch.int16), again.view(torch.int16)):
+        raise AssertionError(f"bf16 dy3 kernel at {where}: dtype {got.dtype} "
+                             "or it does not repeat bit for bit")
+    g, w = got.float(), want.float()
+    gap = (g - w).abs()
+    ulp = bf16_ulp(torch, torch.maximum(g.abs(), w.abs()))
+    terms = torch.matmul(dy.float().abs(), fc1_w.float().abs()).view(y3.shape)
+    f32_bound = 2 * dy.shape[1] * 2.0 ** -24 * terms
+    over = int((gap > torch.maximum(ulp, f32_bound)).sum())
+    past_ulp = int((gap > ulp).sum())
+    equal = float((gap == 0).float().mean())
+    if not torch.isfinite(g).all() or over or equal < 0.99:
+        raise AssertionError(f"bf16 dy3 kernel at {where}: {over} elements "
+                             f"beyond one ulp and the f32 bound, equal on "
+                             f"{equal:.6f} (limit 0.99)")
+    log(f"[16] dy3 bf16 {where} {tuple(got.shape)}: equal on "
+        f"{100 * equal:.4f}% of elements, {past_ulp} past one ulp (all "
+        f"within the f32 summation bound), max |err| {gap.max().item():.3e}, "
+        f"repeats bit for bit")
+    return gap.max().item()
+
+
+def check_chain_bf16(torch, args, where):
+    """Kernel 5 in bf16 against its plain version: each f32 output within
+    CHAIN_BF16_LIMIT of its largest magnitude; bit-for-bit repeats.
+    Returns the max |err|."""
+    from mgat_graphsage_torch.ops.cnn import (
+        cnn_chain_bwd_cuda, cnn_chain_bwd_plain)
+
+    got = cnn_chain_bwd_cuda(*args)
+    want = cnn_chain_bwd_plain(*args)
+    again = cnn_chain_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    if not all(torch.isfinite(a).all() and a.dtype == torch.float32
+               for a in got) or max(errs) > CHAIN_BF16_LIMIT:
+        raise AssertionError(f"bf16 cnn chain kernel at {where}: relative "
+                             f"errors {errs} (limit {CHAIN_BF16_LIMIT})")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"bf16 cnn chain kernel at {where} does not "
+                             "repeat bit for bit")
+    log(f"[16] cnn chain bwd bf16 {where}: dw3/db3/dw2/db2/dw1/db1 rel err "
+        + " ".join(f"{e:.2e}" for e in errs)
+        + f" (limit {CHAIN_BF16_LIMIT:g}), repeats bit for bit")
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+def bf16_cnn_phase(torch, train_ds, val_ds, val_smiles, tmpdir, card,
+                   timer):
+    """Phase 16: kernels 4-5 in bf16 on ``flagship_bf16_bs1024_wc`` with
+    ``cnn_pallas_bwd=True``.  Returns the bf16 rows' numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mgat_graphsage_torch.eval.predict import Predictor
+    from mgat_graphsage_torch.ops.cnn import (
+        cnn_chain_bwd_cuda, cnn_chain_bwd_plain, dy3_cuda, dy3_plain)
+    from mgat_graphsage_torch.train import Trainer, get_config
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    cfg = get_config("flagship_bf16_bs1024_wc", epochs=1,
+                     cnn_pallas_bwd=True)
+    bs = cfg.batch_size
+    # the first 3 steps through the kernels and through the plain versions
+    with first_calls() as seen:
+        losses = first_steps(torch, Trainer, cfg, train_ds, val_ds, steps=3)
+    with plain_path():
+        plain = first_steps(torch, Trainer, cfg, train_ds, val_ds, steps=3)
+    step_err = float(np.max(np.abs(losses - plain) / np.abs(plain)))
+    if not np.isfinite(losses).all() or step_err > 1e-3:
+        raise AssertionError(f"bf16 cnn_pallas_bwd: first 3 losses {losses} "
+                             f"vs plain path {plain} (limit rel 1e-3)")
+    log(f"[16] flagship_bf16_bs1024_wc, cnn_pallas_bwd=True: first 3 losses "
+        f"{np.round(losses, 6)} vs plain path rel err {step_err:.2e} (limit "
+        f"1e-3)")
+    # kernels 4-5 on the first step's own inputs at B=1024
+    a4 = seen["dy3_cuda"]
+    a5 = seen["cnn_chain_bwd_cuda"]
+    if a4[0].shape[0] != bs or any(t.dtype != bf16 for t in a4 + a5):
+        raise AssertionError(f"the first bf16 step's kernel 4-5 inputs: "
+                             f"{[(tuple(t.shape), t.dtype) for t in a4 + a5]}")
+    dy3_err = check_dy3_bf16(torch, *a4, "first step")
+    chain_err = check_chain_bf16(torch, a5, f"first step B={bs} "
+                                 f"W={a5[3].shape[1]}")
+    # ragged shapes on random bf16 inputs
+    gen = torch.Generator(device="cuda").manual_seed(16)
+
+    def rnd(*shape, scale=1.0, relu=False):
+        x = torch.randn(shape, device="cuda", generator=gen) * scale
+        return (x.clamp_min(0) if relu else x).to(bf16)
+
+    for b, wd in ((3, 37), (5, 2048)):
+        h = a4[0].shape[1]
+        dy3_err = max(dy3_err, check_dy3_bf16(
+            torch, rnd(b, h, scale=0.01), rnd(h, wd * 128, scale=0.01),
+            rnd(b, wd, 128, relu=True), f"B={b} W={wd}"))
+        rfp = (torch.rand((b, wd), device="cuda", generator=gen) < 0.1
+               ).to(bf16)
+        chain_err = max(chain_err, check_chain_bf16(
+            torch, (rnd(b, wd, 128, relu=True), rnd(b, 64, wd, relu=True),
+                    rnd(b, 32, wd, relu=True), rfp, a5[4], a5[5]),
+            f"B={b} W={wd}"))
+
+    # one epoch through the kernels, counters from 0
+    ckdir = os.path.join(tmpdir, "bf16_cnn")
+    trainer = Trainer(cfg, train_ds, val_ds, ckpt_dir=ckdir)
+    steps = -(-len(train_ds) // bs)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, best, hist = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = read_counts()
+    for name in ("dense_adjacency_cuda", "fused_masked_attention_cuda",
+                 "attention_bwd_cuda"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the bf16 epoch never launched {name}")
+    if counts["dy3_cuda_bf16"] != steps \
+            or counts["cnn_chain_bwd_cuda_bf16"] != steps \
+            or counts["dy3_cuda"] or counts["cnn_chain_bwd_cuda"]:
+        raise AssertionError(f"kernels 4-5 in the bf16 epoch of {steps} "
+                             f"steps: launches {counts}")
+    row = hist[-1]
+    if not all(np.isfinite(row[k]) for k in ("train_loss", "val_mse",
+                                              "original_mse")):
+        raise AssertionError(f"non-finite metrics: {row}")
+    served = Predictor(os.path.join(ckdir, "best_model.pt"))(val_smiles)
+    if served.shape != (len(val_smiles),) or not np.isfinite(served).all():
+        raise AssertionError("the best checkpoint does not serve")
+    log(f"[16] one epoch ({steps} steps of {bs}) {fit_s:.2f} s, loss "
+        f"{row['train_loss']:.4f}, val MSE {row['val_mse']:.4f}, original "
+        f"MSE {row['original_mse']:.4f}; launches {counts}; best checkpoint "
+        f"served on {len(val_smiles)} validation molecules, finite")
+
+    # remat: kernels 4-5 once a step; the bf16 master
+    _, c_remat, _ = three_steps(Trainer, cfg.replace(remat=True), train_ds)
+    if c_remat["dy3_cuda_bf16"] != 3 or c_remat["cnn_chain_bwd_cuda_bf16"] != 3:
+        raise AssertionError(f"remat with cnn_pallas_bwd: 3 steps, launches "
+                             f"{c_remat}")
+    sr3, c_sr, st_sr = three_steps(Trainer, get_config(
+        "flagship_bf16sr", epochs=1, cnn_pallas_bwd=True), train_ds)
+    if not np.isfinite(sr3).all() or c_sr["dy3_cuda_bf16"] != 3 or any(
+            p.dtype != bf16 for p in st_sr.model.parameters()):
+        raise AssertionError(f"flagship_bf16sr with cnn_pallas_bwd: losses "
+                             f"{sr3}, launches {c_sr}")
+    log(f"[16] remat: 3 steps, kernels 4-5 {c_remat['dy3_cuda_bf16']} and "
+        f"{c_remat['cnn_chain_bwd_cuda_bf16']} launches; flagship_bf16sr: "
+        f"3 steps losses {np.round(sr3, 6)}, parameters bf16")
+
+    # times on the first step's inputs, for information
+    dy, fc1_w, y3 = a4
+    d3, y2, y1, fp, w3, w2 = a5
+    w1 = best.model.cnn.conv1.weight.detach().to(bf16)
+    bb, ww = fp.shape
+    hh = dy.shape[1]
+    k4 = dict(ms=timer(lambda: dy3_cuda(dy, fc1_w, y3)),
+              plain_ms=timer(lambda: dy3_plain(dy, fc1_w, y3), iters=20),
+              library_ms=timer(lambda: torch.where(y3 > 0, torch.matmul(
+                  dy, fc1_w).view(y3.shape), 0.0)),
+              bound=bound(2 * (bb * hh + hh * ww * 128 + 2 * bb * ww * 128),
+                          2 * bb * hh * ww * 128, BF16_FLOPS_PER_S))
+    d3_ncw = d3.transpose(1, 2).contiguous()
+    conv_bwd = torch.ops.aten.convolution_backward
+
+    def lib5():
+        gi2, _, _ = conv_bwd(d3_ncw, y2, w3, [128], [1], [1], [1], False,
+                             [0], 1, [True, True, True])
+        gi1, _, _ = conv_bwd(gi2 * (y2 > 0), y1, w2, [64], [1], [1], [1],
+                             False, [0], 1, [True, True, True])
+        return conv_bwd(gi1 * (y1 > 0), fp.unsqueeze(1), w1, [32], [1], [1],
+                        [1], False, [0], 1, [False, True, True])
+
+    k5 = dict(ms=timer(lambda: cnn_chain_bwd_cuda(*a5), iters=20),
+              plain_ms=timer(lambda: cnn_chain_bwd_plain(*a5), iters=10),
+              library_ms=timer(lib5, iters=20),
+              bound=bound(2 * (bb * ww * (128 + 64 + 32 + 1) + 128 * 64 * 3
+                               + 64 * 32 * 3) + 4 * 31040,
+                          2 * bb * ww * (2 * 3 * (128 * 64 + 64 * 32)
+                                         + 32 * 3)
+                          + bb * ww * (128 + 64 + 32), BF16_FLOPS_PER_S))
+    for name, k, calls in (
+            ("dy3", k4, "bf16 torch.matmul + where (two calls)"),
+            ("cnn chain bwd", k5, "3 bf16 convolution_backward + 2 ReLU "
+                                  "masks (five calls)")):
+        bms, by = k["bound"]
+        log(f"[16] {name} bf16 at B={bb}, W={ww}: kernel "
+            f"{k['ms'] * 1e3:.2f} us, plain {k['plain_ms'] * 1e3:.2f} us, "
+            f"library {k['library_ms'] * 1e3:.2f} us ({calls}), bound "
+            f"{bms * 1e3:.2f} us ({by}), bound share {bms / k['ms']:.4f}, "
+            f"{steps} launches an epoch of {steps} steps, on {card}")
+    for pb in (False, True):
+        t = Trainer(cfg.replace(cnn_pallas_bwd=pb), train_ds)
+        ms = time_steps(torch, t, t.init_state(), train_ds, iters=12)
+        log(f"[16] train step, flagship_bf16_bs1024_wc B={bs}, "
+            f"cnn_pallas_bwd={pb}: {ms:.3f} ms ({bs / ms * 1e3:.1f} mol/s), "
+            f"on {card}")
+    st = trainer.init_state()
+    trainer.train_epoch(st, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_epoch(st, 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = device_events(torch, prof)
+    busy_us = sum(ev.self_device_time_total for ev in kern)
+    log(f"[16] profile of one bf16 epoch with cnn_pallas_bwd ({steps} steps "
+        f"of {bs}): wall {wall_us:.0f} us, device busy {busy_us:.0f} us "
+        f"({100 * busy_us / wall_us:.2f}%), on {card}; top kernels:")
+    ranked = sorted(kern, key=lambda ev: -ev.self_device_time_total)
+    ours = ("dense_adjacency_kernel", "masked_attention_kernel",
+            "masked_attention_bwd_kernel", "cnn_dy3_bf16_kernel",
+            "cnn_chain_bwd_kernel", "cnn_chain_reduce_kernel")
+    for i, ev in enumerate(ranked):
+        if i < 12 or any(o in ev.key for o in ours):
+            log(f"  #{i + 1:<3d}{ev.self_device_time_total:9.1f} us  "
+                f"x{ev.count:<4d} {ev.key[:90]}")
+    log(f"[16] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    rows = []
+    for name, k, cname, err, src, line in (
+            ("cnn_dy3_bf16", k4, "dy3_cuda_bf16", dy3_err, "cnn_dy3", 127),
+            ("cnn_chain_bwd_bf16", k5, "cnn_chain_bwd_cuda_bf16", chain_err,
+             "cnn_chain_bwd", 264)):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"mgat_graphsage_torch/csrc/{src}.cu",
+            "replaces": f"mgat_graphsage_tpu/ops/pallas_cnn.py:{line}",
+            "launches": counts[cname], "max_abs_err": err, "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
+            "bound_by": k["bound"][1], "bound_share": k["bound"][0] / k["ms"],
+            "library_ms": k["library_ms"], "dtype": "bfloat16"})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# reference-checkpoint interchange and tooling
+# ---------------------------------------------------------------------------
+
+class RefScaler:
+    """The fitted attributes of the sklearn ``StandardScaler`` that a
+    reference composite pickles (``mean_``, ``scale_`` of shape (1,)),
+    which are all ``compat`` reads: the card's machine has no
+    scikit-learn."""
+
+    def __init__(self, y):
+        y = np.asarray(y, np.float64).reshape(-1)
+        self.mean_ = np.array([y.mean()])
+        self.scale_ = np.array([y.std()])
+
+
+def interchange_phase(torch, test_smiles, tmpdir, card, seed):
+    """Phase 17: a seeded reference composite ``.pth`` (the port's
+    ``compare.torch_ref.TorchHybrid`` on the card) imported with
+    ``compat`` and served through ``Predictor`` on the test molecules;
+    its export's state dicts (``compat.reference_state_dicts``; the
+    export's sklearn scaler is held on the CPU, in
+    ``tests/test_torch_compat.py``) and their re-import, bit for bit; a
+    GIN ``state_dict``; the utils' CUDA probe, memory statistics and
+    trace."""
+    import warnings
+
+    from mgat_graphsage_torch.compare.torch_ref import TorchHybrid, flat_batch
+    from mgat_graphsage_torch.compare.torch_ref_gnn import TorchGINNet
+    from mgat_graphsage_torch.compat import (
+        import_baseline_checkpoint, import_reference_checkpoint,
+        reference_state_dicts)
+    from mgat_graphsage_torch.data import MolecularDataset
+    from mgat_graphsage_torch.eval.predict import Predictor
+    from mgat_graphsage_torch.train.checkpoint import load_checkpoint
+    from mgat_graphsage_torch.utils import (
+        device_memory_stats, probe_backend, trace)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    n_nodes, n_edges = BUDGET
+    ds = MolecularDataset(test_smiles, np.zeros(len(test_smiles), np.float32),
+                          max_nodes=n_nodes, max_edges=n_edges,
+                          verbose=False)
+    graphs = []
+    for i in range(len(ds)):
+        n, e = int(ds.node_mask[i].sum()), int(ds.edge_mask[i].sum())
+        graphs.append((ds.nodes[i, :n], ds.edges[i, :, :e]))
+    kept = np.asarray(ds.kept_indices)
+
+    def flat(gs, fps):
+        return [t.to(dev) if torch.is_tensor(t) else t
+                for t in flat_batch(gs, fps)]
+
+    # the reference composite, as train.py:287-296 writes it
+    torch.manual_seed(seed)
+    tmodel = TorchHybrid().to(dev).eval()
+    sk = RefScaler(np.random.default_rng(seed).normal(6.5, 1.2, 64))
+    pth = os.path.join(tmpdir, "reference", "best_model.pth")
+    os.makedirs(os.path.dirname(pth), exist_ok=True)
+    torch.save({"gat_graphsage_model_state_dict": tmodel.graph.state_dict(),
+                "cnn_model_state_dict": tmodel.cnn.state_dict(),
+                "combined_model_state_dict": tmodel.combined.state_dict(),
+                "optimizer_state_dict": {}, "normalized_mse": 0.5,
+                "original_mse": 0.7, "scaler": sk}, pth)
+    ours = os.path.join(tmpdir, "imported", "best_model.pt")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # the layout caveat
+        import_reference_checkpoint(pth, ours, preset="flagship",
+                                    max_nodes=n_nodes, max_edges=n_edges)
+    reset_counts()
+    served = Predictor(ours)(test_smiles)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # the oracle, one molecule at a time as the reference infers
+    with torch.no_grad():
+        oracle = np.array([
+            tmodel(*flat([g], [ds.fp[i:i + 1]]))[0][0, 0].item()
+            for i, g in enumerate(graphs)]) * sk.scale_[0] + sk.mean_[0]
+    err = float(np.abs(served[kept] - oracle).max())
+    if not np.isfinite(served[kept]).all() or err > 1e-4 \
+            or counts["dense_adjacency_cuda"] <= 0 \
+            or counts["fused_masked_attention_cuda"] <= 0:
+        raise AssertionError(f"imported reference checkpoint: max |err| "
+                             f"{err} pChEMBL (limit 1e-4), launches "
+                             f"{counts}")
+    log(f"[17] reference .pth (seeded TorchHybrid) imported "
+        f"with compat, served on {len(kept)} test molecules through "
+        f"Predictor(device='cuda') within {err:.2e} pChEMBL of the oracle "
+        f"on the card (limit 1e-4); launches {counts}")
+
+    # export's state dicts, then their import: both bit for bit
+    back = os.path.join(tmpdir, "exported", "best_model.pth")
+    rt, scaler = reference_state_dicts(ours)
+    os.makedirs(os.path.dirname(back), exist_ok=True)
+    torch.save({**rt, "optimizer_state_dict": {}, "scaler": sk}, back)
+    orig = torch.load(pth, map_location="cpu", weights_only=False)
+    parts = ("gat_graphsage_model_state_dict", "cnn_model_state_dict",
+             "combined_model_state_dict")
+    same = all(list(orig[p]) == list(rt[p]) and all(
+        torch.equal(orig[p][k], rt[p][k]) for k in orig[p]) for p in parts)
+    again = os.path.join(tmpdir, "reimported", "best_model.pt")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        import_reference_checkpoint(back, again, preset="flagship",
+                                    max_nodes=n_nodes, max_edges=n_edges)
+    sd1, sd2 = load_checkpoint(ours)[0], load_checkpoint(again)[0]
+    if not same or (scaler.mean_, scaler.scale_) != (sk.mean_[0],
+                                                     sk.scale_[0]) \
+            or list(sd1) != list(sd2) or not all(
+                torch.equal(sd1[k], sd2[k].to(sd1[k].device))
+                for k in sd1):
+        raise AssertionError("export -> import does not give the state "
+                             "dicts back bit for bit")
+    log(f"[17] export's state dicts -> the reference composite's, bit for bit "
+        f"({sum(len(orig[p]) for p in parts)} tensors); re-import -> the "
+        f"port's state_dict equal bit for bit ({len(sd1)} tensors)")
+
+    # a baseline: GIN's bare state_dict
+    torch.manual_seed(seed + 1)
+    gin = TorchGINNet().to(dev).eval()
+    gpth = os.path.join(tmpdir, "reference", "gin.pth")
+    torch.save(gin.state_dict(), gpth)
+    gout = os.path.join(tmpdir, "imported", "gin.pt")
+    import_baseline_checkpoint(gpth, gout, preset="gin", max_nodes=n_nodes,
+                               max_edges=n_edges)
+    gserved = Predictor(gout)(test_smiles)
+    with torch.no_grad():
+        x, ei, batch, ng, _ = flat(graphs, [np.zeros((1, 1), np.float32)]
+                                   * len(graphs))
+        gwant = gin(x, ei, batch, ng).reshape(-1).cpu().numpy()
+    gerr = float(np.abs(gserved[kept] - gwant).max())
+    if not np.isfinite(gserved[kept]).all() or gerr > 1e-4:
+        raise AssertionError(f"imported GIN: max |err| {gerr} (limit 1e-4)")
+    log(f"[17] gin state_dict (seeded TorchGINNet) imported and served "
+        f"within {gerr:.2e} of the oracle on the card (limit 1e-4)")
+
+    # the utils
+    t0 = time.perf_counter()
+    probe = probe_backend(timeout_s=300)
+    probe_s = time.perf_counter() - t0
+    mem = device_memory_stats()
+    kind = torch.cuda.get_device_name(0)
+    if probe != "cuda" or not any(kind in k for k in mem):
+        raise AssertionError(f"utils: probe_backend() {probe!r}, "
+                             f"device_memory_stats() keys {list(mem)}")
+    logdir = os.path.join(tmpdir, "trace")
+    pred = Predictor(ours)
+    with trace(logdir):
+        pred(test_smiles[:64])
+        torch.cuda.synchronize()
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [ev.get("name", "") for ev in events
+               if ev.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError(f"utils.trace recorded no device kernel: "
+                             f"{len(events)} events")
+    ours = [k for k in ("dense_adjacency_kernel", "masked_attention_kernel")
+            if any(k in n for n in kernels)]
+    key = next(k for k in mem if kind in k)
+    log(f"[17] utils: probe_backend() -> {probe!r} in {probe_s:.1f} s; "
+        f"device_memory_stats() {key}: peak allocated "
+        f"{mem[key]['allocated_bytes.all.peak']} bytes; trace() of a "
+        f"Predictor call on 64 molecules: {len(events)} events, "
+        f"{len(kernels)} device kernels, of kernels 1-2: {ours}, on "
+        f"{card}")
+    log(f"[17] phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
 FEATURE_FIELDS = ("nodes", "edges", "node_mask", "edge_mask", "fp",
@@ -1302,7 +1783,7 @@ def baselines_phase(torch, train_smiles, train_y, val_smiles, val_y, tmpdir,
     log(f"[13] featurised {len(data['35'][0])} train + "
         f"{len(data['35'][1])} validation molecules twice (35- and 5-dim "
         f"nodes, no fingerprint) in {time.perf_counter() - t_phase:.1f} s")
-    total = {w: 0 for w in wrappers()}
+    total = dict.fromkeys(read_counts(), 0)
     first, ckpts = {}, {}
     for name in BASELINES:
         cfg = get_config(name, epochs=1)
@@ -1475,7 +1956,7 @@ def fingerprint_phase(torch, train_smiles, train_y, val_smiles, val_y,
     from mgat_graphsage_torch.train import Trainer, get_config
 
     t_phase = time.perf_counter()
-    total = {w: 0 for w in wrappers()}
+    total = dict.fromkeys(read_counts(), 0)
     for name, (n_tr, n_va) in FINGERPRINT_PRESETS.items():
         cfg = get_config(name, epochs=1)
         sm, y = train_smiles[:n_tr], train_y[:n_tr]
@@ -1574,7 +2055,8 @@ def explain_phase(torch, ckpt, tmpdir, card):
     want = {"dense_adjacency_cuda": nb1 + nb3,
             "fused_masked_attention_cuda": nb1 + nb3 * 101,
             "attention_bwd_cuda": nb1 + nb3 * 100,
-            "dy3_cuda": 0, "cnn_chain_bwd_cuda": 0}
+            "dy3_cuda": 0, "cnn_chain_bwd_cuda": 0, "dy3_cuda_bf16": 0,
+            "cnn_chain_bwd_cuda_bf16": 0}
     if counts != want:
         raise AssertionError(f"explain launched {counts}, expected {want} "
                              f"({nb1} Stage 1 batches, {nb3} Stage 3 "
@@ -2239,6 +2721,13 @@ def main(argv=None) -> int:
     explain_counts = explain_phase(
         torch, os.path.join(tmp.name, "train_pb0", "best_model.pt"),
         tmp.name, card)
+
+    # ---- 16. kernels 4-5 in bf16 on the bf16 training path ---------------
+    bf16_rows = bf16_cnn_phase(torch, train_ds, val_ds, val_smiles,
+                               tmp.name, card, timer)
+
+    # ---- 17. reference-checkpoint interchange and tooling ----------------
+    interchange_phase(torch, test_smiles, tmp.name, card, args.seed)
     tmp.cleanup()
 
     train_counts = runs[True]["counts"]
@@ -2311,7 +2800,7 @@ def main(argv=None) -> int:
         row["baseline_launches"] = base_counts[w]
         row["fingerprint_launches"] = fp_counts[w]
         row["explain_launches"] = explain_counts[w]
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels + bf16_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -49,8 +49,26 @@
 // thread-major, in whole lines), and a second kernel adds the blocks'
 // sums in block order.  No atomics, every sum in a fixed order: the result
 // repeats bit for bit.  Shared memory: 222 KB.
+//
+// bf16 variant (cnn_chain_bwd_bf16_launch, compute_dtype="bfloat16"): d3,
+// y2, y1, fp, w3 and w2 in bf16; the sums and the six outputs f32.  It is
+// the same kernel, instantiated on its storage type: a tile's bf16 window
+// is copied into one of two bf16 stage buffers (cp.async, 8-byte copies
+// of y2, y1 and fp where W % 4 == 0, else plain loads) and widened into
+// one f32 buffer at the start of its turn, so the products are the f32
+// kernel's on the exact bf16 values.  As the reference's kernel does
+// (pallas_cnn.py:_chain_bwd_kernel), d2 and d1 are rounded to bf16 before
+// their ReLU masks, and every sum stays f32.  Bound on the H100 at B=1024,
+// W=1024: 472 MB of bf16 activations, 141 us at 3.35 TB/s, against
+// ~131 GFLOP, 133 us at the dense bf16 tensor-core rate.  This variant
+// runs on the f32 FMA pipe (~2 ms for those operations alone at 67
+// TFLOP/s): it is the simple, exact design, not a fast one.  Shared
+// memory: 222 KB.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -90,12 +108,18 @@ constexpr int kSD2 = kP2 * kC2;
 constexpr int kSRed1 = kWarps * kC1 * 4;     // per-warp dw1 | db1 sums,
 constexpr int kSRed2 = 4 * kC2;              // per-row-group db2 sums: in d2s
 constexpr int kSmemFloats = kSW3 + kSW2 + 2 * kStage + kSD2 + kNW2;
+// bf16: one f32 stage buffer and two bf16 ones, each padded to 16 bytes
+constexpr int kRawStage = (kStage + 7) / 8 * 8;        // bf16 values
+constexpr int kSmemFloatsBf16 = kSW3 + kSW2 + kStage + kRawStage + kSD2 +
+                                kNW2;
+static_assert(kSmemFloatsBf16 * 4 <= 232448, "shared memory, bf16");
+static_assert(kStage % 4 == 0, "the widening pass takes 4 values a step");
 static_assert(kSRed1 + kSRed2 <= kSD2, "sums fit where d2 was");
 static_assert(kSmemFloats * 4 <= 232448, "shared memory of one block");
 static_assert(kR2 * 4 >= kP2 && 3 * kR2 <= kP2, "d2 row groups");
 static_assert(kR1 * kWarps == kTW, "d1 row groups");
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -107,6 +131,31 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
+template <typename T>
+constexpr bool kNarrow = std::is_same<T, __nv_bfloat16>::value;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// a dgrad as the storage type holds it (the reference rounds it to the
+// compute dtype before the ReLU mask)
+template <typename T>
+__device__ __forceinline__ float stored(float v) {
+  if constexpr (kNarrow<T>)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -148,25 +197,29 @@ __device__ __forceinline__ void reduce_scatter(float (&acc)[R][4], int ks) {
 
 // Copy tile `tile` into one stage buffer (zero outside [0, W)): d3 rows
 // pos-major, y2, y1 and fp rows as windows of positions w0-4 .. w0+TW+3,
-// in 16-byte copies where W % 4 == 0 (`vec`: a 16-byte chunk then lies
-// wholly inside or outside [0, W)), else in 4-byte copies.
-__device__ __forceinline__ void stage_tile(float* st, int tile, int nwt,
-                                           const float* __restrict__ d3g,
-                                           const float* __restrict__ y2g,
-                                           const float* __restrict__ y1g,
-                                           const float* __restrict__ fpg,
+// in 16-byte copies where W % 4 == 0 (`vec`: a chunk of 4 positions then
+// lies wholly inside or outside [0, W)), else in 4-byte copies.  bf16: the
+// same layout in bf16, d3 in 16-byte copies, the windows in 8-byte copies
+// where `vec`, else in plain loads and stores.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* st, int tile, int nwt,
+                                           const T* __restrict__ d3g,
+                                           const T* __restrict__ y2g,
+                                           const T* __restrict__ y1g,
+                                           const T* __restrict__ fpg,
                                            int width, bool vec, int t) {
+  constexpr int kPer16 = 16 / sizeof(T);     // values per 16-byte copy
   const int b = tile / nwt;
   const int w0 = (tile - b * nwt) * kTW;
-  for (int idx = t; idx < kP3 * (kC3 / 4); idx += kThreads) {
-    const int s = idx / (kC3 / 4);
-    const int c = (idx - s * (kC3 / 4)) * 4;
+  for (int idx = t; idx < kP3 * (kC3 / kPer16); idx += kThreads) {
+    const int s = idx / (kC3 / kPer16);
+    const int c = (idx - s * (kC3 / kPer16)) * kPer16;
     const int p = w0 - 2 + s;
     const bool ok = p >= 0 && p < width;
     cp_async16(st + s * kC3 + c,
                d3g + ((size_t)b * width + (ok ? p : 0)) * kC3 + c, ok);
   }
-  float* ys = st + kSD3;
+  T* ys = st + kSD3;
   const int step = vec ? 4 : 1;
   const int per_row = kWin / step;
   for (int idx = t; idx < kYRows * per_row; idx += kThreads) {
@@ -174,32 +227,61 @@ __device__ __forceinline__ void stage_tile(float* st, int tile, int nwt,
     const int q = (idx - row * per_row) * step;
     const int p = w0 - 4 + q;
     const bool ok = p >= 0 && p < width;
-    const float* src = row < kC2 ? y2g + ((size_t)b * kC2 + row) * width
-                     : row < kC2 + kC1
-                         ? y1g + ((size_t)b * kC1 + row - kC2) * width
-                         : fpg + (size_t)b * width;
-    if (vec)
-      cp_async16(ys + row * kWS + q, src + (ok ? p : 0), ok);
-    else
-      cp_async4(ys + row * kWS + q, src + (ok ? p : 0), ok);
+    const T* src = row < kC2 ? y2g + ((size_t)b * kC2 + row) * width
+                 : row < kC2 + kC1
+                     ? y1g + ((size_t)b * kC1 + row - kC2) * width
+                     : fpg + (size_t)b * width;
+    if constexpr (kNarrow<T>) {
+      if (vec)
+        cp_async8(ys + row * kWS + q, src + (ok ? p : 0), ok);
+      else
+        ys[row * kWS + q] = ok ? src[p] : __float2bfloat16_rn(0.0f);
+    } else {
+      if (vec)
+        cp_async16(ys + row * kWS + q, src + (ok ? p : 0), ok);
+      else
+        cp_async4(ys + row * kWS + q, src + (ok ? p : 0), ok);
+    }
   }
   cp_commit();
 }
 
+// the bf16 stage buffer `buf`, after the f32 one (kNarrow), or the f32
+// stage buffer `buf`
+template <typename T>
+__device__ __forceinline__ T* stage_buf(float* stages, int buf) {
+  if constexpr (kNarrow<T>)
+    return reinterpret_cast<T*>(stages + kStage) + buf * kRawStage;
+  else
+    return stages + buf * kStage;
+}
+
+// a staged bf16 tile, widened into the f32 stage buffer, 4 values a step
+__device__ __forceinline__ void widen_stage(float* dst,
+                                            const __nv_bfloat16* src, int t) {
+  for (int i = t; i < kStage / 4; i += kThreads) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src + 4 * i);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    *reinterpret_cast<float4*>(dst + 4 * i) =
+        make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-cnn_chain_bwd_kernel(const float* __restrict__ d3g,
-                     const float* __restrict__ y2g,
-                     const float* __restrict__ y1g,
-                     const float* __restrict__ fpg,
-                     const float* __restrict__ w3g,
-                     const float* __restrict__ w2g,
+cnn_chain_bwd_kernel(const T* __restrict__ d3g, const T* __restrict__ y2g,
+                     const T* __restrict__ y1g, const T* __restrict__ fpg,
+                     const T* __restrict__ w3g, const T* __restrict__ w2g,
                      float* __restrict__ partials, int batch, int width,
                      int vec) {
   extern __shared__ __align__(16) float smem[];
   float* w3s = smem;
   float* w2s = w3s + kSW3;
   float* stages = w2s + kSW2;
-  float* d2s = stages + 2 * kStage;
+  float* d2s = stages + (kNarrow<T> ? kStage + kRawStage : 2 * kStage);
   float* dw2a = d2s + kSD2;      // [k][i][o]
 
   const int t = threadIdx.x;
@@ -208,21 +290,22 @@ cnn_chain_bwd_kernel(const float* __restrict__ d3g,
   const int nwt = (width + kTW - 1) / kTW;
   const int ntiles = batch * nwt;
   if ((int)blockIdx.x < ntiles)
-    stage_tile(stages, blockIdx.x, nwt, d3g, y2g, y1g, fpg, width, vec, t);
+    stage_tile(stage_buf<T>(stages, 0), blockIdx.x, nwt, d3g, y2g, y1g, fpg,
+               width, vec, t);
 
   for (int idx = t; idx < kNW3; idx += kThreads) {
     const int o = idx / (kC2 * 3);
     const int rem = idx - o * (kC2 * 3);
     const int i = rem / 3;
     const int k = rem - i * 3;
-    w3s[(k * kC3 + o) * kC2 + i] = w3g[idx];
+    w3s[(k * kC3 + o) * kC2 + i] = widen(w3g[idx]);
   }
   for (int idx = t; idx < kNW2; idx += kThreads) {
     const int o = idx / (kC1 * 3);
     const int rem = idx - o * (kC1 * 3);
     const int i = rem / 3;
     const int k = rem - i * 3;
-    w2s[(k * kC2 + o) * kC1 + i] = w2g[idx];
+    w2s[(k * kC2 + o) * kC1 + i] = widen(w2g[idx]);
   }
   for (int idx = t; idx < kNW2; idx += kThreads) dw2a[idx] = 0.0f;
 
@@ -256,9 +339,13 @@ cnn_chain_bwd_kernel(const float* __restrict__ d3g,
     cp_wait_all();
     __syncthreads();   // this tile staged; the previous tile's readers done
     if (tile + (int)gridDim.x < ntiles)
-      stage_tile(stages + (buf ^ 1) * kStage, tile + gridDim.x, nwt, d3g,
+      stage_tile(stage_buf<T>(stages, buf ^ 1), tile + gridDim.x, nwt, d3g,
                  y2g, y1g, fpg, width, vec, t);
-    const float* d3s = stages + buf * kStage;
+    const float* d3s = stages + (kNarrow<T> ? 0 : buf * kStage);
+    if constexpr (kNarrow<T>) {
+      widen_stage(stages, stage_buf<T>(stages, buf), t);
+      __syncthreads();   // the tile is in the f32 buffer
+    }
     const float* y2s = d3s + kSD3;            // [64][kWS]
     const float* y1s = y2s + kC2 * kWS;       // [32][kWS]
     const float* fps = y1s + kC1 * kWS;
@@ -328,7 +415,8 @@ cnn_chain_bwd_kernel(const float* __restrict__ d3g,
       for (int r = 0; r < kR2; ++r) {
         const int s2 = r2 + r;
         if (s2 >= kR2 * rg) {
-          const float v = y2s[ch * kWS + s2 + kQ] > 0.0f ? acc[r][0] : 0.0f;
+          const float v =
+              y2s[ch * kWS + s2 + kQ] > 0.0f ? stored<T>(acc[r][0]) : 0.0f;
           d2s[s2 * kC2 + ch] = v;
           if (s2 >= 1 && s2 <= kTW) db2p += v;
         }
@@ -419,7 +507,7 @@ cnn_chain_bwd_kernel(const float* __restrict__ d3g,
 #pragma unroll
       for (int r = 0; r < kR1; ++r) {
         const int sc = r1 + r;
-        const float v = mv[r] > 0.0f ? acc[r][0] : 0.0f;
+        const float v = mv[r] > 0.0f ? stored<T>(acc[r][0]) : 0.0f;
 #pragma unroll
         for (int k = 0; k < 3; ++k)
           dw1p[k] = fmaf(v, fps[sc + k + kQ], dw1p[k]);
@@ -501,6 +589,37 @@ __global__ void cnn_chain_reduce_kernel(const float* __restrict__ partials,
 
 }  // namespace
 
+namespace {
+
+// the chain kernel on storage type T (align: the bytes a window copy
+// moves), then the reduction over blocks
+template <typename T>
+int chain_launch(const void* d3, const void* y2, const void* y1,
+                 const void* fp, const void* w3, const void* w2,
+                 void* partials, void* out, int batch, int width, int blocks,
+                 void* stream, size_t align, size_t smem) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int vec = width % 4 == 0 && (reinterpret_cast<size_t>(y2) |
+                                     reinterpret_cast<size_t>(y1) |
+                                     reinterpret_cast<size_t>(fp)) % align == 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      cnn_chain_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cnn_chain_bwd_kernel<T><<<blocks, kThreads, smem, s>>>(
+      static_cast<const T*>(d3), static_cast<const T*>(y2),
+      static_cast<const T*>(y1), static_cast<const T*>(fp),
+      static_cast<const T*>(w3), static_cast<const T*>(w2),
+      static_cast<float*>(partials), batch, width, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cnn_chain_reduce_kernel<<<(kNTot + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(partials), static_cast<float*>(out), blocks);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // d3 [B, W, 128], y2 [B, 64, W], y1 [B, 32, W], fp [B, W], w3 [128, 64, 3],
 // w2 [64, 32, 3]: f32, contiguous, on the current device, d3 16-byte
 // aligned.  partials [blocks, 31040] and out [31040] f32 (dw3 | db3 | dw2 |
@@ -511,23 +630,20 @@ extern "C" int cnn_chain_bwd_launch(const void* d3, const void* y2,
                                     const void* w3, const void* w2,
                                     void* partials, void* out, int batch,
                                     int width, int blocks, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int vec = width % 4 == 0 && (reinterpret_cast<size_t>(y2) |
-                                     reinterpret_cast<size_t>(y1) |
-                                     reinterpret_cast<size_t>(fp)) % 16 == 0;
-  const size_t smem = (size_t)kSmemFloats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      cnn_chain_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cnn_chain_bwd_kernel<<<blocks, kThreads, smem, s>>>(
-      static_cast<const float*>(d3), static_cast<const float*>(y2),
-      static_cast<const float*>(y1), static_cast<const float*>(fp),
-      static_cast<const float*>(w3), static_cast<const float*>(w2),
-      static_cast<float*>(partials), batch, width, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  cnn_chain_reduce_kernel<<<(kNTot + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(partials), static_cast<float*>(out), blocks);
-  return (int)cudaGetLastError();
+  return chain_launch<float>(d3, y2, y1, fp, w3, w2, partials, out, batch,
+                             width, blocks, stream, 16,
+                             (size_t)kSmemFloats * sizeof(float));
+}
+
+// The same in bf16: d3, y2, y1, fp, w3 and w2 bf16 (d3 16-byte aligned);
+// partials and out f32.
+extern "C" int cnn_chain_bwd_bf16_launch(const void* d3, const void* y2,
+                                         const void* y1, const void* fp,
+                                         const void* w3, const void* w2,
+                                         void* partials, void* out,
+                                         int batch, int width, int blocks,
+                                         void* stream) {
+  return chain_launch<__nv_bfloat16>(d3, y2, y1, fp, w3, w2, partials, out,
+                                     batch, width, blocks, stream, 8,
+                                     (size_t)kSmemFloatsBf16 * sizeof(float));
 }

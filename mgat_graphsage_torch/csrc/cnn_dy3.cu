@@ -43,7 +43,27 @@
 // stores.  Each output is one thread's sum over h in ascending order: no
 // atomics, and the result repeats bit for bit.  Shared memory: 224 KB at
 // B <= 128, H = 256.
+//
+// bf16 variant (cnn_dy3_bf16_launch, compute_dtype="bfloat16"): dy [B, H],
+// fc1_w [H, K], y3 and dy3 [B, K], all bf16.  As the reference's kernel
+// does (pallas_cnn.py:_dy3_kernel), the products are summed in f32 and the
+// sum is rounded once to bf16 (round to nearest even), then masked.
+// Bound on the H100 at B=1024, H=256, K=131072: bytes.  fc1 (67 MB), y3
+// and dy3 (268 MB each) are 604 MB, 180 us at 3.35 TB/s; the 68.7 GFLOP
+// take 69 us at the dense bf16 tensor-core rate.  So this variant uses
+// the tensor cores: mma.sync m16n8k16 (bf16 in, f32 sums), one 128 x 128
+// output tile per block (8 warps of 64 x 32), the reduction over h in
+// chunks of 32 through a 4-stage cp.async ring (dy rows and weight rows,
+// ldmatrix to fragments, the weight's with .trans since its rows run
+// along the columns).  Blocks take the molecule tiles of one column
+// block next to each other, so each weight column block comes from device
+// memory once and from L2 for the others.  The epilogue reads the mask
+// from y3 and writes bf16 pairs.  Each output is one thread's fixed
+// sequence of mma steps: the result repeats bit for bit.  Needs H % 8 ==
+// 0, K % 8 == 0 and 16-byte aligned tensors (checked by the caller).
+// Shared memory: 74 KB, two blocks per SM.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -294,5 +314,183 @@ extern "C" int cnn_dy3_launch(const void* dyt, const void* fc1_w,
       static_cast<const float*>(dyt), static_cast<const float*>(fc1_w),
       static_cast<const float*>(y3), static_cast<float*>(out), batch, bpad,
       h, k, resident);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+constexpr int kHM = 128;                  // molecules per tile
+constexpr int kHN = 128;                  // columns per tile
+constexpr int kHK = 32;                   // rows of the weight per stage
+constexpr int kHStages = 4;
+constexpr int kHThreads = 256;            // 8 warps: 2 x 4 of 64 x 32
+constexpr int kAS = kHK + 8;              // dy tile row stride: 80 bytes
+constexpr int kBS = kHN + 8;              // weight tile row stride: 272 B
+constexpr int kHStage = kHM * kAS + kHK * kBS;   // bf16 per stage
+
+__device__ __forceinline__ void cp_async16b(void* dst, const void* src,
+                                            bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// d[0..3] += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(kHThreads, 2)
+cnn_dy3_bf16_kernel(const __nv_bfloat16* __restrict__ dy,
+                    const __nv_bfloat16* __restrict__ w,
+                    const __nv_bfloat16* __restrict__ y3,
+                    __nv_bfloat16* __restrict__ out, int batch, int h,
+                    int k) {
+  extern __shared__ __align__(16) __nv_bfloat16 hsmem[];
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int warp = t / 32;
+  const int wm = warp / 4;        // rows 64 * wm .. +63 of the tile
+  const int wn = warp % 4;        // columns 32 * wn .. +31
+  const int mt = (batch + kHM - 1) / kHM;
+  const int b0 = (int)(blockIdx.x % mt) * kHM;
+  const int n0 = (int)(blockIdx.x / mt) * kHN;
+  const int nk = (h + kHK - 1) / kHK;
+
+  // chunk c of the reduction into stage c % kHStages: 128 dy rows x 32 and
+  // 32 weight rows x 128, 16 bytes (8 values) a copy, zero outside
+  auto issue = [&](int c) {
+    if (c < nk) {
+      __nv_bfloat16* as = hsmem + (c % kHStages) * kHStage;
+      __nv_bfloat16* bs = as + kHM * kAS;
+      const int h0 = c * kHK;
+      for (int idx = t; idx < kHM * (kHK / 8); idx += kHThreads) {
+        const int r = idx / (kHK / 8);
+        const int q = (idx % (kHK / 8)) * 8;
+        const bool ok = b0 + r < batch && h0 + q < h;
+        cp_async16b(as + r * kAS + q,
+                    ok ? dy + (size_t)(b0 + r) * h + h0 + q : dy, ok);
+      }
+      for (int idx = t; idx < kHK * (kHN / 8); idx += kHThreads) {
+        const int r = idx / (kHN / 8);
+        const int q = (idx % (kHN / 8)) * 8;
+        const bool ok = h0 + r < h && n0 + q < k;
+        cp_async16b(bs + r * kBS + q,
+                    ok ? w + (size_t)(h0 + r) * k + n0 + q : w, ok);
+      }
+    }
+    cp_commit();
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int c = 0; c < kHStages - 1; ++c) issue(c);
+  for (int c = 0; c < nk; ++c) {
+    cp_wait<kHStages - 2>();      // chunk c has landed (this thread's part)
+    __syncthreads();              // ... everyone's; slot (c-1) % S is free
+    issue(c + kHStages - 1);
+    const __nv_bfloat16* as = hsmem + (c % kHStages) * kHStage;
+    const __nv_bfloat16* bs = as + kHM * kAS;
+#pragma unroll
+    for (int ks = 0; ks < kHK; ks += 16) {
+      unsigned a[4][4], b[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldsm_x4(a[i], as + (64 * wm + 16 * i + lane % 16) * kAS + ks +
+                          (lane / 16) * 8);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        ldsm_x4_t(b[j], bs + (ks + lane % 8 + ((lane / 8) % 2) * 8) * kBS +
+                            32 * wn + 16 * j + (lane / 16) * 8);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16(acc[i][j], a[i], b[j / 2][2 * (j % 2)],
+                   b[j / 2][2 * (j % 2) + 1]);
+    }
+  }
+  cp_wait<0>();
+
+  // epilogue: round each sum once to bf16, keep it where y3 > 0
+  const int g = lane / 4;
+  const int q2 = 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = b0 + 64 * wm + 16 * i + g + 8 * hf;
+      if (row >= batch) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + 32 * wn + 8 * j + q2;
+        if (col >= k) continue;
+        const size_t at = (size_t)row * k + col;
+        const __nv_bfloat162 m =
+            *reinterpret_cast<const __nv_bfloat162*>(y3 + at);
+        const __nv_bfloat162 v = __floats2bfloat162_rn(
+            __low2float(m) > 0.0f ? acc[i][j][2 * hf] : 0.0f,
+            __high2float(m) > 0.0f ? acc[i][j][2 * hf + 1] : 0.0f);
+        *reinterpret_cast<__nv_bfloat162*>(out + at) = v;
+      }
+    }
+}
+
+}  // namespace
+
+// dy [B, H], fc1_w [H, K], y3 and out [B, K]: bf16, contiguous, on the
+// current device, 16-byte aligned, H % 8 == 0 and K % 8 == 0 (checked by
+// the caller).  Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int cnn_dy3_bf16_launch(const void* dy, const void* fc1_w,
+                                   const void* y3, void* out, int batch,
+                                   int h, int k, void* stream) {
+  if (batch == 0 || k == 0) return 0;
+  if (h == 0) {                   // an empty sum: dy3 = 0
+    return (int)cudaMemsetAsync(out, 0, (size_t)batch * k * 2,
+                                (cudaStream_t)stream);
+  }
+  const size_t smem = (size_t)kHStages * kHStage * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(
+      cnn_dy3_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((batch + kHM - 1) / kHM) *
+                          ((k + kHN - 1) / kHN);
+  cnn_dy3_bf16_kernel<<<(unsigned)tiles, kHThreads, smem,
+                        (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(dy),
+      static_cast<const __nv_bfloat16*>(fc1_w),
+      static_cast<const __nv_bfloat16*>(y3),
+      static_cast<__nv_bfloat16*>(out), batch, h, k);
   return (int)cudaGetLastError();
 }

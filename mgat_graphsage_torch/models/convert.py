@@ -29,7 +29,9 @@ bf16, with ``(r, c)`` pairs for factored second moments) maps to the
 leaf rules, so a run trained in JAX resumes in the port and back.  numpy
 has no bfloat16 of its own: a bf16 array is recognised by its dtype's
 name and crosses through a 16-bit integer view, so nothing here imports
-``ml_dtypes``.
+``ml_dtypes``.  A tree's leaf may also be a tensor already (the bf16
+leaves that ``train/checkpoint.py`` decodes from a msgpack checkpoint
+without ``ml_dtypes``).
 """
 
 from __future__ import annotations
@@ -58,8 +60,11 @@ def _flatten(tree, prefix=()):
 
 
 def _from_numpy(a) -> torch.Tensor:
-    """An owned tensor of ``a``.  A bf16 array (``ml_dtypes.bfloat16``,
-    which numpy knows only by name) crosses through its 16-bit view."""
+    """An owned tensor of ``a`` (a numpy array or a tensor).  A bf16 array
+    (``ml_dtypes.bfloat16``, which numpy knows only by name) crosses
+    through its 16-bit view."""
+    if isinstance(a, torch.Tensor):
+        return a.contiguous().clone()
     a = np.array(a, order="C")
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -86,15 +91,16 @@ def params_from_jax(tree, batch_stats=None) -> Dict[str, torch.Tensor]:
     for path, a in _flatten(batch_stats or {}):
         if path[-1] not in ("mean", "var"):
             raise ValueError(f"unknown batch_stats leaf {'/'.join(path)}")
-        sd[".".join(path)] = _from_numpy(np.asarray(a))
+        sd[".".join(path)] = _from_numpy(a)
     for path, a in _flatten(tree):
-        a = np.asarray(a)
+        tensor = isinstance(a, torch.Tensor)
+        a = a if tensor else np.asarray(a)
         leaf = path[-1]
         if leaf == "kernel":
             if a.ndim == 2:
                 a = a.T
             elif a.ndim == 3:
-                a = a.transpose(2, 1, 0)
+                a = a.permute(2, 1, 0) if tensor else a.transpose(2, 1, 0)
             else:
                 raise ValueError(f"unexpected kernel rank at {path}")
             leaf = "weight"

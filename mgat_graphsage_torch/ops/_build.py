@@ -36,7 +36,7 @@ import subprocess
 import threading
 from typing import Dict, Iterable, List
 
-__all__ = ["KERNELS", "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "BUILD_LOGS",
+__all__ = ["KERNELS", "ENTRIES", "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "BUILD_LOGS",
            "load", "build_all", "library_path", "local_sources",
            "ptxas_report", "hashed_path", "start_build", "finish_build"]
 
@@ -59,6 +59,11 @@ KERNELS: Dict[str, tuple] = {
                       [_P] * 8 + [_I, _I, _I, ctypes.c_float, _I, _P]),
     "cnn_dy3": ("cnn_dy3_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "cnn_chain_bwd": ("cnn_chain_bwd_launch", [_P] * 8 + [_I, _I, _I, _P]),
+}
+# further entry points of a source (its bf16 variants): symbol -> argtypes
+ENTRIES: Dict[str, list] = {
+    "cnn_dy3_bf16_launch": KERNELS["cnn_dy3"][1],
+    "cnn_chain_bwd_bf16_launch": KERNELS["cnn_chain_bwd"][1],
 }
 
 _loaded: Dict[str, object] = {}
@@ -172,31 +177,41 @@ def build_all(names: Iterable[str] = tuple(KERNELS)) -> List[str]:
     return [library_path(n) for n in names]
 
 
-def load(name: str):
-    """The ctypes entry point of kernel ``name``, built if needed."""
-    fn = _loaded.get(name)
+def load(name: str, symbol: str = ""):
+    """The ctypes entry point of kernel source ``name``, built if needed:
+    its first (``KERNELS``), or ``symbol`` (one of ``ENTRIES``)."""
+    symbol = symbol or KERNELS[name][0]
+    fn = _loaded.get(symbol)
     if fn is None:
         _finish(name, _start(name))
-        symbol, argtypes = KERNELS[name]
         lib = ctypes.CDLL(library_path(name))
         fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
+        fn.argtypes = KERNELS[name][1] if symbol == KERNELS[name][0] \
+            else ENTRIES[symbol]
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        _loaded[symbol] = fn
     return fn
+
+
+_TYPE_ARGS = {"f": "float", "13__nv_bfloat16": "bf16"}
 
 
 def _demangle(symbol: str) -> str:
     """``name<N>`` of a mangled ``..._kernel`` (with its integer template
-    argument, if any); the symbol itself when no such name is in it."""
+    argument, or ``<float>`` / ``<bf16>`` for its storage type, if any);
+    the symbol itself when no such name is in it."""
     for i in range(len(symbol)):
         for j in range(i + 1, min(i + 3, len(symbol)) + 1):
             if not symbol[i:j].isdigit():
                 break
             name = symbol[j:j + int(symbol[i:j])]
             if name.endswith("_kernel") and name.isidentifier():
-                arg = re.match(r"ILi(\d+)E", symbol[j + len(name):])
-                return name + (f"<{arg.group(1)}>" if arg else "")
+                rest = symbol[j + len(name):]
+                arg = re.match(r"ILi(\d+)E", rest)
+                if arg:
+                    return f"{name}<{arg.group(1)}>"
+                arg = re.match(r"I(f|13__nv_bfloat16)E", rest)
+                return name + (f"<{_TYPE_ARGS[arg.group(1)]}>" if arg else "")
     return symbol
 
 

@@ -19,6 +19,14 @@ write them), ``y3 [B, W, 128]`` (the pos-major flatten fc1 reads), and
 channel counts are the branch's (128, 64, 32).  On a CUDA tensor each
 wrapper launches its kernel or raises; on a CPU tensor it returns its
 plain version.
+
+Operands are f32 or bf16, one dtype a call (the bf16 working copy of
+``compute_dtype="bfloat16"``); the chain's six results are f32 either way.
+In bf16 the kernels and their plain versions round where the reference's
+kernels do (``pallas_cnn.py:122``, ``:242``, ``:251``): products summed in
+f32, ``dy3`` rounded once to bf16 before its mask, the conv dgrads ``d2``
+and ``d1`` rounded to bf16 before theirs.  Each wrapper counts its f32
+launches in ``launches`` and its bf16 launches in ``launches_bf16``.
 """
 
 from __future__ import annotations
@@ -38,13 +46,25 @@ _TILE_W = 32                     # positions per tile of the chain kernel
 _DY3_TILE_B = 128                # molecules per tile of the dy3 kernel
 
 
+def _dtype(name: str, ts) -> torch.dtype:
+    """The one dtype of ``ts``, f32 or bf16; raises for any other or a
+    mix."""
+    dts = {t.dtype for t in ts}
+    if len(dts) != 1 or not dts <= {torch.float32, torch.bfloat16}:
+        raise TypeError(f"{name} takes f32 or bf16 inputs of one dtype, got "
+                        f"{[t.dtype for t in ts]}")
+    return dts.pop()
+
+
 def dy3_plain(dy: torch.Tensor, fc1_weight: torch.Tensor,
               y3: torch.Tensor) -> torch.Tensor:
     """``dy [B, H]``, ``fc1_weight [H, W*C]`` (pos-major columns),
     ``y3 [B, W, C]`` -> ``(dy @ fc1_weight).view(B, W, C)`` where
-    ``y3 > 0``, else 0."""
-    dx = torch.matmul(dy, fc1_weight).view(y3.shape)
-    return torch.where(y3 > 0, dx, torch.zeros((), dtype=dx.dtype,
+    ``y3 > 0``, else 0; in y3's dtype.  bf16: the product of the f32
+    values, rounded once to bf16."""
+    dt = _dtype("dy3_plain", (dy, fc1_weight, y3))
+    dx = torch.matmul(dy.float(), fc1_weight.float()).to(dt).view(y3.shape)
+    return torch.where(y3 > 0, dx, torch.zeros((), dtype=dt,
                                                 device=dx.device))
 
 
@@ -71,28 +91,36 @@ def cnn_chain_bwd_plain(dy3: torch.Tensor, y2: torch.Tensor,
                         w3: torch.Tensor, w2: torch.Tensor):
     """``dy3 [B, W, 128]`` (masked conv3 gradient), ``y2 [B, 64, W]``,
     ``y1 [B, 32, W]``, ``fp [B, W]``, ``w3 [128, 64, 3]``, ``w2 [64, 32,
-    3]`` -> ``(dw3, db3, dw2, db2, dw1 [32, 1, 3], db1)`` in torch
-    layouts."""
+    3]`` -> ``(dw3, db3, dw2, db2, dw1 [32, 1, 3], db1)`` in torch layouts,
+    f32.  bf16: f32 math on the bf16 values, with the dgrads rounded to
+    bf16 before their masks."""
+    dt = _dtype("cnn_chain_bwd_plain", (dy3, y2, y1, fp, w3, w2))
+    dy3, y2, y1, fp, w3, w2 = (t.float() for t in (dy3, y2, y1, fp, w3, w2))
+
+    def stored(d):     # a dgrad as the compute dtype holds it
+        return d if dt == torch.float32 else d.to(dt).float()
+
     d3 = dy3.transpose(1, 2)
     dw3, db3 = _wgrad(d3, y2)
-    zero = torch.zeros((), dtype=dy3.dtype, device=dy3.device)
-    d2 = torch.where(y2 > 0, _dgrad(d3, w3), zero)
+    zero = torch.zeros((), device=dy3.device)
+    d2 = torch.where(y2 > 0, stored(_dgrad(d3, w3)), zero)
     dw2, db2 = _wgrad(d2, y1)
-    d1 = torch.where(y1 > 0, _dgrad(d2, w2), zero)
+    d1 = torch.where(y1 > 0, stored(_dgrad(d2, w2)), zero)
     dw1, db1 = _wgrad(d1, fp.unsqueeze(1))
     return dw3, db3, dw2, db2, dw1, db1
 
 
-def _check(name: str, ts) -> None:
+def _check(name: str, ts) -> torch.dtype:
+    """Raises unless ``ts`` are contiguous, on one CUDA device and of one
+    dtype, f32 or bf16; returns the dtype."""
     dev = ts[0].device
     if dev.type != "cuda" or any(t.device != dev for t in ts):
         raise ValueError(f"{name}: all inputs must be on one CUDA device, "
                          f"got {[str(t.device) for t in ts]}")
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError(f"{name} takes f32 inputs, got "
-                        f"{[t.dtype for t in ts]}")
+    dt = _dtype(name, ts)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{name} takes contiguous tensors")
+    return dt
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -101,10 +129,11 @@ def _stream(t: torch.Tensor) -> int:
 
 def dy3_cuda(dy: torch.Tensor, fc1_weight: torch.Tensor,
              y3: torch.Tensor) -> torch.Tensor:
-    """Kernel version of :func:`dy3_plain` (same arguments, f32)."""
+    """Kernel version of :func:`dy3_plain` (same arguments, f32 or
+    bf16)."""
     if dy.device.type == "cpu":
         return dy3_plain(dy, fc1_weight, y3)
-    _check("dy3_cuda", (dy, fc1_weight, y3))
+    dt = _check("dy3_cuda", (dy, fc1_weight, y3))
     b, h = dy.shape if dy.dim() == 2 else (-1, -1)
     if y3.dim() != 3 or y3.shape[0] != b or fc1_weight.dim() != 2 \
             or tuple(fc1_weight.shape) != (h, y3.shape[1] * y3.shape[2]):
@@ -115,12 +144,25 @@ def dy3_cuda(dy: torch.Tensor, fc1_weight: torch.Tensor,
     if k % 4 or fc1_weight.data_ptr() % 16 or y3.data_ptr() % 16:
         raise ValueError("dy3_cuda needs W*C % 4 == 0 and 16-byte aligned "
                          "fc1_weight and y3")
+    if dt == torch.bfloat16 and (k % 8 or h % 8 or dy.data_ptr() % 16):
+        raise ValueError("dy3_cuda in bf16 needs W*C % 8 == 0, H % 8 == 0 "
+                         "and a 16-byte aligned dy")
     from ._build import load
 
+    out = torch.empty_like(y3)
+    if dt == torch.bfloat16:
+        with torch.cuda.device(dy.device):
+            err = load("cnn_dy3", "cnn_dy3_bf16_launch")(
+                dy.data_ptr(), fc1_weight.data_ptr(), y3.data_ptr(),
+                out.data_ptr(), b, h, k, _stream(dy))
+        if err:
+            raise RuntimeError(f"cnn_dy3 bf16 kernel launch failed: "
+                               f"cudaError {err}")
+        dy3_cuda.launches_bf16 += 1
+        return out
     # the kernel reads dy transposed, its columns padded to a whole tile
     bpad = -(-b // _DY3_TILE_B) * _DY3_TILE_B
     dyt = (dy.t() if bpad == b else F.pad(dy.t(), (0, bpad - b))).contiguous()
-    out = torch.empty_like(y3)
     with torch.cuda.device(dy.device):
         err = load("cnn_dy3")(dyt.data_ptr(), fc1_weight.data_ptr(),
                               y3.data_ptr(), out.data_ptr(), b, h, k,
@@ -132,17 +174,18 @@ def dy3_cuda(dy: torch.Tensor, fc1_weight: torch.Tensor,
 
 
 dy3_cuda.launches = 0
+dy3_cuda.launches_bf16 = 0
 
 
 def cnn_chain_bwd_cuda(dy3: torch.Tensor, y2: torch.Tensor,
                        y1: torch.Tensor, fp: torch.Tensor,
                        w3: torch.Tensor, w2: torch.Tensor):
-    """Kernel version of :func:`cnn_chain_bwd_plain` (same arguments and
-    results, f32)."""
+    """Kernel version of :func:`cnn_chain_bwd_plain` (same arguments, f32
+    or bf16, and results, f32)."""
     if dy3.device.type == "cpu":
         return cnn_chain_bwd_plain(dy3, y2, y1, fp, w3, w2)
     ts = (dy3, y2, y1, fp, w3, w2)
-    _check("cnn_chain_bwd_cuda", ts)
+    dt = _check("cnn_chain_bwd_cuda", ts)
     b, w = fp.shape if fp.dim() == 2 else (0, 0)
     want = [(b, w, C3), (b, C2, w), (b, C1, w), (b, w), (C3, C2, 3),
             (C2, C1, 3)]
@@ -160,20 +203,26 @@ def cnn_chain_bwd_cuda(dy3: torch.Tensor, y2: torch.Tensor,
     partials = torch.empty((blocks, _NTOT), dtype=torch.float32,
                            device=dy3.device)
     out = torch.empty(_NTOT, dtype=torch.float32, device=dy3.device)
+    bf16 = dt == torch.bfloat16
     with torch.cuda.device(dy3.device):
-        err = load("cnn_chain_bwd")(
+        err = load("cnn_chain_bwd", "cnn_chain_bwd_bf16_launch" if bf16
+                   else "")(
             dy3.data_ptr(), y2.data_ptr(), y1.data_ptr(), fp.data_ptr(),
             w3.data_ptr(), w2.data_ptr(), partials.data_ptr(),
             out.data_ptr(), b, w, blocks, _stream(dy3))
     if err:
-        raise RuntimeError(f"cnn_chain_bwd kernel launch failed: "
-                           f"cudaError {err}")
-    cnn_chain_bwd_cuda.launches += 1
+        raise RuntimeError(f"cnn_chain_bwd{' bf16' if bf16 else ''} kernel "
+                           f"launch failed: cudaError {err}")
+    if bf16:
+        cnn_chain_bwd_cuda.launches_bf16 += 1
+    else:
+        cnn_chain_bwd_cuda.launches += 1
     return tuple(part.view(shape) for part, (_, shape) in
                  zip(out.split([n for n, _ in _SPLIT]), _SPLIT))
 
 
 cnn_chain_bwd_cuda.launches = 0
+cnn_chain_bwd_cuda.launches_bf16 = 0
 
 
 def _conv_relu(x, weight, bias):
@@ -183,7 +232,8 @@ def _conv_relu(x, weight, bias):
 
 class _CNNTail(torch.autograd.Function):
     """Forward: the module path's ops.  Backward: kernels 4 and 5 plus the
-    fc1 weight and bias gradients."""
+    fc1 weight and bias gradients, each gradient in its parameter's dtype
+    (``pallas_cnn.py:374-377``)."""
 
     @staticmethod
     def forward(ctx, fp, w1, b1, w2, b2, w3, b3, fc1_w, fc1_b):
@@ -201,8 +251,9 @@ class _CNNTail(torch.autograd.Function):
         dfc1_b = g.sum(0)
         dfc1_w = torch.matmul(g.t(), xf)
         dy3 = dy3_cuda(g, fc1_w, xf.view(xf.shape[0], -1, C3))
-        dw3, db3, dw2, db2, dw1, db1 = cnn_chain_bwd_cuda(dy3, y2, y1, fp,
-                                                          w3, w2)
+        dw3, db3, dw2, db2, dw1, db1 = (
+            d.to(w3.dtype) for d in cnn_chain_bwd_cuda(dy3, y2, y1, fp, w3,
+                                                       w2))
         return None, dw1, db1, dw2, db2, dw3, db3, dfc1_w, dfc1_b
 
 

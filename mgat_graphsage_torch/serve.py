@@ -387,8 +387,9 @@ def serve_until_signalled(server: ThreadingHTTPServer) -> None:
 def main(argv=None):
     p = argparse.ArgumentParser(
         description="Serve SMILES->pChEMBL predictions over HTTP")
-    p.add_argument("ckpt", help="checkpoint of the port (.pt, with its "
-                                ".json sidecar)")
+    p.add_argument("ckpt", help="checkpoint of the port (.pt) or of the "
+                                "JAX package (.msgpack), with its .json "
+                                "sidecar")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--batch-size", type=int, default=64)

@@ -49,7 +49,8 @@ the same dropout masks.
 
 On CUDA each step runs the adjacency kernel, the attention kernels
 (forward and backward; the modified attention only) and, with
-``cnn_pallas_bwd``, the CNN backward kernels (f32 compute only).  The
+``cnn_pallas_bwd``, the CNN backward kernels (in the compute dtype, f32
+or bf16, once a step, remat included).  The
 baselines' layers are plain PyTorch after the adjacency kernel.  The
 attention and the adjacency run in f32 inside the bf16 step too, as in
 the reference.  Entry points run on CUDA unless given ``device="cpu"``.
@@ -73,7 +74,12 @@ from torch.utils.checkpoint import checkpoint
 from ..data import MolecularDataset
 from ..data.packed import gather_batch, pack_dataset, to_device
 from ..device import resolve_device
-from ..models import build_model, kl_loss, reset_parameters
+from ..models import (
+    adam_state_from_jax,
+    build_model,
+    kl_loss,
+    reset_parameters,
+)
 from ..models.layers import frozen_running_stats, matmul_precision
 from ..ops import dense_adjacency
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -118,12 +124,6 @@ class Trainer:
             raise NotImplementedError("meshes (multi-GPU training) are not "
                                       "ported yet (ROADMAP Queue 1 item 10)")
         check_ported(cfg)
-        if cfg.cnn_pallas_bwd and cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "cnn_pallas_bwd=True with compute_dtype="
-                f"{cfg.compute_dtype!r}: the CNN backward kernels take f32 "
-                "only; their bf16 variants are not ported yet (ROADMAP "
-                "Queue 1 item 3b)")
         self.cfg = cfg
         self._cdt = None if cfg.compute_dtype == "float32" \
             else DTYPES[cfg.compute_dtype]
@@ -433,11 +433,15 @@ class Trainer:
 
     def load(self, path: str) -> Tuple[TrainState, Dict]:
         """A fresh state with the checkpoint's weights, step and (from a
-        full checkpoint) optimizer state; and the sidecar."""
+        full checkpoint) optimizer state; and the sidecar.  A reference
+        package checkpoint (``.msgpack``) brings its Adam state across
+        through ``models/convert.py::adam_state_from_jax``."""
         state = self.init_state()
         sd, step, meta, opt = load_checkpoint(path, with_optimizer=True)
         state.model.load_state_dict(sd)
         if opt is not None:
+            if path.endswith(".msgpack"):
+                opt = adam_state_from_jax(opt, state.model, state.optimizer)
             state.optimizer.load_state_dict(opt)
         state.step = step
         return state, meta

@@ -69,3 +69,14 @@ assert not bad, bad
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert not build.exists()
+
+
+def test_walk_covers_interchange_and_tooling():
+    """The checkpoint interchange (``compat.py``, ``compare/``) and the
+    tooling (``utils/``) are in the walk above, as every module is."""
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for f in ("compat.py", "compare/__init__.py", "compare/torch_ref.py",
+              "compare/torch_ref_gnn.py", "utils/__init__.py",
+              "utils/logging.py", "utils/profiling.py", "utils/backend.py",
+              "train/checkpoint.py"):
+        assert f in rel, f

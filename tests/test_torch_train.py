@@ -355,9 +355,6 @@ def test_cli_limit_smoke(tmp_path, capsys):
 def test_not_ported_configs_and_flags_raise(data, monkeypatch):
     tr, va, _, _ = data
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(get_config("flagship", compute_dtype="bfloat16",
-                           cnn_pallas_bwd=True), tr, va, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(get_config("flagship"), tr, va, use_mesh=True, device="cpu")
     for flag in (["--data-parallel"], ["--distributed"],
                  ["--model-parallel", "2"]):
