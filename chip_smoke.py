@@ -166,9 +166,11 @@ Phases (any failure raises and the script exits non-zero):
    of Stages 1 and 3 from a ``torch.profiler`` repeat);
 16. kernels 4-5 in bf16: ``flagship_bf16_bs1024_wc`` with
    ``cnn_pallas_bwd=True``, seed 42, on the bundled CSVs.  The first 3
-   losses within rel 1e-3 of a run through the plain versions; on the
-   first step's own B=1024, W=1024 inputs and at B=3, W=37 and B=5,
-   W=2048, ``dy3`` within one bf16 ulp per element (or, where the f32 sum
+   losses within rel 1e-3 of a run through the plain versions; kernel
+   5b's registers and spills (ptxas); on the first step's own B=1024,
+   W=1024 inputs and at the ragged (B, W) = (3, 37), (5, 2048), and, for
+   5b's tiles of TW = 128 positions, (1, TW+1), (1, 1), (2, TW-1) and
+   (4, 2 TW), ``dy3`` within one bf16 ulp per element (or, where the f32 sum
    cancels, within its summation bound ``2 H 2^-24 sum_h |dy w|``) and
    equal on >= 99% of elements, the six gradients within 2e-3 of each
    output's largest magnitude (the limit ``tests/test_torch_cnn_bf16.py``
@@ -1104,11 +1106,16 @@ def bf16_cnn_phase(torch, train_ds, val_ds, val_smiles, tmpdir, card,
     from torch.profiler import ProfilerActivity, profile
 
     from mgat_graphsage_torch.eval.predict import Predictor
+    from mgat_graphsage_torch.ops import _build
     from mgat_graphsage_torch.ops.cnn import (
-        cnn_chain_bwd_cuda, cnn_chain_bwd_plain, dy3_cuda, dy3_plain)
+        _TILE_W_BF16, cnn_chain_bwd_cuda, cnn_chain_bwd_plain, dy3_cuda,
+        dy3_plain)
     from mgat_graphsage_torch.train import Trainer, get_config
 
     t_phase = time.perf_counter()
+    for line in _build.ptxas_report("cnn_chain_bwd"):
+        if "bf16" in line:
+            log(f"[16] ptxas cnn_chain_bwd.cu {line}")
     bf16 = torch.bfloat16
     cfg = get_config("flagship_bf16_bs1024_wc", epochs=1,
                      cnn_pallas_bwd=True)
@@ -1141,7 +1148,12 @@ def bf16_cnn_phase(torch, train_ds, val_ds, val_smiles, tmpdir, card,
         x = torch.randn(shape, device="cuda", generator=gen) * scale
         return (x.clamp_min(0) if relu else x).to(bf16)
 
-    for b, wd in ((3, 37), (5, 2048)):
+    # ragged shapes for kernel 5b's tiles of _TILE_W_BF16 positions: W below
+    # a tile and W % 8 != 0 (its windows then take plain loads), B=1, one
+    # position past a tile, a last tile one short, whole tiles
+    tw = _TILE_W_BF16
+    for b, wd in ((3, 37), (5, 2048), (1, tw + 1), (1, 1), (2, tw - 1),
+                  (4, 2 * tw)):
         h = a4[0].shape[1]
         dy3_err = max(dy3_err, check_dy3_bf16(
             torch, rnd(b, h, scale=0.01), rnd(h, wd * 128, scale=0.01),
@@ -1263,7 +1275,7 @@ def bf16_cnn_phase(torch, train_ds, val_ds, val_smiles, tmpdir, card,
     ranked = sorted(kern, key=lambda ev: -ev.self_device_time_total)
     ours = ("dense_adjacency_kernel", "masked_attention_kernel",
             "masked_attention_bwd_kernel", "cnn_dy3_bf16_kernel",
-            "cnn_chain_bwd_kernel", "cnn_chain_reduce_kernel")
+            "cnn_chain_bwd_bf16_kernel", "cnn_chain_sum_kernel")
     for i, ev in enumerate(ranked):
         if i < 12 or any(o in ev.key for o in ours):
             log(f"  #{i + 1:<3d}{ev.self_device_time_total:9.1f} us  "

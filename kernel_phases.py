@@ -5,7 +5,8 @@
 
 Builds cut-down copies of ``csrc/adjacency.cu`` (kernel 1),
 ``csrc/attention.cu`` (kernel 2), ``csrc/attention_bwd.cu`` (kernel 3),
-``csrc/cnn_dy3.cu`` (kernel 4) and ``csrc/cnn_chain_bwd.cu`` (kernel 5),
+``csrc/cnn_dy3.cu`` (kernel 4) and ``csrc/cnn_chain_bwd.cu`` (kernel 5 and
+its bf16 kernel 5b),
 each with one part of the work removed, times every copy beside the full
 kernel with ``chip_smoke.DeviceTimer``, and prints one line per copy (per
 shape for kernels 1 and 2) with the card's name and power limit.  Shapes:
@@ -13,7 +14,8 @@ kernel 1 on the real edge lists of the first 64 test molecules (the serving
 batch) and of the first 128 training molecules (the training batch) at the
 (N, E) = (80, 176) budget; kernel 2 at the serving batch B=64 and the
 training batch B=128 (N=80, F=35); the others at the training shape (B=128,
-N=80, F=35; H=256, K=131072; W=1024).  A cut copy computes wrong numbers on
+N=80, F=35; H=256, K=131072; W=1024), kernel 5b at the bf16 training shape
+(B=1024, W=1024).  A cut copy computes wrong numbers on
 purpose; only its time is read.  The copies are written to and built in a
 temporary directory, with ``csrc/`` on the include path for the headers
 they include; the sources are not touched.
@@ -37,10 +39,18 @@ stores nor ring refills (the FMAs on whatever the first chunks left in
 shared memory).  Kernel 5: the full kernel; each tile's staging alone (the
 wait for its copies); staging and dw3, db3; staging and all of level 3 (d2
 too); all but d1 and its sums; every phase without the refills (each tile
-computes on whatever the first one left in shared memory).  Kernel 5's
-inputs have the ReLU pattern of real activations: y1, y2 and d3 about half
-zero, the fingerprint's bits 0 or 1.  ``--only`` keeps the copies whose
-name starts with its argument.
+computes on whatever the first one left in shared memory).  Kernel 5b
+(``cnn_chain_bwd_bf16_kernel``, cut on its own markers): the full kernel;
+each tile's staging alone; staging and level 3 (dw3, db3, d2); all but d1
+and its sums; every phase without the refills; the full kernel with d2 on
+the core's column tiles only (the cost of its halo tile); and the full
+kernel at tiles of 32 and 64 positions in place of 128, and at 64 with a
+ring of 3 stages in place of 2 (the tile-width and stage sweep; 3 stages
+of 128 do not fit); each prints its registers and spills (ptxas).
+Kernels 5 and 5b's inputs have the ReLU pattern of real activations: y1,
+y2 and d3 about half zero, the fingerprint's bits 0 or 1.  ``--only``
+keeps the copies whose name starts with its argument (``--only k5b`` the
+bf16 ones; ``--only k5`` both).
 """
 
 from __future__ import annotations
@@ -76,6 +86,10 @@ K2_SCORES = ("    row_products<kRows, KPT>(k_s + il * fp, q_s, fp, f, n, kg, "
 K2_SOFTMAX = "    softmax_rows<kRows, KPT, true>(a, m_s, n, kg, scale);\n"
 # the launcher's row-group rule, which a kernel-2 copy replaces by a constant
 K2_GROUPS = "  int groups = row_groups(batch, n, sms);"
+# kernel 5b's tile width and ring depth, which the sweep's copies replace
+K5B_TW = "constexpr int kBTW = 128;"
+K5B_N2 = "constexpr int kBN2 = kBP2 / 8;"
+K5B_STAGES = "constexpr int kBStages = 2;"
 
 
 def nvcc_args(cu: str, so: str) -> list:
@@ -124,6 +138,9 @@ def variants():
 
     def k5_upto(marker):   # each tile skips the rest of its work at marker
         return ("cnn_chain_bwd", cut(k5, marker, "    continue;\n" + marker))
+
+    def k5b_set(old, new):  # a constant of the bf16 kernel changed
+        return ("cnn_chain_bwd", cut(k5, old, new))
 
     no_stores = ("            __stcs(", "            if (batch < 0) __stcs(")
     return {
@@ -181,6 +198,20 @@ def variants():
         "k5 no refills": ("cnn_chain_bwd", cut(
             k5, "    if (tile + (int)gridDim.x < ntiles)\n      stage_tile(",
             "    if (ntiles < 0)\n      stage_tile(")),
+        "k5b full": ("cnn_chain_bwd", k5),
+        "k5b staging only": k5_upto("    // ==== bf16 L3: dw3"),
+        "k5b staging + level 3": k5_upto("    // ==== bf16 L2: dw2"),
+        "k5b staging + level 3 + dw2": k5_upto("    // ==== bf16 L2: d1"),
+        "k5b no refills": k5b_set(
+            "      if (next < ntiles)\n        stage_tile_bf16(",
+            "      if (ntiles < 0)\n        stage_tile_bf16("),
+        "k5b d2 core tiles only": k5b_set(
+            K5B_N2, "constexpr int kBN2 = kBTW / 8;"),
+        **{f"k5b TW={tw}": k5b_set(K5B_TW, f"constexpr int kBTW = {tw};")
+           for tw in (32, 64)},
+        "k5b TW=64 stages=3": ("cnn_chain_bwd", cut(
+            cut(k5, K5B_TW, "constexpr int kBTW = 64;"), K5B_STAGES,
+            "constexpr int kBStages = 3;")),
     }
 
 
@@ -216,9 +247,16 @@ def main(argv=None) -> int:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{out}")
         symbol, argtypes = _build.KERNELS[kernel]
+        if name.startswith("k5b"):
+            kernel, symbol = "cnn_chain_bwd_bf16", "cnn_chain_bwd_bf16_launch"
+            argtypes = _build.ENTRIES[symbol]
         fn = getattr(ctypes.CDLL(so), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[name] = (kernel, fn)
+        _build.BUILD_LOGS[name] = out
+        for line in _build.ptxas_report(name):
+            if name.startswith("k5b") and "cnn_chain_bwd_bf16" in line:
+                print(f"{name:<32} ptxas: {line}", flush=True)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
@@ -249,6 +287,21 @@ def main(argv=None) -> int:
     blocks = torch.cuda.get_device_properties(dev).multi_processor_count
     partials = torch.empty(blocks, 31040, device=dev)
     sums = torch.empty(31040, device=dev)
+    # kernel 5b at the bf16 training shape, made on the card
+    b5, w5 = 1024, 1024
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def relu_bf16(*shape):
+        return torch.randn(shape, device=dev, generator=gen).clamp_min_(
+            0.0).to(torch.bfloat16)
+
+    b16 = [relu_bf16(b5, w5, 128), relu_bf16(b5, 64, w5),
+           relu_bf16(b5, 32, w5),
+           (torch.rand((b5, w5), device=dev, generator=gen) < 0.1).to(
+               torch.bfloat16),
+           w3.to(torch.bfloat16), w2.to(torch.bfloat16)] if any(
+               kern == "cnn_chain_bwd_bf16" for kern, _ in fns.values()) \
+        else []
     stream = torch.cuda.current_stream().cuda_stream
     def k1_call(csv, bb):
         """kernel 1 on the first ``bb`` molecules of ``csv`` at the (80,
@@ -284,7 +337,10 @@ def main(argv=None) -> int:
         "cnn_chain_bwd": lambda fn: fn(
             d3.data_ptr(), y2.data_ptr(), y1.data_ptr(), fp.data_ptr(),
             w3.data_ptr(), w2.data_ptr(), partials.data_ptr(),
-            sums.data_ptr(), cb, cw, blocks, stream)}
+            sums.data_ptr(), cb, cw, blocks, stream),
+        "cnn_chain_bwd_bf16": lambda fn: fn(
+            *(t.data_ptr() for t in b16), partials.data_ptr(),
+            sums.data_ptr(), b5, w5, blocks, stream)}
     if any(kern == "adjacency" for kern, _ in fns.values()):
         from mgat_graphsage_torch.data import TEST_CSV, TRAIN_CSV
 

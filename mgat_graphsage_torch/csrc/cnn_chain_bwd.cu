@@ -50,25 +50,52 @@
 // sums in block order.  No atomics, every sum in a fixed order: the result
 // repeats bit for bit.  Shared memory: 222 KB.
 //
-// bf16 variant (cnn_chain_bwd_bf16_launch, compute_dtype="bfloat16"): d3,
-// y2, y1, fp, w3 and w2 in bf16; the sums and the six outputs f32.  It is
-// the same kernel, instantiated on its storage type: a tile's bf16 window
-// is copied into one of two bf16 stage buffers (cp.async, 8-byte copies
-// of y2, y1 and fp where W % 4 == 0, else plain loads) and widened into
-// one f32 buffer at the start of its turn, so the products are the f32
-// kernel's on the exact bf16 values.  As the reference's kernel does
-// (pallas_cnn.py:_chain_bwd_kernel), d2 and d1 are rounded to bf16 before
-// their ReLU masks, and every sum stays f32.  Bound on the H100 at B=1024,
-// W=1024: 472 MB of bf16 activations, 141 us at 3.35 TB/s, against
-// ~131 GFLOP, 133 us at the dense bf16 tensor-core rate.  This variant
-// runs on the f32 FMA pipe (~2 ms for those operations alone at 67
-// TFLOP/s): it is the simple, exact design, not a fast one.  Shared
-// memory: 222 KB.
+// bf16 kernel (cnn_chain_bwd_bf16_launch, compute_dtype="bfloat16"): d3,
+// y2, y1, fp, w3 and w2 in bf16; every sum and the six outputs in f32; as
+// the reference's kernel does (pallas_cnn.py:_chain_bwd_kernel), d2 and d1
+// are rounded to bf16 before their ReLU masks.  Bound on the H100 at
+// B=1024, W=1024: 472 MB of bf16 activations, 141 us at 3.35 TB/s, against
+// ~131 GFLOP, 133 us at the dense bf16 tensor-core rate: the two nearly
+// even, so the design has to stream near the HBM rate and keep the tensor
+// cores busy.  All four products run on them (mma.sync m16n8k16, bf16 in,
+// f32 sums), with operands read by ldmatrix straight from the staged bf16
+// tiles.  Tiles of kBTW = 128 positions of one molecule; a persistent grid
+// of one block (8 warps) per SM walks them, and a 2-stage cp.async ring
+// stages the next tile while this one computes: d3 rows w0-2 .. w0+129
+// pos-major, y2, y1 and fp windows w0-8 .. w0+135 channel-major (16-byte
+// copies where W % 8 == 0, else plain loads).  A position shift is a whole
+// row of the pos-major operand, never 2 bytes of a window, so every
+// ldmatrix row stays 16-byte aligned; rows are padded to an odd number of
+// 16-byte chunks, so the 8 rows of one 8x8 fall in 8 bank groups.  Per
+// tile:
+//   dw3[k] (128 x 64, K = the 128 core positions p): A = d3 rows p - k + 1
+//     (ldmatrix.trans; a row outside the core reads a zero row), B = the
+//     y2 window (ldmatrix); warp w keeps out channels 16w .. 16w+15 x 64 x
+//     3 taps in registers across tiles (96 a thread).  The two terms whose
+//     y2 position lies outside the core (p = w0-1 at k = 0, w0+128 at
+//     k = 2) are added on the FMA pipe;
+//   d2 transposed (64 channels x 136 rows w0-4 .. w0+131, K = 3 x 128): A =
+//     w3 as [k][i][o], B = the d3 rows shifted by 1 - k; each sum is
+//     rounded to bf16, masked by y2 > 0 and stored pos-major (rows outside
+//     w0-1 .. w0+128 as 0): the next level's operand.  Warps 0-3 take 9
+//     column tiles, warps 4-7 eight;
+//   dw2 as dw3 from d2 and the y1 window (24 registers a thread);
+//   d1 transposed (32 channels x the 128 core positions, K = 3 x 64), from
+//     w2 and the shifted d2 rows; rounded, masked by y1 > 0, and never
+//     stored: each lane adds its dw1 and db1 terms from the fp window;
+//   db3 and db2 on the FMA pipe over the core rows.
+// Two barriers per tile.  Each block then writes its sums once, in the
+// output's layout, and a second kernel adds the blocks' sums in block
+// order.  No atomics, every sum in a fixed order: the result repeats bit
+// for bit.  Shared memory: 212 KB; 250 registers, no spills.  The tile
+// width was swept (kernel_phases.py, one H100 SXM at 700 W): 32, 64 and
+// 128 positions took 1048, 807 and 656 us at B=W=1024, a third ring stage
+// at 64 positions 790 us.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -108,12 +135,6 @@ constexpr int kSD2 = kP2 * kC2;
 constexpr int kSRed1 = kWarps * kC1 * 4;     // per-warp dw1 | db1 sums,
 constexpr int kSRed2 = 4 * kC2;              // per-row-group db2 sums: in d2s
 constexpr int kSmemFloats = kSW3 + kSW2 + 2 * kStage + kSD2 + kNW2;
-// bf16: one f32 stage buffer and two bf16 ones, each padded to 16 bytes
-constexpr int kRawStage = (kStage + 7) / 8 * 8;        // bf16 values
-constexpr int kSmemFloatsBf16 = kSW3 + kSW2 + kStage + kRawStage + kSD2 +
-                                kNW2;
-static_assert(kSmemFloatsBf16 * 4 <= 232448, "shared memory, bf16");
-static_assert(kStage % 4 == 0, "the widening pass takes 4 values a step");
 static_assert(kSRed1 + kSRed2 <= kSD2, "sums fit where d2 was");
 static_assert(kSmemFloats * 4 <= 232448, "shared memory of one block");
 static_assert(kR2 * 4 >= kP2 && 3 * kR2 <= kP2, "d2 row groups");
@@ -131,31 +152,6 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 8 : 0));
-}
-
-template <typename T>
-constexpr bool kNarrow = std::is_same<T, __nv_bfloat16>::value;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// a dgrad as the storage type holds it (the reference rounds it to the
-// compute dtype before the ReLU mask)
-template <typename T>
-__device__ __forceinline__ float stored(float v) {
-  if constexpr (kNarrow<T>)
-    return __bfloat162float(__float2bfloat16_rn(v));
-  else
-    return v;
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -198,28 +194,24 @@ __device__ __forceinline__ void reduce_scatter(float (&acc)[R][4], int ks) {
 // Copy tile `tile` into one stage buffer (zero outside [0, W)): d3 rows
 // pos-major, y2, y1 and fp rows as windows of positions w0-4 .. w0+TW+3,
 // in 16-byte copies where W % 4 == 0 (`vec`: a chunk of 4 positions then
-// lies wholly inside or outside [0, W)), else in 4-byte copies.  bf16: the
-// same layout in bf16, d3 in 16-byte copies, the windows in 8-byte copies
-// where `vec`, else in plain loads and stores.
-template <typename T>
-__device__ __forceinline__ void stage_tile(T* st, int tile, int nwt,
-                                           const T* __restrict__ d3g,
-                                           const T* __restrict__ y2g,
-                                           const T* __restrict__ y1g,
-                                           const T* __restrict__ fpg,
+// lies wholly inside or outside [0, W)), else in 4-byte copies.
+__device__ __forceinline__ void stage_tile(float* st, int tile, int nwt,
+                                           const float* __restrict__ d3g,
+                                           const float* __restrict__ y2g,
+                                           const float* __restrict__ y1g,
+                                           const float* __restrict__ fpg,
                                            int width, bool vec, int t) {
-  constexpr int kPer16 = 16 / sizeof(T);     // values per 16-byte copy
   const int b = tile / nwt;
   const int w0 = (tile - b * nwt) * kTW;
-  for (int idx = t; idx < kP3 * (kC3 / kPer16); idx += kThreads) {
-    const int s = idx / (kC3 / kPer16);
-    const int c = (idx - s * (kC3 / kPer16)) * kPer16;
+  for (int idx = t; idx < kP3 * (kC3 / 4); idx += kThreads) {
+    const int s = idx / (kC3 / 4);
+    const int c = (idx - s * (kC3 / 4)) * 4;
     const int p = w0 - 2 + s;
     const bool ok = p >= 0 && p < width;
     cp_async16(st + s * kC3 + c,
                d3g + ((size_t)b * width + (ok ? p : 0)) * kC3 + c, ok);
   }
-  T* ys = st + kSD3;
+  float* ys = st + kSD3;
   const int step = vec ? 4 : 1;
   const int per_row = kWin / step;
   for (int idx = t; idx < kYRows * per_row; idx += kThreads) {
@@ -227,61 +219,32 @@ __device__ __forceinline__ void stage_tile(T* st, int tile, int nwt,
     const int q = (idx - row * per_row) * step;
     const int p = w0 - 4 + q;
     const bool ok = p >= 0 && p < width;
-    const T* src = row < kC2 ? y2g + ((size_t)b * kC2 + row) * width
-                 : row < kC2 + kC1
-                     ? y1g + ((size_t)b * kC1 + row - kC2) * width
-                     : fpg + (size_t)b * width;
-    if constexpr (kNarrow<T>) {
-      if (vec)
-        cp_async8(ys + row * kWS + q, src + (ok ? p : 0), ok);
-      else
-        ys[row * kWS + q] = ok ? src[p] : __float2bfloat16_rn(0.0f);
-    } else {
-      if (vec)
-        cp_async16(ys + row * kWS + q, src + (ok ? p : 0), ok);
-      else
-        cp_async4(ys + row * kWS + q, src + (ok ? p : 0), ok);
-    }
+    const float* src = row < kC2 ? y2g + ((size_t)b * kC2 + row) * width
+                     : row < kC2 + kC1
+                         ? y1g + ((size_t)b * kC1 + row - kC2) * width
+                         : fpg + (size_t)b * width;
+    if (vec)
+      cp_async16(ys + row * kWS + q, src + (ok ? p : 0), ok);
+    else
+      cp_async4(ys + row * kWS + q, src + (ok ? p : 0), ok);
   }
   cp_commit();
 }
 
-// the bf16 stage buffer `buf`, after the f32 one (kNarrow), or the f32
-// stage buffer `buf`
-template <typename T>
-__device__ __forceinline__ T* stage_buf(float* stages, int buf) {
-  if constexpr (kNarrow<T>)
-    return reinterpret_cast<T*>(stages + kStage) + buf * kRawStage;
-  else
-    return stages + buf * kStage;
-}
-
-// a staged bf16 tile, widened into the f32 stage buffer, 4 values a step
-__device__ __forceinline__ void widen_stage(float* dst,
-                                            const __nv_bfloat16* src, int t) {
-  for (int i = t; i < kStage / 4; i += kThreads) {
-    const uint2 v = *reinterpret_cast<const uint2*>(src + 4 * i);
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&v.y));
-    *reinterpret_cast<float4*>(dst + 4 * i) =
-        make_float4(lo.x, lo.y, hi.x, hi.y);
-  }
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-cnn_chain_bwd_kernel(const T* __restrict__ d3g, const T* __restrict__ y2g,
-                     const T* __restrict__ y1g, const T* __restrict__ fpg,
-                     const T* __restrict__ w3g, const T* __restrict__ w2g,
+cnn_chain_bwd_kernel(const float* __restrict__ d3g,
+                     const float* __restrict__ y2g,
+                     const float* __restrict__ y1g,
+                     const float* __restrict__ fpg,
+                     const float* __restrict__ w3g,
+                     const float* __restrict__ w2g,
                      float* __restrict__ partials, int batch, int width,
                      int vec) {
   extern __shared__ __align__(16) float smem[];
   float* w3s = smem;
   float* w2s = w3s + kSW3;
   float* stages = w2s + kSW2;
-  float* d2s = stages + (kNarrow<T> ? kStage + kRawStage : 2 * kStage);
+  float* d2s = stages + 2 * kStage;
   float* dw2a = d2s + kSD2;      // [k][i][o]
 
   const int t = threadIdx.x;
@@ -290,22 +253,21 @@ cnn_chain_bwd_kernel(const T* __restrict__ d3g, const T* __restrict__ y2g,
   const int nwt = (width + kTW - 1) / kTW;
   const int ntiles = batch * nwt;
   if ((int)blockIdx.x < ntiles)
-    stage_tile(stage_buf<T>(stages, 0), blockIdx.x, nwt, d3g, y2g, y1g, fpg,
-               width, vec, t);
+    stage_tile(stages, blockIdx.x, nwt, d3g, y2g, y1g, fpg, width, vec, t);
 
   for (int idx = t; idx < kNW3; idx += kThreads) {
     const int o = idx / (kC2 * 3);
     const int rem = idx - o * (kC2 * 3);
     const int i = rem / 3;
     const int k = rem - i * 3;
-    w3s[(k * kC3 + o) * kC2 + i] = widen(w3g[idx]);
+    w3s[(k * kC3 + o) * kC2 + i] = w3g[idx];
   }
   for (int idx = t; idx < kNW2; idx += kThreads) {
     const int o = idx / (kC1 * 3);
     const int rem = idx - o * (kC1 * 3);
     const int i = rem / 3;
     const int k = rem - i * 3;
-    w2s[(k * kC2 + o) * kC1 + i] = widen(w2g[idx]);
+    w2s[(k * kC2 + o) * kC1 + i] = w2g[idx];
   }
   for (int idx = t; idx < kNW2; idx += kThreads) dw2a[idx] = 0.0f;
 
@@ -339,13 +301,9 @@ cnn_chain_bwd_kernel(const T* __restrict__ d3g, const T* __restrict__ y2g,
     cp_wait_all();
     __syncthreads();   // this tile staged; the previous tile's readers done
     if (tile + (int)gridDim.x < ntiles)
-      stage_tile(stage_buf<T>(stages, buf ^ 1), tile + gridDim.x, nwt, d3g,
+      stage_tile(stages + (buf ^ 1) * kStage, tile + gridDim.x, nwt, d3g,
                  y2g, y1g, fpg, width, vec, t);
-    const float* d3s = stages + (kNarrow<T> ? 0 : buf * kStage);
-    if constexpr (kNarrow<T>) {
-      widen_stage(stages, stage_buf<T>(stages, buf), t);
-      __syncthreads();   // the tile is in the f32 buffer
-    }
+    const float* d3s = stages + buf * kStage;
     const float* y2s = d3s + kSD3;            // [64][kWS]
     const float* y1s = y2s + kC2 * kWS;       // [32][kWS]
     const float* fps = y1s + kC1 * kWS;
@@ -416,7 +374,7 @@ cnn_chain_bwd_kernel(const T* __restrict__ d3g, const T* __restrict__ y2g,
         const int s2 = r2 + r;
         if (s2 >= kR2 * rg) {
           const float v =
-              y2s[ch * kWS + s2 + kQ] > 0.0f ? stored<T>(acc[r][0]) : 0.0f;
+              y2s[ch * kWS + s2 + kQ] > 0.0f ? acc[r][0] : 0.0f;
           d2s[s2 * kC2 + ch] = v;
           if (s2 >= 1 && s2 <= kTW) db2p += v;
         }
@@ -507,7 +465,7 @@ cnn_chain_bwd_kernel(const T* __restrict__ d3g, const T* __restrict__ y2g,
 #pragma unroll
       for (int r = 0; r < kR1; ++r) {
         const int sc = r1 + r;
-        const float v = mv[r] > 0.0f ? stored<T>(acc[r][0]) : 0.0f;
+        const float v = mv[r] > 0.0f ? acc[r][0] : 0.0f;
 #pragma unroll
         for (int k = 0; k < 3; ++k)
           dw1p[k] = fmaf(v, fps[sc + k + kQ], dw1p[k]);
@@ -589,33 +547,493 @@ __global__ void cnn_chain_reduce_kernel(const float* __restrict__ partials,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// bf16 operands on the tensor cores (cnn_chain_bwd_bf16_launch)
+// ---------------------------------------------------------------------------
+
 namespace {
 
-// the chain kernel on storage type T (align: the bytes a window copy
-// moves), then the reduction over blocks
-template <typename T>
-int chain_launch(const void* d3, const void* y2, const void* y1,
-                 const void* fp, const void* w3, const void* w2,
-                 void* partials, void* out, int batch, int width, int blocks,
-                 void* stream, size_t align, size_t smem) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int vec = width % 4 == 0 && (reinterpret_cast<size_t>(y2) |
-                                     reinterpret_cast<size_t>(y1) |
-                                     reinterpret_cast<size_t>(fp)) % align == 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      cnn_chain_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cnn_chain_bwd_kernel<T><<<blocks, kThreads, smem, s>>>(
-      static_cast<const T*>(d3), static_cast<const T*>(y2),
-      static_cast<const T*>(y1), static_cast<const T*>(fp),
-      static_cast<const T*>(w3), static_cast<const T*>(w2),
-      static_cast<float*>(partials), batch, width, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  cnn_chain_reduce_kernel<<<(kNTot + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(partials), static_cast<float*>(out), blocks);
-  return (int)cudaGetLastError();
+using bf16 = __nv_bfloat16;
+using bf162 = __nv_bfloat162;
+
+constexpr int kBTW = 128;           // core positions per tile
+constexpr int kBStages = 2;         // depth of the cp.async ring
+constexpr int kBThreads = 256;      // 8 warps
+constexpr int kBWarps = kBThreads / 32;
+constexpr int kBD3Lo = 2;           // d3 rows staged from w0 - kBD3Lo
+constexpr int kBD2Lo = 4;           // d2 rows computed from w0 - kBD2Lo
+constexpr int kBWinLo = 8;          // y2, y1, fp windows from w0 - kBWinLo
+constexpr int kBP3 = kBTW + 2 * kBD3Lo;     // d3 rows of a tile
+constexpr int kBP2 = kBTW + 2 * kBD2Lo;     // d2 rows of a tile
+constexpr int kBWin = kBTW + 2 * kBWinLo;   // window positions of a tile
+// Row strides in bf16.  Each is an odd number of 16-byte chunks, so the 8
+// rows that one ldmatrix 8x8 reads lie in 8 different groups of 4 banks.
+constexpr int kBD3S = kC3 + 8;
+constexpr int kBD2S = kC2 + 8;
+constexpr int kBW3S = kC3 + 8;
+constexpr int kBW2S = kC2 + 8;
+constexpr int kBWS = kBWin + ((kBWin / 8) % 2 ? 0 : 8);
+constexpr int kBYRows = kC2 + kC1 + 1;      // y2 rows | y1 rows | fp
+constexpr int kBStage = kBP3 * kBD3S + kBYRows * kBWS;
+constexpr int kBN2 = kBP2 / 8;              // d2 column tiles (8 rows each)
+constexpr int kBN2a = (kBN2 + 1) / 2;       // warps 0-3 take these
+constexpr int kBN1 = kBTW / 32;             // d1 column tiles of one warp
+// shared memory, in bf16: w3t [3][64][kBW3S] | w2t [3][32][kBW2S] | ring
+// of kBStages stages | d2 [kBP2][kBD2S] | a zero row of 128
+constexpr int kBOffW2 = 3 * kC2 * kBW3S;
+constexpr int kBOffRing = kBOffW2 + 3 * kC1 * kBW2S;
+constexpr int kBOffD2 = kBOffRing + kBStages * kBStage;
+constexpr int kBOffZero = kBOffD2 + kBP2 * kBD2S;
+constexpr int kBSmemLoop = (kBOffZero + kC3) * 2;             // bytes
+// after the walk the same memory holds the block's sums: one partial row
+// and the scratch of its bias and dw1 reductions
+constexpr int kBScratch = 4 * kC3 + 8 * kC2 + kBWarps * 16 * 4;
+constexpr int kBSmemSums = (kNTot + kBScratch) * 4;
+constexpr int kBSmem = kBSmemLoop > kBSmemSums ? kBSmemLoop : kBSmemSums;
+static_assert(kBTW % 32 == 0, "d1 tiles: 8 positions x 4 warp columns");
+static_assert(kBSmem <= 232448, "shared memory of one block, bf16");
+static_assert((kBWinLo - kBD2Lo) % 2 == 0 && kBWinLo % 8 == 0,
+              "window pairs 4-byte aligned, window chunks 16-byte aligned");
+static_assert(kNTot % 4 == 0 && kBStage % 8 == 0 && kBOffD2 % 8 == 0,
+              "16-byte alignment of the regions");
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
+
+// Copy tile `tile` into stage `st` (zero outside [0, W)): d3 rows w0-2 ..
+// w0+TW+1 pos-major in 16-byte copies; y2, y1 and fp rows as windows of
+// positions w0-8 .. w0+TW+7, in 16-byte copies where `vec` (W % 8 == 0 and
+// aligned rows: a chunk of 8 positions then lies wholly inside or outside
+// [0, W)), else in plain loads and stores.
+__device__ __forceinline__ void stage_tile_bf16(
+    bf16* st, int tile, int nwt, const bf16* __restrict__ d3g,
+    const bf16* __restrict__ y2g, const bf16* __restrict__ y1g,
+    const bf16* __restrict__ fpg, int width, bool vec, int t) {
+  const int b = tile / nwt;
+  const int w0 = (tile - b * nwt) * kBTW;
+  for (int idx = t; idx < kBP3 * (kC3 / 8); idx += kBThreads) {
+    const int s = idx / (kC3 / 8);
+    const int c = (idx - s * (kC3 / 8)) * 8;
+    const int p = w0 - kBD3Lo + s;
+    const bool ok = p >= 0 && p < width;
+    cp_async16(st + s * kBD3S + c,
+               d3g + ((size_t)b * width + (ok ? p : 0)) * kC3 + c, ok);
+  }
+  bf16* ys = st + kBP3 * kBD3S;
+  const int step = vec ? 8 : 1;
+  const int per_row = kBWin / step;
+  for (int idx = t; idx < kBYRows * per_row; idx += kBThreads) {
+    const int row = idx / per_row;
+    const int q = (idx - row * per_row) * step;
+    const int p = w0 - kBWinLo + q;
+    const bool ok = p >= 0 && p < width;
+    const bf16* src = row < kC2 ? y2g + ((size_t)b * kC2 + row) * width
+                    : row < kC2 + kC1
+                        ? y1g + ((size_t)b * kC1 + row - kC2) * width
+                        : fpg + (size_t)b * width;
+    if (vec)
+      cp_async16(ys + row * kBWS + q, src + (ok ? p : 0), ok);
+    else
+      ys[row * kBWS + q] = ok ? src[p] : __float2bfloat16_rn(0.0f);
+  }
+  cp_commit();
+}
+
+// d2 = mask * bf16(dgrad(d3, w3)) on channels 16m .. 16m+15 and the NT
+// column tiles from n0 of the tile's d2 rows (row r is position
+// w0 - kBD2Lo + r), transposed: C[i][r] = sum_{k,o} w3t[k][i][o] *
+// d3[r + 1 - k][o].  A is w3t (ldmatrix), B the d3 rows shifted by 1 - k
+// (ldmatrix, rows clamped into the stage: a clamped row only feeds a d2 row
+// that is stored as 0).  Rows outside positions w0-1 .. w0+TW are stored
+// as 0; the others are rounded to bf16, then masked by y2 > 0.
+template <int NT>
+__device__ __forceinline__ void d2_rows(const bf16* __restrict__ w3t,
+                                        const bf16* __restrict__ d3s,
+                                        const bf16* __restrict__ y2s,
+                                        bf16* __restrict__ d2s, int m,
+                                        int n0, int lane) {
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  const int j = lane >> 3;
+#pragma unroll 1
+  for (int k = 0; k < 3; ++k) {
+    // the d3 stage row of the d2 row r = 8 * n0 + u: r + kBD3Lo - kBD2Lo
+    // + 1 - k, clamped
+    int rows[(NT + 1) / 2];
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      const int u = 8 * n + (lane & 7) + (n + 1 < NT ? 8 * (j >> 1) : 0);
+      rows[n / 2] = min(max(8 * n0 + u + kBD3Lo - kBD2Lo + 1 - k, 0),
+                        kBP3 - 1) * kBD3S + 8 * (j & 1);
+    }
+#pragma unroll 2
+    for (int oc = 0; oc < kC3; oc += 16) {
+      unsigned a[4];
+      ldsm_x4(a, w3t + (k * kC2 + 16 * m + (lane & 15)) * kBW3S + oc +
+                     8 * (lane >> 4));
+#pragma unroll
+      for (int n = 0; n + 1 < NT; n += 2) {
+        unsigned b[4];
+        ldsm_x4(b, d3s + rows[n / 2] + oc);
+        mma_bf16(acc[n], a, b[0], b[1]);
+        mma_bf16(acc[n + 1], a, b[2], b[3]);
+      }
+      if (NT % 2) {
+        unsigned b[2];
+        ldsm_x2(b, d3s + rows[NT / 2] + oc);
+        mma_bf16(acc[NT - 1], a, b[0], b[1]);
+      }
+    }
+  }
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 16 * m + g + 8 * h;
+      const int r = 8 * (n0 + n) + 2 * tq;
+      const bf162 y = *reinterpret_cast<const bf162*>(
+          y2s + i * kBWS + r - kBD2Lo + kBWinLo);
+      const float yv[2] = {__low2float(y), __high2float(y)};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool keep = r + e >= kBD2Lo - 1 && r + e <= kBD2Lo + kBTW &&
+                          yv[e] > 0.0f;
+        d2s[(r + e) * kBD2S + i] =
+            __float2bfloat16_rn(keep ? acc[n][2 * h + e] : 0.0f);
+      }
+    }
+}
+
+__global__ void __launch_bounds__(kBThreads, 1)
+cnn_chain_bwd_bf16_kernel(const bf16* __restrict__ d3g,
+                          const bf16* __restrict__ y2g,
+                          const bf16* __restrict__ y1g,
+                          const bf16* __restrict__ fpg,
+                          const bf16* __restrict__ w3g,
+                          const bf16* __restrict__ w2g,
+                          float* __restrict__ partials, int batch, int width,
+                          int vec) {
+  extern __shared__ __align__(16) bf16 bsmem[];
+  bf16* w3t = bsmem;                   // [k][i][o]: dgrad A, o contiguous
+  bf16* w2t = bsmem + kBOffW2;
+  bf16* ring = bsmem + kBOffRing;
+  bf16* d2s = bsmem + kBOffD2;         // [r][o], pos-major
+  bf16* zrow = bsmem + kBOffZero;
+
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int warp = t / 32;
+  const int g = lane >> 2;             // mma fragment row
+  const int tq = lane & 3;             // mma fragment column pair
+  const int j = lane >> 3;             // ldmatrix 8x8 of this lane's row
+  const int nwt = (width + kBTW - 1) / kBTW;
+  const int ntiles = batch * nwt;
+#pragma unroll
+  for (int s = 0; s < kBStages - 1; ++s) {
+    const int tile = blockIdx.x + s * gridDim.x;
+    if (tile < ntiles)
+      stage_tile_bf16(ring + s * kBStage, tile, nwt, d3g, y2g, y1g, fpg,
+                      width, vec, t);
+    else
+      cp_commit();
+  }
+  for (int idx = t; idx < kNW3; idx += kBThreads) {
+    const int o = idx / (kC2 * 3);
+    const int rem = idx - o * (kC2 * 3);
+    const int i = rem / 3;
+    const int k = rem - i * 3;
+    w3t[(k * kC2 + i) * kBW3S + o] = w3g[idx];
+  }
+  for (int idx = t; idx < kNW2; idx += kBThreads) {
+    const int o = idx / (kC1 * 3);
+    const int rem = idx - o * (kC1 * 3);
+    const int i = rem / 3;
+    const int k = rem - i * 3;
+    w2t[(k * kC1 + i) * kBW2S + o] = w2g[idx];
+  }
+  for (int idx = t; idx < kC3; idx += kBThreads)
+    zrow[idx] = __float2bfloat16_rn(0.0f);
+
+  // dw3: warp w owns out channels 16w .. 16w+15, all 64 in channels, 3 taps
+  float acc3[3][8][4];
+  // dw2: out channels 16 * (w % 4) .., in channels 16 * (w / 4) .., 3 taps
+  float acc2[3][2][4];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      acc3[k][n][0] = acc3[k][n][1] = acc3[k][n][2] = acc3[k][n][3] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      acc2[k][n][0] = acc2[k][n][1] = acc2[k][n][2] = acc2[k][n][3] = 0.0f;
+  }
+  float db3p[2] = {0.0f, 0.0f};        // channels 2 (t % 64), +1
+  float db2p[2] = {0.0f, 0.0f};        // channels 2 (t % 32), +1
+  float dw1p[2][4] = {};               // d1 channels 16 (w % 2) + g, +8:
+                                       // dw1 taps 0..2, db1
+  const int mo = warp & 3;             // dw2 out channel tile, d2 channels
+  const int nh = warp >> 2;            // dw2 in channel half
+  const int mi = warp & 1;             // d1 channel tile
+  const int nq = warp >> 1;            // d1 position quarter
+
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    cp_wait<kBStages - 2>();
+    __syncthreads();   // this tile staged; the last tile's readers done
+    {
+      const int next = tile + (kBStages - 1) * (int)gridDim.x;
+      bf16* dst = ring + (it + kBStages - 1) % kBStages * kBStage;
+      if (next < ntiles)
+        stage_tile_bf16(dst, next, nwt, d3g, y2g, y1g, fpg, width, vec, t);
+      else
+        cp_commit();
+    }
+    const bf16* d3s = ring + it % kBStages * kBStage;   // [s][o]
+    const bf16* y2s = d3s + kBP3 * kBD3S;               // [i][window]
+    const bf16* y1s = y2s + kC2 * kBWS;
+    const bf16* fps = y1s + kC1 * kBWS;
+
+    // ==== bf16 L3: dw3, db3 ==============================================
+    // dw3[k][o][i] += sum_p d3[p - k + 1][o] y2[i][p] over the core p,
+    // with d3 rows outside the core read as the zero row: A = the shifted
+    // d3 rows (ldmatrix.trans), B = the y2 window (ldmatrix); the terms at
+    // p = w0 - 1 (k = 0) and p = w0 + TW (k = 2) are added on the FMA pipe
+#pragma unroll 1
+    for (int c = 0; c < kBTW; c += 16) {
+      unsigned b[4][4];
+#pragma unroll
+      for (int np = 0; np < 4; ++np)
+        ldsm_x4(b[np], y2s + (16 * np + (lane & 7) + 8 * (j >> 1)) * kBWS +
+                           kBWinLo + c + 8 * (j & 1));
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int s = c + (lane & 7) + 8 * (j >> 1) + 1 - k + kBD3Lo;
+        const bool halo = s == kBD3Lo - 1 || s == kBD3Lo + kBTW;
+        unsigned a[4];
+        ldsm_x4_t(a, (halo ? zrow : d3s + s * kBD3S + 16 * warp) +
+                         8 * (j & 1));
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          mma_bf16(acc3[k][n], a, b[n / 2][2 * (n % 2)],
+                   b[n / 2][2 * (n % 2) + 1]);
+      }
+    }
+    {
+      const bf16* q0 = d3s + kBD3Lo * kBD3S + 16 * warp + g;
+      const bf16* q1 = d3s + (kBD3Lo + kBTW - 1) * kBD3S + 16 * warp + g;
+      const float a0[2] = {bf(q0[0]), bf(q0[8])};
+      const float a2[2] = {bf(q1[0]), bf(q1[8])};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bf16* yi = y2s + (8 * n + 2 * tq + e) * kBWS;
+          const float ylo = bf(yi[kBWinLo - 1]);
+          const float yhi = bf(yi[kBWinLo + kBTW]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            acc3[0][n][2 * h + e] = fmaf(a0[h], ylo, acc3[0][n][2 * h + e]);
+            acc3[2][n][2 * h + e] = fmaf(a2[h], yhi, acc3[2][n][2 * h + e]);
+          }
+        }
+    }
+    for (int s = kBD3Lo + (t >> 6); s < kBD3Lo + kBTW; s += 4) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const bf162*>(d3s + s * kBD3S + 2 * (t & 63)));
+      db3p[0] += v.x;
+      db3p[1] += v.y;
+    }
+    // ==== bf16 L3: d2 ====================================================
+    if (warp < 4)
+      d2_rows<kBN2a>(w3t, d3s, y2s, d2s, mo, 0, lane);
+    else
+      d2_rows<kBN2 - kBN2a>(w3t, d3s, y2s, d2s, mo, kBN2a, lane);
+    __syncthreads();   // d2 is in shared memory
+    // ==== bf16 L2: dw2, db2 ==============================================
+    // as dw3: A = the shifted d2 rows, B = the y1 window
+#pragma unroll 1
+    for (int c = 0; c < kBTW; c += 16) {
+      unsigned b[4];
+      ldsm_x4(b, y1s + (16 * nh + (lane & 7) + 8 * (j >> 1)) * kBWS +
+                     kBWinLo + c + 8 * (j & 1));
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int r = c + (lane & 7) + 8 * (j >> 1) + 1 - k + kBD2Lo;
+        const bool halo = r == kBD2Lo - 1 || r == kBD2Lo + kBTW;
+        unsigned a[4];
+        ldsm_x4_t(a, (halo ? zrow : d2s + r * kBD2S + 16 * mo) +
+                         8 * (j & 1));
+        mma_bf16(acc2[k][0], a, b[0], b[1]);
+        mma_bf16(acc2[k][1], a, b[2], b[3]);
+      }
+    }
+    {
+      const bf16* q0 = d2s + kBD2Lo * kBD2S + 16 * mo + g;
+      const bf16* q1 = d2s + (kBD2Lo + kBTW - 1) * kBD2S + 16 * mo + g;
+      const float a0[2] = {bf(q0[0]), bf(q0[8])};
+      const float a2[2] = {bf(q1[0]), bf(q1[8])};
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bf16* yi = y1s + (16 * nh + 8 * n + 2 * tq + e) * kBWS;
+          const float ylo = bf(yi[kBWinLo - 1]);
+          const float yhi = bf(yi[kBWinLo + kBTW]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            acc2[0][n][2 * h + e] = fmaf(a0[h], ylo, acc2[0][n][2 * h + e]);
+            acc2[2][n][2 * h + e] = fmaf(a2[h], yhi, acc2[2][n][2 * h + e]);
+          }
+        }
+    }
+    for (int r = kBD2Lo + (t >> 5); r < kBD2Lo + kBTW; r += 8) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const bf162*>(d2s + r * kBD2S + 2 * (t & 31)));
+      db2p[0] += v.x;
+      db2p[1] += v.y;
+    }
+    // ==== bf16 L2: d1, dw1, db1 ==========================================
+    // d1 = mask * bf16(dgrad(d2, w2)) on the core, transposed as d2 (M =
+    // channels 16 mi .., N = kBN1 column tiles from 8 kBN1 nq); it never
+    // leaves registers: each lane adds its dw1 and db1 terms
+    {
+      float acc[kBN1][4];
+#pragma unroll
+      for (int n = 0; n < kBN1; ++n)
+        acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+#pragma unroll 1
+      for (int k = 0; k < 3; ++k) {
+#pragma unroll
+        for (int oc = 0; oc < kC2; oc += 16) {
+          unsigned a[4];
+          ldsm_x4(a, w2t + (k * kC1 + 16 * mi + (lane & 15)) * kBW2S + oc +
+                         8 * (lane >> 4));
+#pragma unroll
+          for (int n = 0; n + 1 < kBN1; n += 2) {
+            const int u = 8 * (kBN1 * nq + n) + (lane & 7) + 8 * (j >> 1);
+            unsigned b[4];
+            ldsm_x4(b, d2s + (u + 1 - k + kBD2Lo) * kBD2S + oc + 8 * (j & 1));
+            mma_bf16(acc[n], a, b[0], b[1]);
+            mma_bf16(acc[n + 1], a, b[2], b[3]);
+          }
+          if (kBN1 % 2) {
+            const int u = 8 * (kBN1 * nq + kBN1 - 1) + (lane & 7);
+            unsigned b[2];
+            ldsm_x2(b, d2s + (u + 1 - k + kBD2Lo) * kBD2S + oc + 8 * (j & 1));
+            mma_bf16(acc[kBN1 - 1], a, b[0], b[1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kBN1; ++n) {
+        const int u = 8 * (kBN1 * nq + n) + 2 * tq;   // position - w0
+        const float f[4] = {bf(fps[kBWinLo + u - 1]), bf(fps[kBWinLo + u]),
+                            bf(fps[kBWinLo + u + 1]),
+                            bf(fps[kBWinLo + u + 2])};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bf162 y = *reinterpret_cast<const bf162*>(
+              y1s + (16 * mi + g + 8 * h) * kBWS + kBWinLo + u);
+          const float yv[2] = {__low2float(y), __high2float(y)};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float d =
+                yv[e] > 0.0f ? bf(__float2bfloat16_rn(acc[n][2 * h + e]))
+                             : 0.0f;
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+              dw1p[h][k] = fmaf(d, f[e + k], dw1p[h][k]);
+            dw1p[h][3] += d;
+          }
+        }
+      }
+    }
+  }
+  cp_wait_all();
+  __syncthreads();   // the walk is over: its memory takes the block's sums
+
+  // ---- this block's sums -> partials[blockIdx.x], torch layouts ---------
+  float* part = reinterpret_cast<float*>(bsmem);
+  float* s_db3 = part + kNTot;          // [4][128]
+  float* s_db2 = s_db3 + 4 * kC3;       // [8][64]
+  float* s_d1 = s_db2 + 8 * kC2;        // [warp][16][dw1 0..2, db1]
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = 16 * warp + g + 8 * (e >> 1);
+        const int i = 8 * n + 2 * tq + (e & 1);
+        part[(o * kC2 + i) * 3 + k] = acc3[k][n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = 16 * mo + g + 8 * (e >> 1);
+        const int i = 16 * nh + 8 * n + 2 * tq + (e & 1);
+        part[kOffDw2 + (o * kC1 + i) * 3 + k] = acc2[k][n][e];
+      }
+  }
+  s_db3[(t >> 6) * kC3 + 2 * (t & 63)] = db3p[0];
+  s_db3[(t >> 6) * kC3 + 2 * (t & 63) + 1] = db3p[1];
+  s_db2[(t >> 5) * kC2 + 2 * (t & 31)] = db2p[0];
+  s_db2[(t >> 5) * kC2 + 2 * (t & 31) + 1] = db2p[1];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      float v = dw1p[h][x];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (tq == 0) s_d1[(warp * 16 + g + 8 * h) * 4 + x] = v;
+    }
+  __syncthreads();
+  if (t < kC3) {
+    part[kOffDb3 + t] = ((s_db3[t] + s_db3[kC3 + t]) + s_db3[2 * kC3 + t]) +
+                        s_db3[3 * kC3 + t];
+  } else if (t < kC3 + kC2) {
+    float s = 0.0f;
+    for (int q = 0; q < 8; ++q) s += s_db2[q * kC2 + t - kC3];
+    part[kOffDb2 + t - kC3] = s;
+  }
+  if (t < kC1 * 4) {
+    const int i = t >> 2;
+    const int x = t & 3;
+    float s = 0.0f;
+    for (int w = i >> 4; w < kBWarps; w += 2)
+      s += s_d1[(w * 16 + (i & 15)) * 4 + x];
+    part[x < 3 ? kOffDw1 + i * 3 + x : kOffDb1 + i] = s;
+  }
+  __syncthreads();
+  float4* dst = reinterpret_cast<float4*>(partials +
+                                          (size_t)blockIdx.x * kNTot);
+  for (int q = t; q < kNTot / 4; q += kBThreads)
+    dst[q] = reinterpret_cast<const float4*>(part)[q];
+}
+
+// out[q] = sum over blocks g, in order, of partials[g][q] (the partial rows
+// are in the output's layout)
+__global__ void cnn_chain_sum_kernel(const float* __restrict__ partials,
+                                     float* __restrict__ out, int blocks) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= kNTot) return;
+  float s = 0.0f;
+  for (int g = 0; g < blocks; ++g) s += partials[(size_t)g * kNTot + q];
+  out[q] = s;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<size_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -630,20 +1048,49 @@ extern "C" int cnn_chain_bwd_launch(const void* d3, const void* y2,
                                     const void* w3, const void* w2,
                                     void* partials, void* out, int batch,
                                     int width, int blocks, void* stream) {
-  return chain_launch<float>(d3, y2, y1, fp, w3, w2, partials, out, batch,
-                             width, blocks, stream, 16,
-                             (size_t)kSmemFloats * sizeof(float));
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int vec = width % 4 == 0 && aligned16(y2) && aligned16(y1) &&
+                  aligned16(fp);
+  const size_t smem = (size_t)kSmemFloats * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      cnn_chain_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cnn_chain_bwd_kernel<<<blocks, kThreads, smem, s>>>(
+      static_cast<const float*>(d3), static_cast<const float*>(y2),
+      static_cast<const float*>(y1), static_cast<const float*>(fp),
+      static_cast<const float*>(w3), static_cast<const float*>(w2),
+      static_cast<float*>(partials), batch, width, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cnn_chain_reduce_kernel<<<(kNTot + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(partials), static_cast<float*>(out), blocks);
+  return (int)cudaGetLastError();
 }
 
 // The same in bf16: d3, y2, y1, fp, w3 and w2 bf16 (d3 16-byte aligned);
-// partials and out f32.
+// partials and out f32.  The grid walks tiles of kBTW positions.
 extern "C" int cnn_chain_bwd_bf16_launch(const void* d3, const void* y2,
                                          const void* y1, const void* fp,
                                          const void* w3, const void* w2,
                                          void* partials, void* out,
                                          int batch, int width, int blocks,
                                          void* stream) {
-  return chain_launch<__nv_bfloat16>(d3, y2, y1, fp, w3, w2, partials, out,
-                                     batch, width, blocks, stream, 8,
-                                     (size_t)kSmemFloatsBf16 * sizeof(float));
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int vec = width % 8 == 0 && aligned16(y2) && aligned16(y1) &&
+                  aligned16(fp);
+  cudaError_t err = cudaFuncSetAttribute(
+      cnn_chain_bwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBSmem);
+  if (err != cudaSuccess) return (int)err;
+  cnn_chain_bwd_bf16_kernel<<<blocks, kBThreads, kBSmem, s>>>(
+      static_cast<const bf16*>(d3), static_cast<const bf16*>(y2),
+      static_cast<const bf16*>(y1), static_cast<const bf16*>(fp),
+      static_cast<const bf16*>(w3), static_cast<const bf16*>(w2),
+      static_cast<float*>(partials), batch, width, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cnn_chain_sum_kernel<<<(kNTot + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(partials), static_cast<float*>(out), blocks);
+  return (int)cudaGetLastError();
 }

@@ -42,7 +42,8 @@ C3, C2, C1 = 128, 64, 32
 _SPLIT = [(C3 * C2 * 3, (C3, C2, 3)), (C3, (C3,)), (C2 * C1 * 3, (C2, C1, 3)),
           (C2, (C2,)), (C1 * 3, (C1, 1, 3)), (C1, (C1,))]
 _NTOT = sum(n for n, _ in _SPLIT)
-_TILE_W = 32                     # positions per tile of the chain kernel
+_TILE_W = 32                     # positions per tile of the f32 chain kernel
+_TILE_W_BF16 = 128               # ... and of the bf16 one (kBTW)
 _DY3_TILE_B = 128                # molecules per tile of the dy3 kernel
 
 
@@ -197,13 +198,13 @@ def cnn_chain_bwd_cuda(dy3: torch.Tensor, y2: torch.Tensor,
         raise ValueError("cnn_chain_bwd_cuda needs a 16-byte aligned dy3")
     from ._build import load
 
-    tiles = b * -(-w // _TILE_W)
+    bf16 = dt == torch.bfloat16
+    tiles = b * -(-w // (_TILE_W_BF16 if bf16 else _TILE_W))
     blocks = min(tiles, torch.cuda.get_device_properties(
         dy3.device).multi_processor_count)
     partials = torch.empty((blocks, _NTOT), dtype=torch.float32,
                            device=dy3.device)
     out = torch.empty(_NTOT, dtype=torch.float32, device=dy3.device)
-    bf16 = dt == torch.bfloat16
     with torch.cuda.device(dy3.device):
         err = load("cnn_chain_bwd", "cnn_chain_bwd_bf16_launch" if bf16
                    else "")(

@@ -5,8 +5,9 @@ CPU and not on the card.  They also hold the wrappers' tile width and
 shared-memory formula to the kernels', run the adjacency launcher's
 row-group rule (C, evaluated here) over the shapes it takes, and check
 that a build follows the
-attention kernels' shared header (``csrc/attention_common.cuh``): the
-library's hash covers it and the copies' build finds it."""
+kernels' shared headers (``csrc/attention_common.cuh``,
+``csrc/mma_bf16.cuh``): the library's hash covers them and the copies'
+build finds them."""
 
 import importlib.util
 import os
@@ -63,6 +64,15 @@ COPIES = [
     ("k5 staging + level 3", "cnn_chain_bwd"),
     ("k5 staging + level 3 + dw2", "cnn_chain_bwd"),
     ("k5 no refills", "cnn_chain_bwd"),
+    ("k5b full", "cnn_chain_bwd"),
+    ("k5b staging only", "cnn_chain_bwd"),
+    ("k5b staging + level 3", "cnn_chain_bwd"),
+    ("k5b staging + level 3 + dw2", "cnn_chain_bwd"),
+    ("k5b no refills", "cnn_chain_bwd"),
+    ("k5b d2 core tiles only", "cnn_chain_bwd"),
+    ("k5b TW=32", "cnn_chain_bwd"),
+    ("k5b TW=64", "cnn_chain_bwd"),
+    ("k5b TW=64 stages=3", "cnn_chain_bwd"),
 ]
 
 
@@ -91,11 +101,14 @@ def test_kernel_phases_builds_each_copy(name, kernel):
 
 
 def test_cut_copies_of_one_kernel_all_differ():
-    by_kernel = {}
-    for kernel, src in kernel_phases.variants().values():
-        by_kernel.setdefault(kernel, []).append(src)
-    for kernel, srcs in by_kernel.items():
-        assert len(set(srcs)) == len(srcs), kernel
+    """Within one family of copies (``k5`` and ``k5b`` cut one source, each
+    on its own kernel's markers) no two copies are the same text: every cut
+    took."""
+    by_family = {}
+    for name, (kernel, src) in kernel_phases.variants().items():
+        by_family.setdefault((kernel, name.split()[0]), []).append(src)
+    for family, srcs in by_family.items():
+        assert len(set(srcs)) == len(srcs), family
 
 
 def test_cut_raises_when_the_marker_is_gone():
@@ -103,12 +116,16 @@ def test_cut_raises_when_the_marker_is_gone():
         kernel_phases.cut("int x;\n", "  // ---- level 3:", "")
 
 
-def test_chain_wrapper_tile_width_matches_the_kernel():
-    """``ops/cnn.py`` sizes the grid from ``_TILE_W``; the kernel walks
-    tiles of ``kTW`` positions.  The two must agree."""
-    m = re.search(r"constexpr int kTW = (\d+);", _source("cnn_chain_bwd"))
+@pytest.mark.parametrize("constant,attr", [("kTW", "_TILE_W"),
+                                           ("kBTW", "_TILE_W_BF16")])
+def test_chain_wrapper_tile_width_matches_the_kernel(constant, attr):
+    """``ops/cnn.py`` sizes each dtype's grid from its own constant
+    (``_TILE_W`` for f32, ``_TILE_W_BF16`` for bf16); each kernel walks
+    tiles of its own width (``kTW``, ``kBTW``).  Each pair must agree."""
+    m = re.search(rf"constexpr int {constant} = (\d+);",
+                  _source("cnn_chain_bwd"))
     assert m is not None
-    assert int(m.group(1)) == torch_cnn._TILE_W
+    assert int(m.group(1)) == getattr(torch_cnn, attr)
 
 
 @pytest.mark.parametrize("name,kernel", COPIES)
@@ -124,13 +141,22 @@ def test_each_copy_finds_the_headers_it_includes(name, kernel):
             (name, header, dirs)
 
 
-@pytest.mark.parametrize("kernel,follows", [
-    ("attention", True), ("attention_bwd", True), ("cnn_dy3", False),
-    ("cnn_chain_bwd", False), ("adjacency", False)])
+_KERNELS = ("attention", "attention_bwd", "cnn_dy3", "cnn_chain_bwd",
+            "adjacency")
+# each shared header, the kernels that include it, its cases' id prefix
+_HEADERS = [("attention_common.cuh", ("attention", "attention_bwd"), ""),
+            ("mma_bf16.cuh", ("cnn_dy3", "cnn_chain_bwd"), "mma_bf16-")]
+
+
+@pytest.mark.parametrize("header,kernel,follows", [
+    pytest.param(h, k, k in users, id=f"{pre}{k}-{k in users}")
+    for h, users, pre in _HEADERS for k in _KERNELS])
 def test_library_path_follows_the_shared_header(tmp_path, monkeypatch,
-                                                kernel, follows):
-    """An edit to ``attention_common.cuh`` gives both attention kernels a
-    new library (no stale ``.so`` is loaded) and leaves the others'."""
+                                                header, kernel, follows):
+    """An edit to a shared header (``attention_common.cuh`` of the two
+    attention kernels, ``mma_bf16.cuh`` of the two CNN kernels) gives each
+    kernel that includes it a new library (no stale ``.so`` is loaded) and
+    leaves the others'."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for fn in os.listdir(_build.CSRC_DIR):
@@ -139,11 +165,11 @@ def test_library_path_follows_the_shared_header(tmp_path, monkeypatch,
     monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     before = _build.library_path(kernel)
-    with open(csrc / "attention_common.cuh", "a") as fh:
+    with open(csrc / header, "a") as fh:
         fh.write("// edited\n")
     assert (_build.library_path(kernel) != before) == follows
     headers = [os.path.basename(p) for p in _build.local_sources(kernel)]
-    assert ("attention_common.cuh" in headers) == follows
+    assert (header in headers) == follows
 
 
 def _forward_launcher_constants():
