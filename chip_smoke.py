@@ -166,11 +166,15 @@ Phases (any failure raises and the script exits non-zero):
    of Stages 1 and 3 from a ``torch.profiler`` repeat);
 16. kernels 4-5 in bf16: ``flagship_bf16_bs1024_wc`` with
    ``cnn_pallas_bwd=True``, seed 42, on the bundled CSVs.  The first 3
-   losses within rel 1e-3 of a run through the plain versions; kernel
-   5b's registers and spills (ptxas); on the first step's own B=1024,
+   losses within rel 1e-3 of a run through the plain versions; kernels
+   4b's and 5b's registers and spills (ptxas; 4b's setmaxnreg of each
+   warpgroup); on the first step's own B=1024,
    W=1024 inputs and at the ragged (B, W) = (3, 37), (5, 2048), and, for
    5b's tiles of TW = 128 positions, (1, TW+1), (1, 1), (2, TW-1) and
-   (4, 2 TW), ``dy3`` within one bf16 ulp per element (or, where the f32 sum
+   (4, 2 TW); ``dy3`` also, for 4b's chunks of 64 molecules and column
+   tiles of 128, at (63, 1), (64, 3), (65, 37), (129, 2), (952, 1024),
+   (1025, 5), and at H=512 (its tiles of 64 columns) at (65, 3):
+   ``dy3`` within one bf16 ulp per element (or, where the f32 sum
    cancels, within its summation bound ``2 H 2^-24 sum_h |dy w|``) and
    equal on >= 99% of elements, the six gradients within 2e-3 of each
    output's largest magnitude (the limit ``tests/test_torch_cnn_bf16.py``
@@ -219,6 +223,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1116,6 +1121,16 @@ def bf16_cnn_phase(torch, train_ds, val_ds, val_smiles, tmpdir, card,
     for line in _build.ptxas_report("cnn_chain_bwd"):
         if "bf16" in line:
             log(f"[16] ptxas cnn_chain_bwd.cu {line}")
+    with open(os.path.join(_build.CSRC_DIR, "cnn_dy3.cu")) as fh:
+        regs = dict(re.findall(r"constexpr int k(Producer|Consumer)Regs = "
+                               r"(\d+);", fh.read()))
+    ignored = "C7508" in _build.BUILD_LOGS.get("cnn_dy3", "")
+    for line in _build.ptxas_report("cnn_dy3"):
+        if "bf16" in line:
+            log(f"[16] ptxas cnn_dy3.cu {line}; setmaxnreg: producer "
+                f"warpgroup {regs['Producer']}, consumer warpgroups "
+                f"{regs['Consumer']}" + (" (IGNORED by ptxas)" if ignored
+                                         else ""))
     bf16 = torch.bfloat16
     cfg = get_config("flagship_bf16_bs1024_wc", epochs=1,
                      cnn_pallas_bwd=True)
@@ -1164,6 +1179,17 @@ def bf16_cnn_phase(torch, train_ds, val_ds, val_smiles, tmpdir, card,
             torch, (rnd(b, wd, 128, relu=True), rnd(b, 64, wd, relu=True),
                     rnd(b, 32, wd, relu=True), rfp, a5[4], a5[5]),
             f"B={b} W={wd}"))
+
+    # ragged shapes for kernel 4b's chunks of 64 molecules and tiles of 128
+    # columns: a chunk short, whole, one past; W=1; the padded batch's own
+    # width with B=952 (a real batch before padding) and B=1025; H=512,
+    # where the tiles are 64 columns wide
+    for b, wd, h in ((63, 1, 256), (64, 3, 256), (65, 37, 256),
+                     (129, 2, 256), (952, 1024, 256), (1025, 5, 256),
+                     (65, 3, 512)):
+        dy3_err = max(dy3_err, check_dy3_bf16(
+            torch, rnd(b, h, scale=0.01), rnd(h, wd * 128, scale=0.01),
+            rnd(b, wd, 128, relu=True), f"B={b} W={wd} H={h}"))
 
     # one epoch through the kernels, counters from 0
     ckdir = os.path.join(tmpdir, "bf16_cnn")

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of kernels 1 to 5 goes, on one CUDA card.
 
-    python3 kernel_phases.py [--seed 0] [--only k2]
+    python3 kernel_phases.py [--seed 0] [--only k2] [--parent DIR]
 
 Builds cut-down copies of ``csrc/adjacency.cu`` (kernel 1),
 ``csrc/attention.cu`` (kernel 2), ``csrc/attention_bwd.cu`` (kernel 3),
-``csrc/cnn_dy3.cu`` (kernel 4) and ``csrc/cnn_chain_bwd.cu`` (kernel 5 and
-its bf16 kernel 5b),
+``csrc/cnn_dy3.cu`` (kernel 4 and its bf16 kernel 4b) and
+``csrc/cnn_chain_bwd.cu`` (kernel 5 and its bf16 kernel 5b),
 each with one part of the work removed, times every copy beside the full
 kernel with ``chip_smoke.DeviceTimer``, and prints one line per copy (per
 shape for kernels 1 and 2) with the card's name and power limit.  Shapes:
@@ -14,8 +14,8 @@ kernel 1 on the real edge lists of the first 64 test molecules (the serving
 batch) and of the first 128 training molecules (the training batch) at the
 (N, E) = (80, 176) budget; kernel 2 at the serving batch B=64 and the
 training batch B=128 (N=80, F=35); the others at the training shape (B=128,
-N=80, F=35; H=256, K=131072; W=1024), kernel 5b at the bf16 training shape
-(B=1024, W=1024).  A cut copy computes wrong numbers on
+N=80, F=35; H=256, K=131072; W=1024), kernels 4b and 5b at the bf16
+training shape (B=1024, W=1024, H=256).  A cut copy computes wrong numbers on
 purpose; only its time is read.  The copies are written to and built in a
 temporary directory, with ``csrc/`` on the include path for the headers
 they include; the sources are not touched.
@@ -36,7 +36,19 @@ backward's way, the same bits) in place of one per row; the full kernel at
 A (attn and dscores in shared memory); phase A with the softmax replaced by
 a scale.  Kernel 4: the full kernel; without the dy3 stores; with neither
 stores nor ring refills (the FMAs on whatever the first chunks left in
-shared memory).  Kernel 5: the full kernel; each tile's staging alone (the
+shared memory).  Kernel 4b (``cnn_dy3_bf16_kernel``): the full kernel;
+the producer warps' loads alone (the consumers wait for and release each
+stage: no products, no epilogue); loads and products without the
+epilogue; without its TMA stores; without the y3 stream and mask (mask all
+ones); tiles of 64 columns in place of 128 (256 do not fit in shared
+memory); one consumer warpgroup in place of two (no ping-pong); a y3 ring
+of 4 stages in place of 2; and, for the practical floor of its byte
+stream, a copy of y3 into dy3.  With ``--parent DIR`` (a checkout of an
+earlier commit), the copies ``k4b-mma`` of that checkout's ``mma.sync``
+design of kernel 4b (one 128 x 128 tile a block): the full kernel;
+without its stores; without the y3 read (mask all ones); the main loop
+alone; rings of 2 and 6 stages in place of 4.  Kernel 5: the full kernel;
+each tile's staging alone (the
 wait for its copies); staging and dw3, db3; staging and all of level 3 (d2
 too); all but d1 and its sums; every phase without the refills (each tile
 computes on whatever the first one left in shared memory).  Kernel 5b
@@ -50,7 +62,8 @@ of 128 do not fit); each prints its registers and spills (ptxas).
 Kernels 5 and 5b's inputs have the ReLU pattern of real activations: y1,
 y2 and d3 about half zero, the fingerprint's bits 0 or 1.  ``--only``
 keeps the copies whose name starts with its argument (``--only k5b`` the
-bf16 ones; ``--only k5`` both).
+bf16 ones; ``--only k5`` both; ``--only k4b`` kernel 4b's and, with
+``--parent``, the ``mma.sync`` design's).
 """
 
 from __future__ import annotations
@@ -90,15 +103,41 @@ K2_GROUPS = "  int groups = row_groups(batch, n, sms);"
 K5B_TW = "constexpr int kBTW = 128;"
 K5B_N2 = "constexpr int kBN2 = kBP2 / 8;"
 K5B_STAGES = "constexpr int kBStages = 2;"
+# kernel 4b's cuts: its products, its epilogue's staging loop, its TMA
+# stores, its y3 stream and mask, its tile width and its consumer groups
+K4B_PRODUCTS = "          wgmma_bf16<BN>(acc, da, db, ks > 0);"
+K4B_STAGE = "        for (int i = 0; i < BN / 2; i += 2) {"
+K4B_STORE = "            tma_store(&out_map,"
+K4B_Y3_WARP = "    } else if (warp == 1 && lane == 0) {"
+K4B_Y3_WAIT = "        mbar_wait(y3_full + 8 * ys, gc / kY3Stages & 1);\n"
+K4B_MASK = "          const uint32_t m = lds32(yb + off);"
+K4B_COLS = "int tile_cols(int h) { return h <= 256 ? 128 : 64; }"
+K4B_GROUPS = "constexpr int kConsumers = 2;"
+K4B_Y3_STAGES = "constexpr int kY3Stages = 2;"
+# the same for the earlier design of kernel 4b (mma.sync, one 128 x 128
+# tile a block), cut from a parent checkout's source (--parent)
+K4B_OLD_STORE = "        *reinterpret_cast<__nv_bfloat162*>(out + at) = v;"
+K4B_OLD_MASK = ("        const __nv_bfloat162 m =\n"
+                "            *reinterpret_cast<const __nv_bfloat162*>"
+                "(y3 + at);")
+K4B_OLD_EPILOGUE = ("  // epilogue: round each sum once to bf16, keep it "
+                    "where y3 > 0")
+K4B_OLD_SINK = ("  if (batch < 0) {\n    float z = 0.0f;\n"
+                "    for (int i = 0; i < 4; ++i)\n"
+                "      for (int j = 0; j < 4; ++j)\n"
+                "        for (int e = 0; e < 4; ++e) z += acc[i][j][e];\n"
+                "    out[t] = __float2bfloat16(z);\n  }\n  return;\n")
+K4B_OLD_STAGES = "constexpr int kHStages = 4;"
 
 
-def nvcc_args(cu: str, so: str) -> list:
-    """nvcc's arguments for one copy: the port's flags, and ``csrc/`` on
-    the include path, so that a copy written elsewhere still finds the
-    headers its source includes (``attention_common.cuh``)."""
+def nvcc_args(cu: str, so: str, csrc: str = CSRC) -> list:
+    """nvcc's arguments for one copy: the port's flags, and ``csrc`` (the
+    source's own directory) on the include path, so that a copy written
+    elsewhere still finds the headers its source includes
+    (``attention_common.cuh``)."""
     from mgat_graphsage_torch.ops import _build
 
-    return [*_build.NVCC_FLAGS, "-I", CSRC, "-o", so, cu]
+    return [*_build.NVCC_FLAGS, "-I", csrc, "-o", so, cu]
 
 
 def cut(src: str, old: str, new: str) -> str:
@@ -142,6 +181,16 @@ def variants():
     def k5b_set(old, new):  # a constant of the bf16 kernel changed
         return ("cnn_chain_bwd", cut(k5, old, new))
 
+    def k4b(*cuts):        # kernel 4b with each (old, new) cut made
+        src = k4
+        for old, new in cuts:
+            src = cut(src, old, new)
+        return ("cnn_dy3", src)
+
+    never = "if (batch < 0) "
+    no_store = (K4B_STORE, K4B_STORE.replace("tma_store", never + "tma_store"))
+    no_staging = (K4B_STAGE, K4B_STAGE.replace("i < BN / 2;",
+                                               "i < BN / 2 && batch < 0;"))
     no_stores = ("            __stcs(", "            if (batch < 0) __stcs(")
     return {
         "k1 full": ("adjacency", k1),
@@ -190,6 +239,22 @@ def variants():
         "k4 no stores": ("cnn_dy3", cut(k4, *no_stores)),
         "k4 FMAs only": ("cnn_dy3", cut(
             cut(k4, *no_stores), "    issue_chunk(g + kStages - 1);\n", "")),
+        "k4b full": ("cnn_dy3", k4),
+        "k4b producer only": k4b(
+            (K4B_PRODUCTS, "          " + never + K4B_PRODUCTS.lstrip()),
+            no_staging, no_store),
+        "k4b no epilogue": k4b(no_staging, no_store),
+        "k4b no store": k4b(no_store),
+        "k4b no mask": k4b(
+            (K4B_Y3_WARP, K4B_Y3_WARP.replace(") {", " && batch < 0) {")),
+            (K4B_Y3_WAIT, ""),
+            (K4B_MASK, "          const uint32_t m = 0x3F803F80u;")),
+        "k4b BN=64": k4b((K4B_COLS,
+                          "int tile_cols(int h) { return 64; }")),
+        "k4b one consumer": k4b((K4B_GROUPS,
+                                 "constexpr int kConsumers = 1;")),
+        "k4b y3 stages=4": k4b((K4B_Y3_STAGES, K4B_Y3_STAGES.replace(
+            "2;", "4;"))),
         "k5 full": ("cnn_chain_bwd", k5),
         "k5 staging only": k5_upto("    // ---- level 3: dw3"),
         "k5 staging + dw3, db3": k5_upto("    // ---- level 3: d2"),
@@ -215,10 +280,36 @@ def variants():
     }
 
 
+def parent_variants(root: str):
+    """Copies of the earlier, ``mma.sync`` design of kernel 4b, cut from
+    the ``cnn_dy3.cu`` of the checkout at ``root``: name -> (source, its
+    csrc directory)."""
+    csrc = os.path.join(root, "mgat_graphsage_torch", "csrc")
+    old = open(os.path.join(csrc, "cnn_dy3.cu")).read()
+    no_store = (K4B_OLD_STORE, "        if (batch < 0) " +
+                K4B_OLD_STORE.lstrip())
+    copies = {
+        "k4b-mma full": old,
+        "k4b-mma no store": cut(old, *no_store),
+        "k4b-mma no mask read": cut(old, K4B_OLD_MASK,
+                                     "        const __nv_bfloat162 m = "
+                                     "__floats2bfloat162_rn(1.0f, 1.0f);"),
+        "k4b-mma main loop only": cut(old, K4B_OLD_EPILOGUE,
+                                       K4B_OLD_SINK + K4B_OLD_EPILOGUE),
+        **{f"k4b-mma stages={n}": cut(old, K4B_OLD_STAGES,
+                                       f"constexpr int kHStages = {n};")
+           for n in (2, 6)},
+    }
+    return {name: (src, csrc) for name, src in copies.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="", help="name prefix, e.g. k5")
+    ap.add_argument("--parent", default="",
+                    help="a checkout of the parent commit: also time its "
+                         "kernel 4b's copies (k4b-mma)")
     args = ap.parse_args(argv)
 
     import torch
@@ -233,13 +324,18 @@ def main(argv=None) -> int:
     card = chip_smoke.nvidia_smi_line() or torch.cuda.get_device_name(0)
     work = tempfile.TemporaryDirectory(prefix="kernel_phases-")
     procs = {}
-    chosen = {n: v for n, v in variants().items() if n.startswith(args.only)}
-    for i, (name, (kernel, src)) in enumerate(chosen.items()):
+    chosen = {n: (kernel, src, CSRC) for n, (kernel, src)
+              in variants().items()}
+    if args.parent:
+        chosen.update({n: ("cnn_dy3", src, csrc) for n, (src, csrc)
+                       in parent_variants(args.parent).items()})
+    chosen = {n: v for n, v in chosen.items() if n.startswith(args.only)}
+    for i, (name, (kernel, src, csrc)) in enumerate(chosen.items()):
         cu = os.path.join(work.name, f"v{i}.cu")
         with open(cu, "w") as fh:
             fh.write(src)
         procs[name] = (kernel, cu[:-3] + ".so", subprocess.Popen(
-            [_build._nvcc(), *nvcc_args(cu, cu[:-3] + ".so")],
+            [_build._nvcc(), *nvcc_args(cu, cu[:-3] + ".so", csrc)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
     for name, (kernel, so, proc) in procs.items():
@@ -247,16 +343,20 @@ def main(argv=None) -> int:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{out}")
         symbol, argtypes = _build.KERNELS[kernel]
-        if name.startswith("k5b"):
-            kernel, symbol = "cnn_chain_bwd_bf16", "cnn_chain_bwd_bf16_launch"
+        bf16 = {"k5b": "cnn_chain_bwd_bf16", "k4b": "cnn_dy3_bf16"}.get(
+            name[:3])
+        if bf16:
+            kernel, symbol = bf16, bf16 + "_launch"
             argtypes = _build.ENTRIES[symbol]
         fn = getattr(ctypes.CDLL(so), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[name] = (kernel, fn)
         _build.BUILD_LOGS[name] = out
         for line in _build.ptxas_report(name):
-            if name.startswith("k5b") and "cnn_chain_bwd_bf16" in line:
+            if bf16 and bf16 in line:
                 print(f"{name:<32} ptxas: {line}", flush=True)
+        if "C7508" in out:   # ptxas ignored a setmaxnreg
+            print(f"{name:<32} ptxas: setmaxnreg ignored", flush=True)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
@@ -302,6 +402,14 @@ def main(argv=None) -> int:
            w3.to(torch.bfloat16), w2.to(torch.bfloat16)] if any(
                kern == "cnn_chain_bwd_bf16" for kern, _ in fns.values()) \
         else []
+    # kernel 4b at the bf16 training shape (B=1024, H=256, W=1024), made on
+    # the card: y3 with the ReLU pattern of real activations
+    d4 = [(torch.randn((b5, 256), device=dev, generator=gen) * 0.01).to(
+              torch.bfloat16),
+          (torch.randn((256, w5 * 128), device=dev, generator=gen) * 0.01
+           ).to(torch.bfloat16), relu_bf16(b5, w5, 128)] if any(
+              kern == "cnn_dy3_bf16" for kern, _ in fns.values()) else []
+    out4 = torch.empty_like(d4[2]) if d4 else None
     stream = torch.cuda.current_stream().cuda_stream
     def k1_call(csv, bb):
         """kernel 1 on the first ``bb`` molecules of ``csv`` at the (80,
@@ -338,6 +446,9 @@ def main(argv=None) -> int:
             d3.data_ptr(), y2.data_ptr(), y1.data_ptr(), fp.data_ptr(),
             w3.data_ptr(), w2.data_ptr(), partials.data_ptr(),
             sums.data_ptr(), cb, cw, blocks, stream),
+        "cnn_dy3_bf16": lambda fn: fn(
+            *(t.data_ptr() for t in d4), out4.data_ptr(), b5, 256, w5 * 128,
+            stream),
         "cnn_chain_bwd_bf16": lambda fn: fn(
             *(t.data_ptr() for t in b16), partials.data_ptr(),
             sums.data_ptr(), b5, w5, blocks, stream)}
@@ -347,6 +458,12 @@ def main(argv=None) -> int:
         calls["adjacency"] = [("B=64", k1_call(TEST_CSV, 64)),
                               ("B=128", k1_call(TRAIN_CSV, 128))]
     timer = chip_smoke.DeviceTimer(torch)
+    if d4:
+        # the card's read + write stream on kernel 4b's bytes: y3 copied
+        # into dy3 (537 MB), for the practical floor of the stream
+        ms = timer(lambda: out4.copy_(d4[2]), iters=50)
+        print(f"{'k4b floor: copy y3 -> dy3':<32} {ms * 1e3:9.2f} us  on "
+              f"{card}", flush=True)
     for name, (kernel, fn) in fns.items():
         shapes = calls[kernel]
         if callable(shapes):

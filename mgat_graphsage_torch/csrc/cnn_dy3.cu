@@ -50,18 +50,35 @@
 // sum is rounded once to bf16 (round to nearest even), then masked.
 // Bound on the H100 at B=1024, H=256, K=131072: bytes.  fc1 (67 MB), y3
 // and dy3 (268 MB each) are 604 MB, 180 us at 3.35 TB/s; the 68.7 GFLOP
-// take 69 us at the dense bf16 tensor-core rate.  So this variant uses
-// the tensor cores: mma.sync m16n8k16 (bf16 in, f32 sums), one 128 x 128
-// output tile per block (8 warps of 64 x 32), the reduction over h in
-// chunks of 32 through a 4-stage cp.async ring (dy rows and weight rows,
-// ldmatrix to fragments, the weight's with .trans since its rows run
-// along the columns).  Blocks take the molecule tiles of one column
-// block next to each other, so each weight column block comes from device
-// memory once and from L2 for the others.  The epilogue reads the mask
-// from y3 and writes bf16 pairs.  Each output is one thread's fixed
-// sequence of mma steps: the result repeats bit for bit.  Needs H % 8 ==
-// 0, K % 8 == 0 and 16-byte aligned tensors (checked by the caller).
-// Shared memory: 74 KB, two blocks per SM.
+// take 69 us at the dense bf16 tensor-core rate, 114 flops a byte against
+// the card's ridge of ~295: a memory stream with a product inside.
+//
+// Design (cnn_dy3_bf16_kernel): persistent and weight-stationary, one block
+// per SM.  A work item is one column tile of BN = 128 columns (64 for
+// 256 < H <= 512): the block loads the item's weight slab [H, BN] (64 KB at
+// H = 256) into shared memory once, so the weight comes from device memory
+// once whatever order the blocks run in, and walks all B molecules in
+// chunks of 64 against it.  Warp-specialised: one producer warp issues TMA
+// loads of each chunk's dy rows [64, H] (a 2-stage ring, from L2, where dy
+// stays) and of the slabs; a second one streams the chunks' y3 tiles
+// [64, BN] through a ring of its own (2 stages), ahead of the products, so
+// the mask is in shared memory before the epilogue needs it and the next
+// item's loads are in flight when the slab is swapped.  Two
+// consumer warpgroups take alternate chunks (ping-pong: one's epilogue
+// overlaps the other's products), each running wgmma m64nBNk16 over H: A
+// the dy tile (K-major), B the slab (MN-major, the transpose bit).  The
+// epilogue masks and rounds the sums into the group's staging tile, which
+// a TMA store sends out as whole lines while the next chunk computes.
+// Every tile in shared memory is TMA's 128-byte swizzle of 64 x 64 boxes;
+// rows past B and columns past K load as zeros and are dropped on store.
+// Each output is one thread's fixed sequence of wgmma k-steps, summed in
+// f32 and rounded once: no split over H, no atomics, and the result
+// repeats bit for bit.  setmaxnreg moves registers from the producer
+// warpgroup (40) to the consumers (232).  Shared memory: 193 KB at H = 256
+// (slab 64, dy 64, y3 32, staging 32).  The tensor maps are encoded at each
+// launch through the runtime's driver entry point (no libcuda link).
+// Needs H % 8 == 0, H <= 512, K % 8 == 0 and 16-byte aligned tensors
+// (checked by the caller).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -321,130 +338,302 @@ extern "C" int cnn_dy3_launch(const void* dyt, const void* fc1_w,
 
 namespace {
 
-constexpr int kHM = 128;                  // molecules per tile
-constexpr int kHN = 128;                  // columns per tile
-constexpr int kHK = 32;                   // rows of the weight per stage
-constexpr int kHStages = 4;
-constexpr int kHThreads = 256;            // 8 warps: 2 x 4 of 64 x 32
-constexpr int kAS = kHK + 8;              // dy tile row stride: 80 bytes
-constexpr int kBS = kHN + 8;              // weight tile row stride: 272 B
-constexpr int kHStage = kHM * kAS + kHK * kBS;   // bf16 per stage
+// ---- bf16 kernel 4b: persistent, weight-stationary, TMA and wgmma --------
+constexpr int kChunkM = 64;               // molecules per chunk: one wgmma M
+constexpr int kBox = 64;                  // a TMA box: 64 x 64 bf16 ...
+constexpr int kBoxBytes = kBox * kBox * 2;    // ... 8 KB, 128-byte rows
+constexpr int kConsumers = 2;             // consumer warpgroups (ping-pong)
+constexpr int kDyStages = 2;              // stages of the dy and y3 rings
+constexpr int kY3Stages = 2;
+// chunk g goes to stage g % stages and to group g % kConsumers: with
+// stages a multiple of the groups, each stage is read by one group, whose
+// parity waits then see every phase of it
+static_assert(kDyStages % kConsumers == 0 && kY3Stages % kConsumers == 0,
+              "a ring stage must belong to one consumer group");
+constexpr int kThreadsBf16 = 128 * (kConsumers + 1);
+constexpr int kProducerRegs = 40;         // setmaxnreg of each warpgroup
+constexpr int kConsumerRegs = 232;
+constexpr int kMaxH = 512;
 
-__device__ __forceinline__ void cp_async16b(void* dst, const void* src,
-                                            bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
+// columns per work item: the weight slab [H, BN] is 64 KB at the most
+int tile_cols(int h) { return h <= 256 ? 128 : 64; }
+
+// 8 KB boxes of shared memory at BN columns and nkb boxes of 64 along H:
+// the slab, the dy ring, the y3 ring, one staging tile per consumer
+int smem_boxes(int bn, int nkb) {
+  return nkb * (bn / 64) + kDyStages * nkb + kY3Stages * (bn / 64) +
+         kConsumers * (bn / 64);
 }
 
-__global__ void __launch_bounds__(kHThreads, 2)
-cnn_dy3_bf16_kernel(const __nv_bfloat16* __restrict__ dy,
-                    const __nv_bfloat16* __restrict__ w,
-                    const __nv_bfloat16* __restrict__ y3,
-                    __nv_bfloat16* __restrict__ out, int batch, int h,
-                    int k) {
-  extern __shared__ __align__(16) __nv_bfloat16 hsmem[];
-  const int t = threadIdx.x;
-  const int lane = t % 32;
-  const int warp = t / 32;
-  const int wm = warp / 4;        // rows 64 * wm .. +63 of the tile
-  const int wn = warp % 4;        // columns 32 * wn .. +31
-  const int mt = (batch + kHM - 1) / kHM;
-  const int b0 = (int)(blockIdx.x % mt) * kHM;
-  const int n0 = (int)(blockIdx.x / mt) * kHN;
-  const int nk = (h + kHK - 1) / kHK;
+// work items (column tiles) of block `block` in a grid of `grid`
+__host__ __device__ int block_items(int items, int grid, int block) {
+  return block < items ? (items - 1 - block) / grid + 1 : 0;
+}
 
-  // chunk c of the reduction into stage c % kHStages: 128 dy rows x 32 and
-  // 32 weight rows x 128, 16 bytes (8 values) a copy, zero outside
-  auto issue = [&](int c) {
-    if (c < nk) {
-      __nv_bfloat16* as = hsmem + (c % kHStages) * kHStage;
-      __nv_bfloat16* bs = as + kHM * kAS;
-      const int h0 = c * kHK;
-      for (int idx = t; idx < kHM * (kHK / 8); idx += kHThreads) {
-        const int r = idx / (kHK / 8);
-        const int q = (idx % (kHK / 8)) * 8;
-        const bool ok = b0 + r < batch && h0 + q < h;
-        cp_async16b(as + r * kAS + q,
-                    ok ? dy + (size_t)(b0 + r) * h + h0 + q : dy, ok);
-      }
-      for (int idx = t; idx < kHK * (kHN / 8); idx += kHThreads) {
-        const int r = idx / (kHN / 8);
-        const int q = (idx % (kHN / 8)) * 8;
-        const bool ok = h0 + r < h && n0 + q < k;
-        cp_async16b(bs + r * kBS + q,
-                    ok ? w + (size_t)(h0 + r) * k + n0 + q : w, ok);
-      }
+// the first chunk that consumer group wg takes among g0, g0 + 1, ...: the
+// block's chunks are dealt round robin over the groups
+__host__ __device__ int first_chunk(int g0, int wg) {
+  return g0 + (wg - g0 % kConsumers + kConsumers) % kConsumers;
+}
+
+// the last of those before g_end, or -1 if there is none
+__host__ __device__ int last_chunk(int first, int g_end) {
+  return first < g_end
+             ? first + (g_end - 1 - first) / kConsumers * kConsumers
+             : -1;
+}
+
+// byte offset of element (r, c) in a tile of 64 rows stored as 64-column
+// boxes, as TMA lays them out under the 128-byte swizzle: 16-byte chunk
+// c / 8 of row r sits at chunk (c / 8) ^ (r % 8) of the row
+__host__ __device__ int tile_offset(int r, int c) {
+  return c / 64 * kBoxBytes + r * 128 + ((c % 64 / 8 ^ r % 8) << 4) +
+         c % 8 * 2;
+}
+
+// row and column of accumulator element i of thread `lane` in warp `warp`
+// of a consumer group (the wgmma m64nN layout: n8 block i / 4, rows
+// 16 warp + lane / 4 and 8 below it, two columns a thread)
+__host__ __device__ int frag_row(int warp, int lane, int i) {
+  return 16 * warp + lane / 4 + 8 * (i % 4 / 2);
+}
+
+__host__ __device__ int frag_col(int lane, int i) {
+  return 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+cnn_dy3_bf16_kernel(__grid_constant__ const CUtensorMap dy_map,
+                    __grid_constant__ const CUtensorMap w_map,
+                    __grid_constant__ const CUtensorMap y3_map,
+                    __grid_constant__ const CUtensorMap out_map, int batch,
+                    int h, int k) {
+  constexpr int NB = BN / 64;             // boxes across a tile
+  extern __shared__ unsigned char dsmem[];
+  const int nkb = (h + kBox - 1) / kBox;  // boxes along H
+  const int nks = (h + 15) / 16;          // wgmma k-steps
+  const uint32_t slab = (smem_u32(dsmem) + 1023u) & ~1023u;
+  const uint32_t dy_s = slab + nkb * NB * kBoxBytes;
+  const uint32_t y3_s = dy_s + kDyStages * nkb * kBoxBytes;
+  const uint32_t st_s = y3_s + kY3Stages * NB * kBoxBytes;
+  const uint32_t bars = st_s + kConsumers * NB * kBoxBytes;
+  const uint32_t slab_full = bars, slab_empty = bars + 8;
+  const uint32_t dy_full = bars + 16, dy_empty = dy_full + 8 * kDyStages;
+  const uint32_t y3_full = dy_empty + 8 * kDyStages;
+  const uint32_t y3_empty = y3_full + 8 * kY3Stages;
+
+  const int items = (k + BN - 1) / BN;    // column tiles
+  const int nch = (batch + kChunkM - 1) / kChunkM;
+  const int my_items = block_items(items, gridDim.x, blockIdx.x);
+  const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    // full: the producer's arrival and the bytes; empty: one arrival from
+    // each warp of the group that read the stage (of both, for the slab)
+    mbar_init(slab_full, 1);
+    mbar_init(slab_empty, 4 * kConsumers);
+    for (int s = 0; s < kDyStages; ++s) {
+      mbar_init(dy_full + 8 * s, 1);
+      mbar_init(dy_empty + 8 * s, 4);
     }
-    cp_commit();
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-#pragma unroll
-  for (int c = 0; c < kHStages - 1; ++c) issue(c);
-  for (int c = 0; c < nk; ++c) {
-    cp_wait<kHStages - 2>();      // chunk c has landed (this thread's part)
-    __syncthreads();              // ... everyone's; slot (c-1) % S is free
-    issue(c + kHStages - 1);
-    const __nv_bfloat16* as = hsmem + (c % kHStages) * kHStage;
-    const __nv_bfloat16* bs = as + kHM * kAS;
-#pragma unroll
-    for (int ks = 0; ks < kHK; ks += 16) {
-      unsigned a[4][4], b[2][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldsm_x4(a[i], as + (64 * wm + 16 * i + lane % 16) * kAS + ks +
-                          (lane / 16) * 8);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        ldsm_x4_t(b[j], bs + (ks + lane % 8 + ((lane / 8) % 2) * 8) * kBS +
-                            32 * wn + 16 * j + (lane / 16) * 8);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_bf16(acc[i][j], a[i], b[j / 2][2 * (j % 2)],
-                   b[j / 2][2 * (j % 2) + 1]);
+    for (int s = 0; s < kY3Stages; ++s) {
+      mbar_init(y3_full + 8 * s, 1);
+      mbar_init(y3_empty + 8 * s, 4);
     }
+    mbar_fence_init();
   }
-  cp_wait<0>();
+  __syncthreads();
 
-  // epilogue: round each sum once to bf16, keep it where y3 > 0
-  const int g = lane / 4;
-  const int q2 = 2 * (lane % 4);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = b0 + 64 * wm + 16 * i + g + 8 * hf;
-      if (row >= batch) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + 32 * wn + 8 * j + q2;
-        if (col >= k) continue;
-        const size_t at = (size_t)row * k + col;
-        const __nv_bfloat162 m =
-            *reinterpret_cast<const __nv_bfloat162*>(y3 + at);
-        const __nv_bfloat162 v = __floats2bfloat162_rn(
-            __low2float(m) > 0.0f ? acc[i][j][2 * hf] : 0.0f,
-            __high2float(m) > 0.0f ? acc[i][j][2 * hf + 1] : 0.0f);
-        *reinterpret_cast<__nv_bfloat162*>(out + at) = v;
+  if (wg == kConsumers) {
+    // ---- producer warpgroup: warp 0 streams dy and the slabs, warp 1 y3
+    if constexpr (kConsumers > 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == 0 && lane == 0) {
+      int g = 0;
+      for (int it = 0; it < my_items; ++it) {
+        const int n0 = (blockIdx.x + it * gridDim.x) * BN;
+        for (int j = 0; j < nch; ++j, ++g) {
+          const int s = g % kDyStages;
+          mbar_wait(dy_empty + 8 * s, (g / kDyStages & 1) ^ 1);
+          mbar_expect(dy_full + 8 * s, nkb * kBoxBytes);
+          for (int kb = 0; kb < nkb; ++kb)
+            tma_load(dy_s + (s * nkb + kb) * kBoxBytes, &dy_map, kBox * kb,
+                     kChunkM * j, dy_full + 8 * s);
+          if (j == 0) {
+            // the slab of this item, once both groups are done with the
+            // last one's products; this item's first dy chunk is in flight
+            mbar_wait(slab_empty, (it & 1) ^ 1);
+            mbar_expect(slab_full, nkb * NB * kBoxBytes);
+            for (int nb = 0; nb < NB; ++nb)
+              for (int kb = 0; kb < nkb; ++kb)
+                tma_load(slab + (nb * nkb + kb) * kBoxBytes, &w_map,
+                         n0 + kBox * nb, kBox * kb, slab_full);
+          }
+        }
+      }
+    } else if (warp == 1 && lane == 0) {
+      int g = 0;
+      for (int it = 0; it < my_items; ++it) {
+        const int n0 = (blockIdx.x + it * gridDim.x) * BN;
+        for (int j = 0; j < nch; ++j, ++g) {
+          const int s = g % kY3Stages;
+          mbar_wait(y3_empty + 8 * s, (g / kY3Stages & 1) ^ 1);
+          mbar_expect(y3_full + 8 * s, NB * kBoxBytes);
+          for (int nb = 0; nb < NB; ++nb)
+            tma_load(y3_s + (s * NB + nb) * kBoxBytes, &y3_map,
+                     n0 + kBox * nb, kChunkM * j, y3_full + 8 * s);
+        }
       }
     }
+  } else {
+    // ---- consumer group wg: every kConsumers-th chunk of the block
+    if constexpr (kConsumers > 1)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int tw = threadIdx.x % 128;
+    const uint32_t st = st_s + wg * NB * kBoxBytes;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    int g = 0;
+    for (int it = 0; it < my_items; ++it, g += nch) {
+      const int n0 = (blockIdx.x + it * gridDim.x) * BN;
+      const int first = first_chunk(g, wg);
+      const int last = last_chunk(first, g + nch);
+      mbar_wait(slab_full, it & 1);
+      if (last < 0 && lane == 0) mbar_arrive(slab_empty);
+      for (int gc = first; gc < g + nch; gc += kConsumers) {
+        const int j = gc - g;
+        const int s = gc % kDyStages;
+        mbar_wait(dy_full + 8 * s, gc / kDyStages & 1);
+        // ---- products: A the dy chunk (K-major), B the slab (MN-major,
+        // transposed); each output one fixed sequence of k-steps
+        wgmma_hold(acc);
+        wgmma_fence();
+        for (int ks = 0; ks < nks; ++ks) {
+          const uint64_t da = wgmma_desc(
+              dy_s + (s * nkb + ks / 4) * kBoxBytes + 32 * (ks % 4), 16, 1024);
+          const uint64_t db = wgmma_desc(slab + ks * 2048,
+                                         nkb * kBoxBytes, 1024);
+          wgmma_bf16<BN>(acc, da, db, ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait();
+        wgmma_hold(acc);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(dy_empty + 8 * s);
+          if (gc == last) mbar_arrive(slab_empty);
+        }
+        // ---- epilogue: mask, round once, stage, store by TMA
+        const int ys = gc % kY3Stages;
+        const uint32_t yb = y3_s + ys * NB * kBoxBytes;
+        mbar_wait(y3_full + 8 * ys, gc / kY3Stages & 1);
+        if (tw == 0) bulk_wait_read();    // the staging tile is free
+        named_sync(1 + wg, 128);
+#pragma unroll
+        for (int i = 0; i < BN / 2; i += 2) {
+          const int off = tile_offset(frag_row(warp, lane, i),
+                                      frag_col(lane, i));
+          const uint32_t m = lds32(yb + off);
+          // a bf16 is the high half of the f32 of the same value
+          sts32(st + off, pack_bf16x2(
+                              __uint_as_float(m << 16) > 0.0f ? acc[i] : 0.0f,
+                              __uint_as_float(m & 0xFFFF0000u) > 0.0f
+                                  ? acc[i + 1] : 0.0f));
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(y3_empty + 8 * ys);
+        fence_proxy_async();
+        named_sync(1 + wg, 128);
+        if (tw == 0) {
+          for (int nb = 0; nb < NB; ++nb)
+            tma_store(&out_map, st + nb * kBoxBytes, n0 + kBox * nb,
+                      kChunkM * j);
+          bulk_commit();
+        }
+      }
+    }
+    if (tw == 0) bulk_wait();
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a driver function, through the runtime's entry
+// point query: no link against libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major bf16 [rows, cols] tensor in boxes of 64 x 64 under the
+// 128-byte swizzle; outside the tensor a load reads zeros, a store drops
+bool box_map(EncodeTiled enc, CUtensorMap* map, const void* p, int rows,
+             int cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {kBox, kBox};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+int launch_bf16(const CUtensorMap (&maps)[4], int batch, int h, int k,
+                cudaStream_t stream) {
+  const size_t smem =
+      1024 + (size_t)smem_boxes(BN, (h + kBox - 1) / kBox) * kBoxBytes +
+      8 * (2 + 2 * kDyStages + 2 * kY3Stages);
+  cudaError_t err = cudaFuncSetAttribute(
+      cnn_dy3_bf16_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int items = (k + BN - 1) / BN;
+  cnn_dy3_bf16_kernel<BN><<<items < sms ? items : sms, kThreadsBf16, smem,
+                            stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                      batch, h, k);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dy [B, H], fc1_w [H, K], y3 and out [B, K]: bf16, contiguous, on the
-// current device, 16-byte aligned, H % 8 == 0 and K % 8 == 0 (checked by
-// the caller).  Returns cudaGetLastError() after the launch (0 on success).
+// current device, 16-byte aligned, H % 8 == 0, H <= 512 and K % 8 == 0
+// (checked by the caller).  Returns cudaGetLastError() after the launch (0
+// on success), cudaErrorInvalidValue for a shape it does not take or a
+// tensor map the driver refuses.
 extern "C" int cnn_dy3_bf16_launch(const void* dy, const void* fc1_w,
                                    const void* y3, void* out, int batch,
                                    int h, int k, void* stream) {
@@ -453,18 +642,15 @@ extern "C" int cnn_dy3_bf16_launch(const void* dy, const void* fc1_w,
     return (int)cudaMemsetAsync(out, 0, (size_t)batch * k * 2,
                                 (cudaStream_t)stream);
   }
-  const size_t smem = (size_t)kHStages * kHStage * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      cnn_dy3_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (long long)((batch + kHM - 1) / kHM) *
-                          ((k + kHN - 1) / kHN);
-  cnn_dy3_bf16_kernel<<<(unsigned)tiles, kHThreads, smem,
-                        (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(dy),
-      static_cast<const __nv_bfloat16*>(fc1_w),
-      static_cast<const __nv_bfloat16*>(y3),
-      static_cast<__nv_bfloat16*>(out), batch, h, k);
-  return (int)cudaGetLastError();
+  const EncodeTiled enc = encode_tiled();
+  CUtensorMap maps[4];
+  if (h > kMaxH || h % 8 || k % 8 || enc == nullptr ||
+      !box_map(enc, &maps[0], dy, batch, h) ||
+      !box_map(enc, &maps[1], fc1_w, h, k) ||
+      !box_map(enc, &maps[2], y3, batch, k) ||
+      !box_map(enc, &maps[3], out, batch, k))
+    return (int)cudaErrorInvalidValue;
+  return tile_cols(h) == 128
+             ? launch_bf16<128>(maps, batch, h, k, (cudaStream_t)stream)
+             : launch_bf16<64>(maps, batch, h, k, (cudaStream_t)stream);
 }

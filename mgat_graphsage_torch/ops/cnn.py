@@ -45,6 +45,7 @@ _NTOT = sum(n for n, _ in _SPLIT)
 _TILE_W = 32                     # positions per tile of the f32 chain kernel
 _TILE_W_BF16 = 128               # ... and of the bf16 one (kBTW)
 _DY3_TILE_B = 128                # molecules per tile of the dy3 kernel
+_DY3_MAX_H_BF16 = 512            # H of the bf16 dy3 kernel (kMaxH)
 
 
 def _dtype(name: str, ts) -> torch.dtype:
@@ -145,9 +146,12 @@ def dy3_cuda(dy: torch.Tensor, fc1_weight: torch.Tensor,
     if k % 4 or fc1_weight.data_ptr() % 16 or y3.data_ptr() % 16:
         raise ValueError("dy3_cuda needs W*C % 4 == 0 and 16-byte aligned "
                          "fc1_weight and y3")
-    if dt == torch.bfloat16 and (k % 8 or h % 8 or dy.data_ptr() % 16):
-        raise ValueError("dy3_cuda in bf16 needs W*C % 8 == 0, H % 8 == 0 "
-                         "and a 16-byte aligned dy")
+    if dt == torch.bfloat16 and (k % 8 or h % 8 or h > _DY3_MAX_H_BF16
+                                 or dy.data_ptr() % 16):
+        raise ValueError("dy3_cuda in bf16 needs W*C % 8 == 0, H % 8 == 0, "
+                         f"H <= {_DY3_MAX_H_BF16} (its weight slab [H, 64] "
+                         "or [H, 128] stays in shared memory) and a 16-byte "
+                         "aligned dy")
     from ._build import load
 
     out = torch.empty_like(y3)

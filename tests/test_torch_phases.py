@@ -58,6 +58,14 @@ COPIES = [
     ("k4 full", "cnn_dy3"),
     ("k4 no stores", "cnn_dy3"),
     ("k4 FMAs only", "cnn_dy3"),
+    ("k4b full", "cnn_dy3"),
+    ("k4b producer only", "cnn_dy3"),
+    ("k4b no epilogue", "cnn_dy3"),
+    ("k4b no store", "cnn_dy3"),
+    ("k4b no mask", "cnn_dy3"),
+    ("k4b BN=64", "cnn_dy3"),
+    ("k4b one consumer", "cnn_dy3"),
+    ("k4b y3 stages=4", "cnn_dy3"),
     ("k5 full", "cnn_chain_bwd"),
     ("k5 staging only", "cnn_chain_bwd"),
     ("k5 staging + dw3, db3", "cnn_chain_bwd"),
