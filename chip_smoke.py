@@ -200,7 +200,19 @@ Phases (any failure raises and the script exits non-zero):
    seeded ``TorchGINNet`` ``state_dict`` imported and served within 1e-4
    of the oracle; ``utils.probe_backend()`` returns ``"cuda"``,
    ``device_memory_stats()`` names the card, ``trace()`` writes a Chrome
-   trace holding device kernels.
+   trace holding device kernels;
+18. the mesh (``parallel/``): the flagship f32, B=128,
+   ``cnn_pallas_bwd=True``, the first 4 steps on the first 512 train
+   molecules, each case in processes of its own (``--mesh-worker``, a
+   timeout each): (a) NCCL at world size 1 equal to the trainer without a
+   mesh bit for bit (both with deterministic algorithms), with the same
+   launches of kernels 1-5; (b) 2 ranks on the one card over gloo
+   (``--dist-backend gloo``'s path), data=2: 64 rows a rank, kernels 1-5
+   once a step on each; (c) 2 ranks over gloo, model=2 (fc1 split):
+   ``cnn_pallas_bwd`` turned off with its warning, kernels 1-3 once a
+   step, 4-5 never.  (b) and (c) within rel 1e-4 of (a), their ranks
+   within rel 1e-6; whether gloo sums bf16 on CUDA tensors; (d) ms a step
+   of each, for information.
 
 Kernel times come from CUDA events around back-to-back launches queued
 behind a device-side sleep, so the host's launch cost is not in them.
@@ -212,7 +224,8 @@ the ``cnn_pallas_bwd=True`` training epoch, ``bf16_launches`` from phase
 epochs, ``fingerprint_launches`` from phase 14's three epochs and
 ``explain_launches`` from phase 15's pipeline call; the adjacency row also
 has its times at gcn's B=32 as ``gcn_*``; the bf16 rows of kernels 4-5,
-``"dtype": "bfloat16"``, with their launches from phase 16's epoch), then
+``"dtype": "bfloat16"``, with their launches from phase 16's epoch; each f32
+row's ``mesh_launches``, its launches on each rank of phase 18's (b)), then
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1493,6 +1506,233 @@ def interchange_phase(torch, test_smiles, tmpdir, card, seed):
     log(f"[17] phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the mesh (parallel/), in processes of their own
+# ---------------------------------------------------------------------------
+
+MESH_MOLS = 512              # 4 global batches of 128
+MESH_STEPS, MESH_TIMED = 4, 6
+MESH_TIMEOUT = 240
+F32_KERNELS = [w for _, w, _ in ROUTES]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_steps(torch, Trainer, cfg, ds, mesh):
+    """The first ``MESH_STEPS`` train steps of epoch 0 (its batch order and
+    dropout generator, this rank's rows of each) with the counters from 0,
+    then ``MESH_TIMED`` more, timed on the host clock (synchronised)."""
+    from mgat_graphsage_torch.parallel import gather_rows
+
+    t = Trainer(cfg, ds, mesh=mesh)
+    state = t.init_state()
+    gen = t._dropout_generator(0)
+    batches = list(t._batches(ds, cfg.batch_size,
+                              np.random.default_rng(cfg.seed), shard=True))
+    reset_counts()
+    losses = [t.train_step(state, b, gen)["loss"].item()
+              for b in batches[:MESH_STEPS]]
+    counts = read_counts()
+    # the weights after the checked steps as two sums over every element
+    # (all the rows of a split parameter): whether two runs' weights part
+    whole = [gather_rows(p.detach(), mesh) if n in t._split else p.detach()
+             for n, p in state.model.named_parameters()]
+    weights = [float(sum(w.double().sum() for w in whole)),
+               float(sum(w.double().abs().sum() for w in whole))]
+    times = []
+    for i in range(MESH_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train_step(state, batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "counts": counts, "weights": weights,
+            "rows": int(batches[0]["y"].shape[0]),
+            "cnn_pallas_bwd": t.cfg.cnn_pallas_bwd, "device": str(t.device),
+            "mesh": None if mesh is None else mesh.shape,
+            "ms_per_step": float(np.median(times))}
+
+
+def mesh_worker(mode, rank, world, port, out):
+    """One rank of phase 18 (``--mesh-worker``).  (a): the 1-rank NCCL
+    mesh against the trainer without a mesh, both deterministic, in this
+    process; (b) and (c): 2 ranks on ``cuda:0`` over gloo, data=2 and
+    model=2."""
+    import warnings
+
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    from mgat_graphsage_torch.data import TRAIN_CSV, MolecularDataset, load_csv
+    from mgat_graphsage_torch.parallel import (
+        all_reduce_gradients, initialize_distributed, make_mesh)
+    from mgat_graphsage_torch.train import Trainer, get_config
+
+    rank, world = int(rank), int(world)
+    if mode == "a":
+        # the same deterministic algorithms for both runs, so the two
+        # compare bit for bit (CUBLAS_WORKSPACE_CONFIG is set by the parent)
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    sm, y = load_csv(TRAIN_CSV)
+    ds = MolecularDataset(sm[:MESH_MOLS], y[:MESH_MOLS], fit_scaler=True,
+                          verbose=False)
+    cfg = get_config("flagship", epochs=1, cnn_pallas_bwd=True)
+    res = {}
+    if mode == "a":
+        res["plain"] = mesh_steps(torch, Trainer, cfg, ds, None)
+    initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                           backend="nccl" if mode == "a" else "gloo")
+    res["backend"] = torch.distributed.get_backend()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mesh = make_mesh(model_parallel=2 if mode == "c" else 1)
+        res["mesh"] = mesh_steps(torch, Trainer, cfg, ds, mesh)
+    res["warnings"] = sorted({str(w.message) for w in caught
+                              if "cnn_pallas_bwd" in str(w.message)})
+    if mode == "b":
+        # does the backend sum bf16 gradients on CUDA tensors?
+        p16 = torch.nn.Parameter(torch.zeros(5, dtype=torch.bfloat16,
+                                             device="cuda"))
+        p16.grad = torch.full_like(p16, rank + 1.0)
+        all_reduce_gradients([p16])
+        res["bf16_sum"] = p16.grad.float().tolist()
+    with open(os.path.join(out, f"{mode}.{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_mesh_workers(mode, world, out):
+    """``world`` ranks of ``mesh_worker(mode)``; raises unless each exits
+    0 within ``MESH_TIMEOUT`` s (the others are killed)."""
+    port = str(free_port())
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-worker", mode,
+         str(r), str(world), port, out], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    try:
+        for r, p in enumerate(procs):
+            stdout, stderr = p.communicate(timeout=MESH_TIMEOUT)
+            if p.returncode != 0:
+                raise AssertionError(f"[18] ({mode}) rank {r} exited "
+                                     f"{p.returncode}:\n{stdout[-2000:]}\n"
+                                     f"{stderr[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [json.load(open(os.path.join(out, f"{mode}.{r}.json")))
+            for r in range(world)]
+
+
+def close_losses(got, want, rel):
+    got, want = np.asarray(got), np.asarray(want)
+    err = float(np.max(np.abs(got - want) / np.abs(want)))
+    return err <= rel, err
+
+
+def mesh_phase(tmpdir, card):
+    """Phase 18: the flagship f32, B=128, ``cnn_pallas_bwd=True``, 4 steps
+    on a mesh, each case in processes of its own: (a) NCCL at world size
+    1, bit for bit the trainer without a mesh, the same launches of
+    kernels 1-5; (b) 2 ranks on the one card over gloo, data=2, each with
+    64 rows and kernels 1-5 once a step; (c) 2 ranks over gloo, model=2
+    (fc1 split), ``cnn_pallas_bwd`` turned off with a warning, kernels 1-3
+    once a step.  (b) and (c) within rel 1e-4 of (a), their ranks within
+    rel 1e-6 of each other.  ms per step for information (two ranks over
+    gloo stage every collective through the host)."""
+    t_phase = time.perf_counter()
+    out = os.path.join(tmpdir, "mesh")
+    os.makedirs(out, exist_ok=True)
+    a = run_mesh_workers("a", 1, out)[0]
+    plain, m = a["plain"], a["mesh"]
+    if a["backend"] != "nccl" or m["mesh"] != {"data": 1}:
+        raise AssertionError(f"[18] (a) ran on {a['backend']}, {m['mesh']}")
+    if plain["losses"] != m["losses"] or not np.isfinite(
+            m["losses"]).all():
+        raise AssertionError(f"[18] (a) NCCL world size 1: losses "
+                             f"{m['losses']} vs no mesh {plain['losses']}")
+    for w in F32_KERNELS:
+        if m["counts"][w] != plain["counts"][w] or m["counts"][w] <= 0:
+            raise AssertionError(f"[18] (a) {w}: {m['counts'][w]} launches "
+                                 f"on the mesh, {plain['counts'][w]} "
+                                 "without")
+    log(f"[18] (a) NCCL, world size 1, mesh {m['mesh']}: first "
+        f"{MESH_STEPS} losses {m['losses']} equal to the trainer's without "
+        f"a mesh bit for bit (deterministic algorithms in both); launches "
+        f"{ {w: m['counts'][w] for w in F32_KERNELS} } in both; weights "
+        f"after them (sum, sum of |w|) {m['weights']}, "
+        f"{'equal to' if m['weights'] == plain['weights'] else 'not'} "
+        f"the trainer's without a mesh {plain['weights']}")
+    runs = {"a": a}
+    for mode, ways, need in (("b", "data", F32_KERNELS),
+                             ("c", "model", F32_KERNELS[:3])):
+        ranks = run_mesh_workers(mode, 2, out)
+        runs[mode] = ranks
+        for r, res in enumerate(ranks):
+            mm = res["mesh"]
+            ok, err = close_losses(mm["losses"], m["losses"], 1e-4)
+            if res["backend"] != "gloo" or mm["mesh"].get(ways) != 2 \
+                    or not ok:
+                raise AssertionError(f"[18] ({mode}) rank {r} on "
+                                     f"{res['backend']}, {mm['mesh']}: "
+                                     f"losses {mm['losses']} vs (a) "
+                                     f"{m['losses']} (rel err {err:.2e})")
+            for w in F32_KERNELS:
+                want = MESH_STEPS if w in need else 0
+                if mm["counts"][w] != want:
+                    raise AssertionError(f"[18] ({mode}) rank {r}: {w} "
+                                         f"launched {mm['counts'][w]} times "
+                                         f"in {MESH_STEPS} steps, not "
+                                         f"{want}")
+        same, err01 = close_losses(ranks[1]["mesh"]["losses"],
+                                   ranks[0]["mesh"]["losses"], 1e-6)
+        if not same:
+            raise AssertionError(f"[18] ({mode}) the ranks' losses part by "
+                                 f"{err01:.2e}")
+        mm = ranks[0]["mesh"]
+        if mode == "b" and (mm["rows"] != 64 or not mm["cnn_pallas_bwd"]):
+            raise AssertionError(f"[18] (b) {mm['rows']} rows a rank, "
+                                 f"cnn_pallas_bwd={mm['cnn_pallas_bwd']}")
+        if mode == "c" and (mm["rows"] != 128 or mm["cnn_pallas_bwd"]
+                            or not ranks[0]["warnings"]):
+            raise AssertionError(f"[18] (c) {mm['rows']} rows a rank, "
+                                 f"cnn_pallas_bwd={mm['cnn_pallas_bwd']}, "
+                                 f"warnings {ranks[0]['warnings']}")
+        log(f"[18] ({mode}) gloo, 2 ranks on {mm['device']}, mesh "
+            f"{mm['mesh']}, {mm['rows']} rows a rank: losses {mm['losses']}, "
+            f"rel err to (a) {close_losses(mm['losses'], m['losses'], 1)[1]:.2e}"
+            f" (limit 1e-4), between the ranks {err01:.2e}; launches a rank "
+            f"{ {w: mm['counts'][w] for w in F32_KERNELS} }; weights after "
+            f"them (sum, sum of |w|) {mm['weights']}")
+    log(f"[18] (c) warning: {runs['c'][0]['warnings'][0]}")
+    b0 = runs["b"][0]
+    if b0["bf16_sum"] != [3.0] * 5:
+        raise AssertionError(f"[18] bf16 gradient sum {b0['bf16_sum']}")
+    log("[18] gloo sums bf16 gradients on CUDA tensors in bf16")
+    step_ms = {k: ", ".join(f"{r['mesh']['ms_per_step']:.3f}"
+                            for r in runs[k]) for k in "bc"}
+    log(f"[18] (d) ms a step, median of {MESH_TIMED} after the first "
+        f"{MESH_STEPS} (host clock, synchronised; (b), (c) stage every "
+        f"collective through the host over gloo, not NVLink): no mesh "
+        f"{plain['ms_per_step']:.3f}, (a) NCCL world 1 "
+        f"{m['ms_per_step']:.3f} (both deterministic), (b) data=2 "
+        f"{step_ms['b']}, (c) model=2 {step_ms['c']} (rank 0, 1); {card}")
+    log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 FEATURE_FIELDS = ("nodes", "edges", "node_mask", "edge_mask", "fp",
                   "kept_indices")
 
@@ -2178,7 +2418,12 @@ def explain_phase(torch, ckpt, tmpdir, card):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh-worker", nargs=5, default=None,
+                    metavar=("MODE", "RANK", "WORLD", "PORT", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.mesh_worker:
+        return mesh_worker(*args.mesh_worker)
 
     import torch
 
@@ -2766,6 +3011,9 @@ def main(argv=None) -> int:
 
     # ---- 17. reference-checkpoint interchange and tooling ----------------
     interchange_phase(torch, test_smiles, tmp.name, card, args.seed)
+
+    # ---- 18. the mesh: NCCL at one rank, two ranks over gloo --------------
+    mesh_runs = mesh_phase(tmp.name, card)
     tmp.cleanup()
 
     train_counts = runs[True]["counts"]
@@ -2838,6 +3086,8 @@ def main(argv=None) -> int:
         row["baseline_launches"] = base_counts[w]
         row["fingerprint_launches"] = fp_counts[w]
         row["explain_launches"] = explain_counts[w]
+        row["mesh_launches"] = [r["mesh"]["counts"][w]
+                                for r in mesh_runs["b"]]
     log(json.dumps({"kernels": kernels + bf16_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -31,6 +31,12 @@ from ..ops import (
     masked_softmax,
 )
 from ..ops.attention import kernels_support
+from ..parallel.distributed import (
+    batch_sum,
+    copy_to_group,
+    current_batch_shard,
+    gather_columns,
+)
 
 __all__ = [
     "TorchLinear",
@@ -92,7 +98,10 @@ def _glorot_(t: torch.Tensor, fan_in: int, fan_out: int,
 class Dropout(nn.Module):
     """Inverted dropout (``nn.Dropout`` semantics) whose mask comes from
     the ``generator`` passed to ``forward`` (the global one when None);
-    identity in eval mode."""
+    identity in eval mode.  Inside ``parallel.batch_shard`` the mask is
+    drawn for the whole global batch and this rank keeps its rows, so a
+    data-parallel run draws the single-process run's masks, as the
+    reference's SPMD program does."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
@@ -102,8 +111,14 @@ class Dropout(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                              generator=generator)
+        shard = current_batch_shard()
+        if shard is None:
+            keep = torch.empty_like(x)
+        else:
+            keep = x.new_empty((shard.rows,) + tuple(x.shape[1:]))
+        keep.bernoulli_(1.0 - self.p, generator=generator)
+        if shard is not None:
+            keep = keep[shard.offset:shard.offset + x.shape[0]]
         return x * keep / (1.0 - self.p)
 
     def extra_repr(self) -> str:
@@ -389,7 +404,10 @@ class MaskedBatchNorm(nn.Module):
     with the unbiased variance; in eval the running ones are used.  The
     running buffers stay f32 whatever dtype the module is cast to, as the
     reference keeps ``batch_stats`` f32 and casts only ``params``.
-    ``update_running`` off (:func:`frozen_running_stats`) leaves them be."""
+    ``update_running`` off (:func:`frozen_running_stats`) leaves them be.
+    Inside ``parallel.batch_shard`` the masked sums are summed over the
+    data axis, so the statistics (and the running buffers, equal on every
+    rank) are the global batch's."""
 
     momentum = 0.1
     eps = 1e-5
@@ -428,9 +446,10 @@ class MaskedBatchNorm(nn.Module):
             xf = x.to(acc)
             w = node_mask.to(acc).unsqueeze(-1)
             dims = tuple(range(x.dim() - 1))
-            cnt = torch.clamp_min(w.sum(), 1.0)
-            mean = (xf * w).sum(dims) / cnt
-            var = (((xf - mean) ** 2) * w).sum(dims) / cnt
+            shard = current_batch_shard()
+            cnt = torch.clamp_min(batch_sum(w.sum(), shard), 1.0)
+            mean = batch_sum((xf * w).sum(dims), shard) / cnt
+            var = batch_sum((((xf - mean) ** 2) * w).sum(dims), shard) / cnt
             if self.update_running:
                 with torch.no_grad():
                     m = self.momentum
@@ -530,6 +549,12 @@ class CNNNet(nn.Module):
     ``csrc/cnn_dy3.cu`` and ``csrc/cnn_chain_bwd.cu``.  They take any
     batch and width, so there is no shape gate; the fingerprint must not
     require a gradient there.
+
+    ``column_split`` (set by ``parallel.shard_state``) runs fc1 split over
+    a mesh's model axis, Megatron's column-parallel pair: ``fc1.weight``
+    holds this rank's output rows, the input gradient is summed over the
+    group (``copy_to_group``) and the columns are gathered before the ReLU
+    (``gather_columns``).  The kernels' backward does not take the split.
     """
 
     def __init__(self, input_dim: int, output_dim: int, fc_hidden: int = 256,
@@ -542,9 +567,14 @@ class CNNNet(nn.Module):
         self.fc1 = TorchLinear(input_dim * 128, fc_hidden)
         self.dropout = Dropout(dropout)
         self.fc2 = TorchLinear(fc_hidden, output_dim)
+        self.column_split = None
 
     def forward(self, fp: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        split = self.column_split
+        if self.pallas_bwd and split is not None:
+            raise RuntimeError("the CNN kernels' backward does not take a "
+                               "column-split fc1 (cnn_pallas_bwd=False)")
         if self.pallas_bwd:
             x = cnn_tail(fp, self.conv1.weight, self.conv1.bias,
                          self.conv2.weight, self.conv2.bias,
@@ -554,7 +584,12 @@ class CNNNet(nn.Module):
             x = fp.unsqueeze(1)                          # [B, 1, W]
             for conv in (self.conv1, self.conv2, self.conv3):
                 x = F.relu(conv(x))                      # [B, C, W]
-            x = self.fc1(x.transpose(1, 2).reshape(x.shape[0], -1))
+            x = x.transpose(1, 2).reshape(x.shape[0], -1)
+            if split is None:
+                x = self.fc1(x)
+            else:
+                x = gather_columns(self.fc1(copy_to_group(x, split.group)),
+                                   split.group, split.offset, split.total)
         x = self.dropout(F.relu(x), generator)
         return self.fc2(x)
 

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import segment_max_pool, segment_mean_pool, segment_sum_pool
+from ..parallel.distributed import batch_sum, current_batch_shard
 from .layers import (
     CNNNet,
     ChebConvRef,
@@ -42,13 +43,18 @@ def kl_loss(latent: torch.Tensor,
             sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """KL(N(mu, sigma^2) || N(0, 1)) over the batch-latent distribution
     (reference ``train.py:70-74``): mean/var per latent dim across the
-    batch, summed over dims; var is the unbiased variance."""
+    batch, summed over dims; var is the unbiased variance.  Inside
+    ``parallel.batch_shard`` the masked sums are summed over the data
+    axis: the mean and variance are the global batch's, on every rank."""
+    shard = current_batch_shard()
+    if shard is not None and sample_mask is None:
+        sample_mask = latent.new_ones(latent.shape[0])
     if sample_mask is not None:
         w = sample_mask.unsqueeze(1)
-        cnt = torch.clamp_min(w.sum(), 1.0)
-        mean = (latent * w).sum(0) / cnt
-        var = (((latent - mean) ** 2) * w).sum(0) / torch.clamp_min(
-            cnt - 1.0, 1.0)
+        cnt = torch.clamp_min(batch_sum(w.sum(), shard), 1.0)
+        mean = batch_sum((latent * w).sum(0), shard) / cnt
+        var = batch_sum((((latent - mean) ** 2) * w).sum(0), shard) \
+            / torch.clamp_min(cnt - 1.0, 1.0)
     else:
         mean = latent.mean(0)
         var = latent.var(0, unbiased=True)

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.distributed import all_reduce_
+
 __all__ = ["lr_schedule", "make_optimizer", "set_lr", "check_ported",
            "TorchAdam", "hash_noise16", "sr_to_bf16", "step_salt",
            "DTYPES", "FACTORED_V_MIN_SIZE"]
@@ -107,23 +109,31 @@ def _mul_u32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _U32
 
 
-def hash_noise16(n: int, salt: int, device=None) -> torch.Tensor:
+def hash_noise16(n: int, salt: int, device=None,
+                 offset: int = 0) -> torch.Tensor:
     """16 uniform bits per element (int64 in [0, 2**16)) from the
     murmur3 finalizer of ``index ^ salt``: the reference's
     ``_hash_noise16`` bit for bit, in int64 arithmetic kept to its low 32
-    bits."""
-    h = torch.arange(n, dtype=torch.int64, device=device) ^ (int(salt) & _U32)
+    bits.  The indices are ``offset .. offset + n - 1``: a block of rows
+    of a split parameter hashes its elements' indices in the unsplit
+    layout, so it draws the single-process noise."""
+    h = torch.arange(offset, offset + n, dtype=torch.int64,
+                     device=device) & _U32
+    h = h ^ (int(salt) & _U32)
     h = _mul_u32(h ^ (h >> 16), 0x85EBCA6B)
     h = _mul_u32(h ^ (h >> 13), 0xC2B2AE35)
     return (h ^ (h >> 16)) & 0xFFFF
 
 
-def sr_to_bf16(x: torch.Tensor, salt: int) -> torch.Tensor:
+def sr_to_bf16(x: torch.Tensor, salt: int, offset: int = 0) -> torch.Tensor:
     """Round f32 ``x`` to bf16 stochastically: add ``hash_noise16`` to the
     16 bits that bf16 drops, carry, truncate (the reference's
-    ``_sr_to_bf16`` with its salt given).  Unbiased: E[result] = x."""
+    ``_sr_to_bf16`` with its salt given).  Unbiased: E[result] = x.
+    ``offset``: the flat index of ``x``'s first element in the unsplit
+    parameter."""
     bits = x.contiguous().view(torch.int32).reshape(-1).to(torch.int64) & _U32
-    hi = ((bits + hash_noise16(bits.numel(), salt, x.device)) & _U32) >> 16
+    hi = ((bits + hash_noise16(bits.numel(), salt, x.device, offset))
+          & _U32) >> 16
     hi = hi - ((hi >> 15) << 16)                     # as a signed 16-bit int
     return hi.to(torch.int16).view(torch.bfloat16).reshape(x.shape)
 
@@ -196,6 +206,13 @@ class TorchAdam(torch.optim.Optimizer):
     working copy.  A bf16 parameter (the bf16 master) is rounded
     stochastically with the noise salted by ``salt`` (required then) and
     the parameter's index, as the reference salts its leaves.
+
+    Under a mesh's column split (``parallel/mesh.py``) the trainer fills
+    two maps keyed by parameter index: ``index_offsets``, the flat index
+    of a split parameter's first element in the unsplit one (its noise is
+    the single-process noise), and ``split_groups``, the model axis's
+    ``(group, ways)`` over which a factored second moment's mean over the
+    split rows is taken.
     """
 
     def __init__(self, params, lr: float = 1e-3,
@@ -207,17 +224,22 @@ class TorchAdam(torch.optim.Optimizer):
                                       weight_decay=weight_decay))
         self.moment_dtype = moment_dtype
         self.factored_v_min_size = factored_v_min_size
+        self.index_offsets: Dict[int, int] = {}
+        self.split_groups: Dict[int, tuple] = {}
 
-    def _factored(self, p: torch.Tensor) -> bool:
+    def _factored(self, p: torch.Tensor, index: int) -> bool:
+        """Whether parameter ``index`` keeps a factored second moment: by
+        the size of the unsplit parameter."""
+        ways = self.split_groups.get(index, (None, 1))[1]
         return (self.factored_v_min_size > 0 and p.dim() == 2
-                and p.numel() >= self.factored_v_min_size)
+                and p.numel() * ways >= self.factored_v_min_size)
 
-    def _init_state(self, p: torch.Tensor) -> Dict:
+    def _init_state(self, p: torch.Tensor, index: int) -> Dict:
         mdt = self.moment_dtype
         st = {"step": torch.tensor(0.0),
               "exp_avg": torch.zeros_like(p, dtype=mdt,
                                           memory_format=torch.preserve_format)}
-        if self._factored(p):
+        if self._factored(p, index):
             st["exp_avg_sq_row"] = torch.zeros(p.shape[0], device=p.device)
             st["exp_avg_sq_col"] = torch.zeros(p.shape[1], device=p.device)
         else:
@@ -247,15 +269,14 @@ class TorchAdam(torch.optim.Optimizer):
                                      "stochastically: step() needs salt")
                 st = self.state[p]
                 if not st:
-                    st.update(self._init_state(p))
+                    st.update(self._init_state(p, i))
                 st["step"] += 1
                 leaves.append((i, p, g, copy, st))
             if leaves:
                 self._update(group, leaves, salt)
         return loss
 
-    @staticmethod
-    def _update(group: Dict, leaves, salt: Optional[int]) -> None:
+    def _update(self, group: Dict, leaves, salt: Optional[int]) -> None:
         """One step over ``leaves`` (index, parameter, gradient, copy,
         state).  Each operation is one ``torch._foreach_*`` call over all
         the leaves (a pass over a leaf list is a few launches on the card,
@@ -294,8 +315,12 @@ class TorchAdam(torch.optim.Optimizer):
                 # normalises by that factor's mean
                 row = st["exp_avg_sq_row"].mul_(b2).add_(
                     gg[k].mean(dim=1) * (1.0 - b2))
+                col_mean = gg[k].mean(dim=0)
+                split = self.split_groups.get(leaves[k][0])
+                if split is not None:      # the mean over every rank's rows
+                    col_mean = all_reduce_(col_mean, split[0]) / split[1]
                 col = st["exp_avg_sq_col"].mul_(b2).add_(
-                    gg[k].mean(dim=0) * (1.0 - b2))
+                    col_mean * (1.0 - b2))
                 v[k] = (col.unsqueeze(0) * row.unsqueeze(1)
                         / torch.clamp_min(col.mean(), 1e-30))
         _store([st["exp_avg"] for st in states], m)
@@ -308,7 +333,8 @@ class TorchAdam(torch.optim.Optimizer):
         torch._foreach_add_(p32, upd)          # the f32 master in place
         for (i, p, *_), x in zip(leaves, p32):
             if p.dtype == torch.bfloat16:
-                p.copy_(sr_to_bf16(x, _leaf_salt(salt, i)))
+                p.copy_(sr_to_bf16(x, _leaf_salt(salt, i),
+                                   self.index_offsets.get(i, 0)))
         copies = [leaf[3] for leaf in leaves if leaf[3] is not None]
         if copies:
             torch._foreach_copy_(copies, [leaf[1] for leaf in leaves

@@ -5,7 +5,9 @@ PyTorch and CUDA).
         [--epochs N] [--batch-size B] [--lr LR] [--seed S] [--limit ROWS] \\
         [--ckpt-dir checkpoints] [--log metrics.jsonl] [--resume CKPT] \\
         [--mixed-precision] [--fast-optimizer] [--remat] \\
-        [--dataset-storage float32|compact] [--device cuda|cpu]
+        [--dataset-storage float32|compact] [--device cuda|cpu] \\
+        [--distributed [--dist-backend nccl|gloo]] [--data-parallel] \\
+        [--model-parallel K]
 
 trains on the bundled train and validation CSVs (or ``--train-csv``,
 ``--val-csv``) and writes ``<ckpt-dir>/<preset>/best_model.pt`` with its
@@ -20,8 +22,21 @@ fingerprint suite (``morgan1024``, ``morgan2048``, ``ecfp2048``,
 Python, BCI at a few tens of molecules a second).
 ``--mixed-precision`` (bf16 compute), ``--fast-optimizer`` (bf16 Adam
 moments), ``--remat`` and ``--dataset-storage`` set their config fields
-as the reference's flags do; the reference's flags for meshes are
-accepted and raise "not ported yet".
+as the reference's flags do.
+
+Multi-GPU (``parallel/``): a PyTorch job is one process per GPU, where a
+JAX process drives every local device, so a job on 8 local GPUs is 8
+processes of this command, each with ``--distributed``:
+
+    torchrun --nproc-per-node 8 -m mgat_graphsage_torch.train.run \\
+        --preset flagship --distributed [--model-parallel 2]
+
+(or 8 launches with ``MGAT_COORDINATOR=host:port``,
+``MGAT_NUM_PROCESSES=8`` and ``MGAT_PROCESS_ID=0..7``).  Each rank takes
+``cuda:{LOCAL_RANK}``; ``--distributed`` implies a mesh over every rank,
+``--model-parallel k`` splits the CNN fc1 k ways, and ``--data-parallel``
+alone is a mesh over this one process.  ``--dist-backend gloo`` runs
+several ranks on one card (NCCL refuses that), for checks only.
 """
 
 from __future__ import annotations
@@ -32,13 +47,6 @@ import os
 from ..data import TRAIN_CSV, VAL_CSV, MolecularDataset, load_csv
 from .config import PRESETS, get_config
 from .trainer import Trainer
-
-# flag -> the ROADMAP item (Queue 1) that brings it
-_NOT_PORTED_FLAGS = {
-    "data_parallel": "multi-GPU training (ROADMAP Queue 1 item 10)",
-    "model_parallel": "multi-GPU training (ROADMAP Queue 1 item 10)",
-    "distributed": "multi-GPU training (ROADMAP Queue 1 item 10)",
-}
 
 
 def main(argv=None):
@@ -64,11 +72,18 @@ def main(argv=None):
     ap.add_argument("--remat", action="store_true",
                     help="recompute the forward's activations in the "
                          "backward (memory for FLOPs)")
-    for flag in ("data-parallel", "distributed"):
-        ap.add_argument(f"--{flag}", action="store_true",
-                        help="not ported yet")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="train on a mesh over every rank (its data axis)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="not ported yet")
+                    help="split the CNN fc1 this many ways on a (data, "
+                         "model) mesh")
+    ap.add_argument("--distributed", action="store_true",
+                    help="start the process group (coordinator from MGAT_* "
+                         "or torchrun's environment); implies a mesh")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend (default: nccl on CUDA, "
+                         "gloo on the CPU); gloo runs several ranks on one "
+                         "card")
     ap.add_argument("--dataset-storage", default=None,
                     choices=["float32", "compact"],
                     help="compact: the dataset packed on the device (int8 "
@@ -76,11 +91,17 @@ def main(argv=None):
                          "unpacked per batch to the same bits")
     args = ap.parse_args(argv)
 
-    for dest, what in _NOT_PORTED_FLAGS.items():
-        value = getattr(args, dest)
-        if value != ap.get_default(dest):
-            raise NotImplementedError(f"--{dest.replace('_', '-')}: {what} "
-                                      "is not ported yet")
+    if args.distributed:
+        from ..parallel import initialize_distributed
+
+        initialize_distributed(backend=args.dist_backend)
+    mesh = None
+    # --distributed implies a mesh over every rank: without one, every
+    # process would train its own copy and race on the checkpoint path
+    if args.distributed or args.data_parallel or args.model_parallel > 1:
+        from ..parallel import make_mesh
+
+        mesh = make_mesh(model_parallel=args.model_parallel)
 
     overrides = {k: v for k, v in dict(
         epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
@@ -112,15 +133,18 @@ def main(argv=None):
 
     ckpt_dir = os.path.join(args.ckpt_dir, cfg.name)
     trainer = Trainer(cfg, train, val, ckpt_dir=ckpt_dir,
-                      log_path=args.log, device=args.device)
+                      log_path=args.log, device=args.device, mesh=mesh)
 
     state, start_epoch = None, 0
     if args.resume:
         state, meta = trainer.load(args.resume)
         start_epoch = int(meta.get("epoch", 0))
-        print(f"resumed from {args.resume} at epoch {start_epoch}")
+        if trainer.is_primary:
+            print(f"resumed from {args.resume} at epoch {start_epoch}")
 
     trainer.fit(state=state, start_epoch=start_epoch)
+    if not trainer.is_primary:
+        return
     print(f"\nTraining completed, best "
           f"{cfg.select_metric}: {trainer.best_metric:.4f} "
           f"(normalized MSE {trainer.best_norm_mse:.4f})")

@@ -47,6 +47,20 @@ step to step and the master is cast once per epoch.  With
 recomputes the forward in the backward (``torch.utils.checkpoint``), with
 the same dropout masks.
 
+Under a mesh (``mesh=`` or ``use_mesh=True``; ``parallel/mesh.py``) each
+rank trains on its data shard's rows of every global batch and the run
+is the 1-process run's up to the order of f32 sums, as the reference's
+SPMD program is its single-device one: the masked MSE divides by the
+global sample count, the KL term, GIN's batch norms and the dropout
+masks are the global batch's (``parallel.batch_shard``), each rank adds
+``kl_lambda * KL / P_data`` (the KL is replicated and its backward sums
+over the ranks), and the gradients are summed over the data axis before
+the optimizer step.  A ``model`` axis splits the CNN fc1 by columns
+(``parallel.shard_state``); ``cnn_pallas_bwd`` is then turned off, with
+a warning.  Evaluation runs every batch whole on every rank.  Only rank
+0 prints and writes the log and the checkpoint; a checkpoint holds the
+whole fc1, whatever the mesh.
+
 On CUDA each step runs the adjacency kernel, the attention kernels
 (forward and backward; the modified attention only) and, with
 ``cnn_pallas_bwd``, the CNN backward kernels (in the compute dtype, f32
@@ -58,11 +72,13 @@ the reference.  Entry points run on CUDA unless given ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
 import os
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -82,10 +98,22 @@ from ..models import (
 )
 from ..models.layers import frozen_running_stats, matmul_precision
 from ..ops import dense_adjacency
+from ..parallel import (
+    all_reduce_gradients,
+    batch_shard,
+    gather_rows,
+    make_mesh,
+    param_shardings,
+    shard_batch,
+    shard_rows,
+    shard_state,
+)
+from ..parallel.distributed import all_reduce_
 from .checkpoint import load_checkpoint, save_checkpoint
 from .config import TrainConfig
 from .optim import (
     DTYPES,
+    TorchAdam,
     check_ported,
     lr_schedule,
     make_optimizer,
@@ -107,9 +135,13 @@ class TrainState:
 
 
 def _masked_mse(pred: torch.Tensor, target: torch.Tensor,
-                sample_mask: torch.Tensor) -> torch.Tensor:
+                sample_mask: torch.Tensor,
+                count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked MSE over ``count`` samples (the mask's sum when None; the
+    global batch's under a mesh)."""
     err = (pred.reshape(-1) - target.reshape(-1)) ** 2
-    return (err * sample_mask).sum() / torch.clamp_min(sample_mask.sum(), 1.0)
+    n = sample_mask.sum() if count is None else count
+    return (err * sample_mask).sum() / torch.clamp_min(n, 1.0)
 
 
 class Trainer:
@@ -120,10 +152,15 @@ class Trainer:
                  mesh=None, use_mesh: bool = False,
                  ckpt_dir: Optional[str] = None,
                  log_path: Optional[str] = None, device=None):
-        if mesh is not None or use_mesh:
-            raise NotImplementedError("meshes (multi-GPU training) are not "
-                                      "ported yet (ROADMAP Queue 1 item 10)")
         check_ported(cfg)
+        self.mesh = mesh if mesh is not None else \
+            (make_mesh() if use_mesh else None)
+        if cfg.cnn_pallas_bwd and self._model_ways > 1:
+            warnings.warn("cnn_pallas_bwd is turned off under a mesh with a "
+                          "model axis: the CNN kernels' backward does not "
+                          "take the column-split fc1 (the reference turns it "
+                          "off there too)", stacklevel=2)
+            cfg = cfg.replace(cnn_pallas_bwd=False)
         self.cfg = cfg
         self._cdt = None if cfg.compute_dtype == "float32" \
             else DTYPES[cfg.compute_dtype]
@@ -139,6 +176,46 @@ class Trainer:
         self.scaler = train_ds.scaler
         self._dev_cache: Dict[int, Dict[str, torch.Tensor]] = {}
         self.history: List[Dict] = []
+        # names of the parameters split over the model axis (dim 0)
+        self._split: List[str] = []
+
+    # ------------------------------------------------------------------
+    @property
+    def _data_ways(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape.get("data", 1)
+
+    @property
+    def _model_ways(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape.get("model", 1)
+
+    @property
+    def is_primary(self) -> bool:
+        """Rank 0 of the process group (or no group): the one that prints
+        and writes."""
+        return not (torch.distributed.is_available()
+                    and torch.distributed.is_initialized()) \
+            or torch.distributed.get_rank() == 0
+
+    def _check_divides(self, name: str, size: int) -> None:
+        if self.mesh is not None and size % self._data_ways:
+            raise ValueError(f"{name} {size} not divisible by data-axis "
+                             f"size {self._data_ways}")
+
+    def _agree(self, flag: bool) -> bool:
+        """Rank 0's ``flag`` on every rank (a decision that leads to
+        collectives, such as saving a split checkpoint, must be one)."""
+        if self.mesh is None or not torch.distributed.is_initialized():
+            return flag
+        t = torch.tensor([int(flag)], device=self.device)
+        torch.distributed.broadcast(t, src=0)
+        return bool(t.item())
+
+    def _kl_weight(self) -> float:
+        """``kl_lambda``, and under a mesh this rank's share of it: the KL
+        is the same on every rank of the data axis and the backward of its
+        sums adds the ranks' gradients, so each rank adds ``1 / P_data``
+        of the term."""
+        return self.cfg.kl_lambda / self._data_ways
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> TrainState:
@@ -148,12 +225,28 @@ class Trainer:
         gen = torch.Generator().manual_seed(
             self.cfg.seed if seed is None else seed)
         model = reset_parameters(build_model(self.cfg), gen).to(self.device)
+        if self.mesh is not None:
+            # every rank draws the same weights; a model axis keeps this
+            # rank's rows of the split parameters
+            self._split = [n for n, d in param_shardings(self.mesh,
+                                                         model).items()
+                           if d is not None]
+            shard_state(model, self.mesh)
         if self._master_narrow:
             # drawn in f32, quantized once; every later update is rounded
             # stochastically (train/optim.py::TorchAdam)
             model.to(DTYPES[self.cfg.master_dtype])
-        return TrainState(step=0, model=model,
-                          optimizer=make_optimizer(self.cfg, model))
+        optimizer = make_optimizer(self.cfg, model)
+        if self._split and isinstance(optimizer, TorchAdam):
+            # a block of rows draws the unsplit parameter's rounding noise
+            # and takes a factored moment's means over every rank's rows
+            for i, (n, p) in enumerate(model.named_parameters()):
+                if n in self._split:
+                    optimizer.index_offsets[i] = \
+                        self.mesh.coords["model"] * p.numel()
+                    optimizer.split_groups[i] = (self.mesh.model_group,
+                                                 self._model_ways)
+        return TrainState(step=0, model=model, optimizer=optimizer)
 
     def _device_dataset(self, ds: MolecularDataset) -> Dict[str, torch.Tensor]:
         """A dataset's arrays on the device, uploaded once: the padded
@@ -183,12 +276,17 @@ class Trainer:
                 mask.reshape(n_batches, batch_size))
 
     def _batches(self, ds: MolecularDataset, batch_size: int,
-                 rng: Optional[np.random.Generator] = None):
-        """Yield batches gathered on the device, with ``sample_mask``."""
+                 rng: Optional[np.random.Generator] = None,
+                 shard: bool = False):
+        """Yield batches gathered on the device, with ``sample_mask``; with
+        ``shard``, this rank's data shard of each global batch."""
         data = self._device_dataset(ds)
         perm, smask = self._epoch_indices(len(ds), batch_size, rng)
-        perm = torch.from_numpy(perm).to(self.device)
-        smask = torch.from_numpy(smask).to(self.device)
+        if shard and self.mesh is not None:
+            perm, smask = (shard_batch(a.T, self.mesh).T
+                           for a in (perm, smask))
+        perm = torch.from_numpy(np.ascontiguousarray(perm)).to(self.device)
+        smask = torch.from_numpy(np.ascontiguousarray(smask)).to(self.device)
         for i in range(perm.shape[0]):
             batch = gather_batch(data, perm[i], ds.fp.shape[1])
             batch["sample_mask"] = smask[i]
@@ -250,20 +348,39 @@ class Trainer:
         model.train()
         if params_c is None:
             params_c = self.compute_copy(model)
-        with matmul_precision(cfg.matmul_precision, cfg.compute_dtype):
+        smask = batch["sample_mask"]
+        count, shard_ctx = None, contextlib.nullcontext()
+        if self.mesh is not None:
+            group = self.mesh.data_group
+            count = all_reduce_(smask.sum(), group)
+            rows = smask.shape[0]
+            shard_ctx = batch_shard(rows * self._data_ways,
+                                    self.mesh.coords.get("data", 0) * rows,
+                                    group)
+        with matmul_precision(cfg.matmul_precision, cfg.compute_dtype), \
+                shard_ctx:
             if cfg.remat:
                 pred, latent = self._remat_forward(model, batch, generator,
                                                    params_c)
             else:
                 pred, latent = self._forward(model, batch, generator,
                                              params_c)
-            mse = _masked_mse(pred, batch["y"], batch["sample_mask"])
+            mse = _masked_mse(pred, batch["y"], smask, count)
             loss, kl = mse, torch.zeros((), device=mse.device)
             if cfg.is_hybrid and cfg.kl_lambda > 0:
-                kl = kl_loss(latent, batch["sample_mask"])
-                loss = loss + cfg.kl_lambda * kl
+                kl = kl_loss(latent, smask)
+                loss = loss + self._kl_weight() * kl
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        if self.mesh is not None:
+            # the gradients of the global loss; the reported loss is the
+            # global one, the same on every rank
+            all_reduce_gradients(list(model.parameters()) if params_c is None
+                                 else list(params_c.values()),
+                                 self.mesh.data_group)
+            mse = all_reduce_(mse.detach().clone(), self.mesh.data_group)
+            loss = mse + cfg.kl_lambda * kl.detach() \
+                if cfg.is_hybrid and cfg.kl_lambda > 0 else mse
         set_lr(state.optimizer, self._lr(state.step + 1)
                if callable(self._lr) else self._lr)
         if params_c is not None:
@@ -299,6 +416,7 @@ class Trainer:
 
     def train_epoch(self, state: TrainState, epoch: int
                     ) -> Tuple[TrainState, Dict]:
+        self._check_divides("batch_size", self.cfg.batch_size)
         t0 = time.perf_counter()
         gen = self._dropout_generator(epoch)
         # the bf16 working copy: cast from the master once per epoch, then
@@ -307,7 +425,8 @@ class Trainer:
         losses = [self.train_step(state, batch, gen, params_c)["loss"]
                   for batch in self._batches(
                       self.train_ds, self.cfg.batch_size,
-                      np.random.default_rng(self.cfg.seed + epoch))]
+                      np.random.default_rng(self.cfg.seed + epoch),
+                      shard=True)]
         train_loss = float(torch.stack(losses).mean())   # one host sync
         dt = time.perf_counter() - t0
         n_mol = len(self.train_ds)
@@ -317,7 +436,11 @@ class Trainer:
     def evaluate(self, state: TrainState,
                  ds: Optional[MolecularDataset] = None) -> Dict:
         """Mean of per-batch MSEs for normalized and original-scale
-        targets (reference ``train.py:278``), and the predictions."""
+        targets (reference ``train.py:278``), and the predictions.  Under a
+        mesh every rank evaluates every batch whole (a split fc1 needs
+        every rank of its model axis), so the results are the 1-process
+        run's."""
+        self._check_divides("eval_batch_size", self.cfg.eval_batch_size)
         ds = ds or self.val_ds
         model = state.model
         model.eval()
@@ -358,11 +481,16 @@ class Trainer:
         history)``.  The best state is a deep copy (model and optimizer)
         kept on the device; it is written light at most every
         ``save_min_interval_s`` and in full once at the end, to
-        ``<ckpt_dir>/best_model.pt``."""
+        ``<ckpt_dir>/best_model.pt``.  Under a process group every rank
+        runs this; rank 0 alone prints and writes the log and the
+        checkpoint, and its decisions (a new best, a save) hold on every
+        rank."""
         cfg = self.cfg
         epochs = cfg.epochs if epochs is None else epochs
         if state is None:
             state = self.init_state()
+        verbose = verbose and self.is_primary
+        log_path = self.log_path if self.is_primary else None
         best_state = state
         best_metric = float("inf")
         best_norm_mse = float("inf")
@@ -378,22 +506,21 @@ class Trainer:
                 row["val_mse"] = ev["val_mse"]
                 row["original_mse"] = ev["original_mse"]
                 metric = ev.get(cfg.select_metric, ev["val_mse"])
-                if metric < best_metric:
+                if self._agree(metric < best_metric):
                     best_metric = metric
                     best_norm_mse = ev["val_mse"]
                     best_state = copy.deepcopy(state)
                     best_row = row
                     row["new_best"] = True
                     now = time.perf_counter()
-                    if save_best and ckpt_path and \
-                            now - last_save > save_min_interval_s:
+                    if save_best and ckpt_path and self._agree(
+                            now - last_save > save_min_interval_s):
                         self.save(ckpt_path, best_state, row, light=True)
                         last_save = now
             self.history.append(row)
-            if self.log_path:
-                os.makedirs(os.path.dirname(self.log_path) or ".",
-                            exist_ok=True)
-                with open(self.log_path, "a") as f:
+            if log_path:
+                os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
+                with open(log_path, "a") as f:
                     f.write(json.dumps(
                         {k: v for k, v in row.items()
                          if isinstance(v, (int, float, bool, str))}) + "\n")
@@ -418,7 +545,9 @@ class Trainer:
     def save(self, path: str, state: TrainState,
              extra_meta: Optional[Dict] = None, light: bool = False) -> None:
         """Checkpoint with the reference's sidecar; ``light=True`` leaves
-        the optimizer state out."""
+        the optimizer state out.  Under a mesh every rank calls it: a split
+        fc1 and its Adam moments are gathered whole over the model axis,
+        and rank 0 writes, so the file is the same whatever the mesh."""
         meta = {
             "config": dataclasses.asdict(self.cfg),
             "scaler": self.scaler.to_dict(),
@@ -428,8 +557,16 @@ class Trainer:
         if extra_meta:
             meta.update({k: v for k, v in extra_meta.items()
                          if isinstance(v, (int, float, bool, str))})
-        save_checkpoint(path, state.model.state_dict(), meta, state.step,
-                        None if light else state.optimizer.state_dict())
+        sd = state.model.state_dict()
+        opt = None if light else state.optimizer.state_dict()
+        if self._split:
+            sd = {k: gather_rows(v, self.mesh) if k in self._split else v
+                  for k, v in sd.items()}
+            if opt is not None:
+                opt = self._split_optimizer_state(state.model, opt,
+                                                  gather_rows)
+        if self.is_primary:
+            save_checkpoint(path, sd, meta, state.step, opt)
 
     def load(self, path: str) -> Tuple[TrainState, Dict]:
         """A fresh state with the checkpoint's weights, step and (from a
@@ -438,10 +575,32 @@ class Trainer:
         through ``models/convert.py::adam_state_from_jax``."""
         state = self.init_state()
         sd, step, meta, opt = load_checkpoint(path, with_optimizer=True)
+        if self._split:           # this rank's rows of the split tensors
+            sd = {k: shard_rows(v, self.mesh) if k in self._split else v
+                  for k, v in sd.items()}
         state.model.load_state_dict(sd)
         if opt is not None:
             if path.endswith(".msgpack"):
                 opt = adam_state_from_jax(opt, state.model, state.optimizer)
+            if self._split:
+                opt = self._split_optimizer_state(state.model, opt,
+                                                  shard_rows)
             state.optimizer.load_state_dict(opt)
         state.step = step
         return state, meta
+
+    def _split_optimizer_state(self, model: nn.Module, opt: Dict,
+                               fn) -> Dict:
+        """``opt`` (an optimizer ``state_dict``) with ``fn(tensor, mesh)``
+        applied to the moments of the split parameters that follow their
+        rows (``exp_avg``, ``exp_avg_sq``, a factored moment's row factor);
+        the live state is left as it is."""
+        index = {n: i for i, (n, _) in enumerate(model.named_parameters())}
+        state = dict(opt["state"])
+        for name in self._split:
+            i = index[name]
+            if i in state:
+                state[i] = {k: fn(v, self.mesh) if k in (
+                    "exp_avg", "exp_avg_sq", "exp_avg_sq_row") else v
+                    for k, v in state[i].items()}
+        return {**opt, "state": state}

@@ -72,11 +72,15 @@ assert not bad, bad
 
 
 def test_walk_covers_interchange_and_tooling():
-    """The checkpoint interchange (``compat.py``, ``compare/``) and the
-    tooling (``utils/``) are in the walk above, as every module is."""
+    """The checkpoint interchange (``compat.py``, ``compare/``), the
+    tooling (``utils/``), the multi-GPU path (``parallel/``) and the
+    classical-ML and statistics harnesses are in the walk above, as every
+    module is."""
     rel = {os.path.relpath(p, PKG) for p in _port_files()}
     for f in ("compat.py", "compare/__init__.py", "compare/torch_ref.py",
               "compare/torch_ref_gnn.py", "utils/__init__.py",
               "utils/logging.py", "utils/profiling.py", "utils/backend.py",
-              "train/checkpoint.py"):
+              "train/checkpoint.py", "parallel/__init__.py",
+              "parallel/mesh.py", "parallel/distributed.py",
+              "compare/classical.py", "compare/stats.py"):
         assert f in rel, f

@@ -54,6 +54,7 @@ from mgat_graphsage_torch.train import (
     lr_schedule,
     make_optimizer,
 )
+from mgat_graphsage_torch.parallel import make_mesh
 from mgat_graphsage_torch.train.optim import set_lr
 from mgat_graphsage_torch.train.run import main as run_main
 
@@ -354,11 +355,14 @@ def test_cli_limit_smoke(tmp_path, capsys):
 
 def test_not_ported_configs_and_flags_raise(data, monkeypatch):
     tr, va, _, _ = data
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(get_config("flagship"), tr, va, use_mesh=True, device="cpu")
-    for flag in (["--data-parallel"], ["--distributed"],
-                 ["--model-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+    # meshes are ported: what is refused is a mesh that cannot be made,
+    # before any featurisation (one process, no process group)
+    with pytest.raises(ValueError, match="not divisible by model_parallel"):
+        Trainer(get_config("flagship"), tr, va, device="cpu",
+                mesh=make_mesh(model_parallel=2))
+    for flag, match in ((["--model-parallel", "2"], "not divisible"),
+                        (["--distributed"], "coordinator")):
+        with pytest.raises(ValueError, match=match):
             run_main(["--device", "cpu"] + flag)
     # every preset is offered, the fingerprint suite's included
     with pytest.raises(SystemExit) as e:
