@@ -212,7 +212,12 @@ Phases (any failure raises and the script exits non-zero):
    ``cnn_pallas_bwd`` turned off with its warning, kernels 1-3 once a
    step, 4-5 never.  (b) and (c) within rel 1e-4 of (a), their ranks
    within rel 1e-6; whether gloo sums bf16 on CUDA tensors; (d) ms a step
-   of each, for information.
+   of each, for information; then model=2 over gloo on the other presets
+   the reference's rule splits, each against its own run without a mesh
+   (rel 1e-4, the ranks within 1e-6), with ms a step: (e) gat_gcn at
+   B=64 (``fc_g1`` split; kernel 1 once a step, 2-5 never) and (f)
+   ecfp2048 at B=128 (``cnn.fc1``, ``cnn.fc2``, ``combined.fc1`` split;
+   kernels 1-3 once a step, 4-5 never).
 
 Kernel times come from CUDA events around back-to-back launches queued
 behind a device-side sleep, so the host's launch cost is not in them.
@@ -1514,6 +1519,11 @@ MESH_MOLS = 512              # 4 global batches of 128
 MESH_STEPS, MESH_TIMED = 4, 6
 MESH_TIMEOUT = 240
 F32_KERNELS = [w for _, w, _ in ROUTES]
+# case -> (preset, batch, config overrides); (e) and (f) split the layers
+# the reference's rule splits beyond the flagship's CNN fc1
+MESH_PRESETS = {"e": ("gat_gcn", 64, {}),
+                "f": ("ecfp2048", 128, {})}
+MESH_FLAGSHIP = ("flagship", 128, {"cnn_pallas_bwd": True})
 
 
 def free_port():
@@ -1556,6 +1566,7 @@ def mesh_steps(torch, Trainer, cfg, ds, mesh):
             "rows": int(batches[0]["y"].shape[0]),
             "cnn_pallas_bwd": t.cfg.cnn_pallas_bwd, "device": str(t.device),
             "mesh": None if mesh is None else mesh.shape,
+            "split": sorted(t._split),
             "ms_per_step": float(np.median(times))}
 
 
@@ -1563,7 +1574,8 @@ def mesh_worker(mode, rank, world, port, out):
     """One rank of phase 18 (``--mesh-worker``).  (a): the 1-rank NCCL
     mesh against the trainer without a mesh, both deterministic, in this
     process; (b) and (c): 2 ranks on ``cuda:0`` over gloo, data=2 and
-    model=2."""
+    model=2; (e) and (f): gat_gcn and ecfp2048 at model=2 over gloo, rank
+    0 running the preset without a mesh first."""
     import warnings
 
     import torch
@@ -1576,24 +1588,27 @@ def mesh_worker(mode, rank, world, port, out):
     from mgat_graphsage_torch.train import Trainer, get_config
 
     rank, world = int(rank), int(world)
-    if mode == "a":
-        # the same deterministic algorithms for both runs, so the two
-        # compare bit for bit (CUBLAS_WORKSPACE_CONFIG is set by the parent)
+    if mode in "aef":
+        # the same deterministic algorithms for both runs, so (a) compares
+        # bit for bit and (e), (f) part only where the split sums in
+        # another order (CUBLAS_WORKSPACE_CONFIG is set by the parent)
         torch.backends.cudnn.deterministic = True
         torch.use_deterministic_algorithms(True, warn_only=True)
+    preset, batch, over = MESH_PRESETS.get(mode, MESH_FLAGSHIP)
+    cfg = get_config(preset, epochs=1, batch_size=batch, **over)
     sm, y = load_csv(TRAIN_CSV)
     ds = MolecularDataset(sm[:MESH_MOLS], y[:MESH_MOLS], fit_scaler=True,
-                          verbose=False)
-    cfg = get_config("flagship", epochs=1, cnn_pallas_bwd=True)
-    res = {}
-    if mode == "a":
+                          fingerprint=cfg.fingerprint,
+                          featurizer=cfg.featurizer, verbose=False)
+    res = {"preset": preset}
+    if mode == "a" or (mode in MESH_PRESETS and rank == 0):
         res["plain"] = mesh_steps(torch, Trainer, cfg, ds, None)
     initialize_distributed(f"127.0.0.1:{port}", world, rank,
                            backend="nccl" if mode == "a" else "gloo")
     res["backend"] = torch.distributed.get_backend()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        mesh = make_mesh(model_parallel=2 if mode == "c" else 1)
+        mesh = make_mesh(model_parallel=1 if mode in "ab" else 2)
         res["mesh"] = mesh_steps(torch, Trainer, cfg, ds, mesh)
     res["warnings"] = sorted({str(w.message) for w in caught
                               if "cnn_pallas_bwd" in str(w.message)})
@@ -1651,7 +1666,13 @@ def mesh_phase(tmpdir, card):
     (fc1 split), ``cnn_pallas_bwd`` turned off with a warning, kernels 1-3
     once a step.  (b) and (c) within rel 1e-4 of (a), their ranks within
     rel 1e-6 of each other.  ms per step for information (two ranks over
-    gloo stage every collective through the host)."""
+    gloo stage every collective through the host).  Then, each against
+    its preset's run without a mesh (rel 1e-4, the ranks within 1e-6),
+    model=2 over gloo beyond the CNN fc1: (e) gat_gcn at B=64, ``fc_g1``
+    split, kernel 1 once a step and no other; (f) ecfp2048 at B=128,
+    ``cnn.fc1``, ``cnn.fc2`` and ``combined.fc1`` split, kernels 1-3 once
+    a step (the flagship's (c) launches) and 4-5 never.  (e) and (f) run
+    deterministic algorithms on both sides, as (a) does."""
     t_phase = time.perf_counter()
     out = os.path.join(tmpdir, "mesh")
     os.makedirs(out, exist_ok=True)
@@ -1729,6 +1750,74 @@ def mesh_phase(tmpdir, card):
         f"{plain['ms_per_step']:.3f}, (a) NCCL world 1 "
         f"{m['ms_per_step']:.3f} (both deterministic), (b) data=2 "
         f"{step_ms['b']}, (c) model=2 {step_ms['c']} (rank 0, 1); {card}")
+    flagship_counts = {w: runs["c"][0]["mesh"]["counts"][w]
+                       for w in F32_KERNELS}
+    for mode, need, split in (
+            ("e", F32_KERNELS[:1], ["fc_g1.bias", "fc_g1.weight"]),
+            ("f", F32_KERNELS[:3], sorted(
+                f"{layer}.{attr}" for layer in ("cnn.fc1", "cnn.fc2",
+                                                "combined.fc1")
+                for attr in ("weight", "bias")))):
+        preset, batch, _ = MESH_PRESETS[mode]
+        t_case = time.perf_counter()
+        ranks = run_mesh_workers(mode, 2, out)
+        runs[mode] = ranks
+        plain = ranks[0]["plain"]
+        for w in F32_KERNELS:
+            want = MESH_STEPS if w in need else 0
+            if plain["counts"][w] != want:
+                raise AssertionError(f"[18] ({mode}) {preset} without a "
+                                     f"mesh: {w} launched "
+                                     f"{plain['counts'][w]} times in "
+                                     f"{MESH_STEPS} steps, not {want}")
+        for r, res in enumerate(ranks):
+            mm = res["mesh"]
+            ok, err = close_losses(mm["losses"], plain["losses"], 1e-4)
+            if res["backend"] != "gloo" or res["preset"] != preset \
+                    or mm["mesh"] != {"data": 1, "model": 2} or not ok \
+                    or not np.isfinite(mm["losses"]).all():
+                raise AssertionError(f"[18] ({mode}) {res['preset']} rank "
+                                     f"{r} on {res['backend']}, "
+                                     f"{mm['mesh']}: losses {mm['losses']} "
+                                     f"vs no mesh {plain['losses']} (rel "
+                                     f"err {err:.2e})")
+            if mm["split"] != split or mm["rows"] != batch \
+                    or mm["cnn_pallas_bwd"]:
+                raise AssertionError(f"[18] ({mode}) rank {r}: split "
+                                     f"{mm['split']}, {mm['rows']} rows, "
+                                     f"cnn_pallas_bwd={mm['cnn_pallas_bwd']}")
+            for w in F32_KERNELS:
+                want = MESH_STEPS if w in need else 0
+                if mm["counts"][w] != want:
+                    raise AssertionError(f"[18] ({mode}) rank {r}: {w} "
+                                         f"launched {mm['counts'][w]} times "
+                                         f"in {MESH_STEPS} steps, not "
+                                         f"{want}")
+        same, err01 = close_losses(ranks[1]["mesh"]["losses"],
+                                   ranks[0]["mesh"]["losses"], 1e-6)
+        if not same:
+            raise AssertionError(f"[18] ({mode}) the ranks' losses part by "
+                                 f"{err01:.2e}")
+        mm = ranks[0]["mesh"]
+        counts = {w: mm["counts"][w] for w in F32_KERNELS}
+        log(f"[18] ({mode}) {preset}, gloo, 2 ranks on {mm['device']}, mesh "
+            f"{mm['mesh']}, {mm['rows']} rows a rank, split {mm['split']}: "
+            f"losses {mm['losses']}, rel err to the run without a mesh "
+            f"{close_losses(mm['losses'], plain['losses'], 1)[1]:.2e} "
+            f"(limit 1e-4; by step "
+            + ", ".join(f"{close_losses([g], [w], 1)[1]:.2e}" for g, w in
+                        zip(mm["losses"], plain["losses"]))
+            + f"; both with deterministic algorithms), between the ranks "
+            f"{err01:.2e}; launches a rank "
+            f"{counts}"
+            + (f", {'the same as' if counts == flagship_counts else 'not'}"
+               f" the flagship's (c) {flagship_counts}"
+               if mode == "f" else "")
+            + f"; ms a step (host clock, synchronised): no mesh "
+            f"{plain['ms_per_step']:.3f}, model=2 "
+            + ", ".join(f"{r['mesh']['ms_per_step']:.3f}" for r in ranks)
+            + f" (rank 0, 1); {card}; the case took "
+            f"{time.perf_counter() - t_case:.1f} s")
     log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s")
     return runs
 

@@ -126,13 +126,22 @@ class Dropout(nn.Module):
 
 
 class TorchLinear(nn.Module):
-    """``nn.Linear`` with torch's default init; ``weight [out, in]``."""
+    """``nn.Linear`` with torch's default init; ``weight [out, in]``.
+
+    ``column_split`` (a ``parallel.ColumnSplit``, set by
+    ``parallel.shard_state``) runs the layer split over a mesh's model
+    axis, Megatron's column-parallel pair: ``weight`` and ``bias`` hold
+    this rank's output rows, the input gradient is summed over the group
+    (``copy_to_group``) and the columns are gathered into the whole
+    ``[..., total]`` output (``gather_columns``).  Each split layer holds
+    its own, so two split layers of one model keep their own widths."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        self.column_split = None
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -142,7 +151,12 @@ class TorchLinear(nn.Module):
             _uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        split = self.column_split
+        if split is None:
+            return F.linear(x, self.weight, self.bias)
+        return gather_columns(
+            F.linear(copy_to_group(x, split.group), self.weight, self.bias),
+            split.group, split.offset, split.total)
 
 
 class TorchConv1d(nn.Module):
@@ -550,11 +564,9 @@ class CNNNet(nn.Module):
     batch and width, so there is no shape gate; the fingerprint must not
     require a gradient there.
 
-    ``column_split`` (set by ``parallel.shard_state``) runs fc1 split over
-    a mesh's model axis, Megatron's column-parallel pair: ``fc1.weight``
-    holds this rank's output rows, the input gradient is summed over the
-    group (``copy_to_group``) and the columns are gathered before the ReLU
-    (``gather_columns``).  The kernels' backward does not take the split.
+    Under a mesh's model axis ``fc1`` (and ``fc2`` where the reference's
+    rule splits it) runs column-split (:class:`TorchLinear`'s
+    ``column_split``).  The kernels' backward does not take a split fc1.
     """
 
     def __init__(self, input_dim: int, output_dim: int, fc_hidden: int = 256,
@@ -567,12 +579,10 @@ class CNNNet(nn.Module):
         self.fc1 = TorchLinear(input_dim * 128, fc_hidden)
         self.dropout = Dropout(dropout)
         self.fc2 = TorchLinear(fc_hidden, output_dim)
-        self.column_split = None
 
     def forward(self, fp: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        split = self.column_split
-        if self.pallas_bwd and split is not None:
+        if self.pallas_bwd and self.fc1.column_split is not None:
             raise RuntimeError("the CNN kernels' backward does not take a "
                                "column-split fc1 (cnn_pallas_bwd=False)")
         if self.pallas_bwd:
@@ -584,12 +594,7 @@ class CNNNet(nn.Module):
             x = fp.unsqueeze(1)                          # [B, 1, W]
             for conv in (self.conv1, self.conv2, self.conv3):
                 x = F.relu(conv(x))                      # [B, C, W]
-            x = x.transpose(1, 2).reshape(x.shape[0], -1)
-            if split is None:
-                x = self.fc1(x)
-            else:
-                x = gather_columns(self.fc1(copy_to_group(x, split.group)),
-                                   split.group, split.offset, split.total)
+            x = self.fc1(x.transpose(1, 2).reshape(x.shape[0], -1))
         x = self.dropout(F.relu(x), generator)
         return self.fc2(x)
 

@@ -1,20 +1,22 @@
 """The device mesh of the port (``mgat_graphsage_tpu/parallel/mesh.py`` on
-``torch.distributed``): data parallel, and the column split of the big
-CNN fc1 over a ``model`` axis.
+``torch.distributed``): data parallel, and the column split over a
+``model`` axis of every layer the reference's rule splits (the big
+linear layers: the CNN fc1 of the hybrids, and ``fc_g1``, a combined
+``fc1`` or the CNN fc2 where they are big enough).
 
 The reference partitions one program with GSPMD.  Here each rank runs
 the step on its rows, and the trainer says where the ranks meet
 (``train/trainer.py``): the batch statistics and the loss's normalisers
 are summed over the data axis, the gradients are summed over it after the
-backward, and a split fc1 gathers its columns over the model axis
+backward, and each split layer gathers its columns over the model axis
 (``parallel/distributed.py``).
 
 Ranks are laid out as the reference lays out devices
 (``devices.reshape(-1, model_parallel)``): rank ``r`` has data coordinate
 ``r // k`` and model coordinate ``r % k``.  The ``k`` ranks of one model
-group hold the same rows and each holds ``1/k`` of fc1's output columns
-(and of their Adam moments, since the optimizer holds the local
-parameter).
+group hold the same rows and each holds ``1/k`` of every split layer's
+output columns (and of their Adam moments, since the optimizer holds the
+local parameter).
 """
 
 from __future__ import annotations
@@ -102,7 +104,10 @@ def param_shardings(mesh: Mesh, model: nn.Module,
     column-split) in the port's layout: ``nn.Linear.weight`` is ``[out,
     in]``, so the split is dim 0, and the layer's bias follows it.  In the
     flagship that is ``cnn.fc1.weight`` ``[256, 131072]`` and
-    ``cnn.fc1.bias``.  On a mesh without a model axis nothing is split."""
+    ``cnn.fc1.bias``; ``model1`` and ``gat_gcn`` split ``fc_g1`` ``[1500,
+    700]`` (k = 2, 4), ``morgan2048`` also ``combined.fc1`` ``[512,
+    2049]``, and ``ecfp2048`` ``cnn.fc1``, ``cnn.fc2`` ``[2048, 512]`` and
+    ``combined.fc1``.  On a mesh without a model axis nothing is split."""
     k = _model_ways(mesh)
     params = dict(model.named_parameters())
     out: Dict[str, Optional[int]] = {n: None for n in params}
@@ -120,8 +125,8 @@ def param_shardings(mesh: Mesh, model: nn.Module,
 
 
 class ColumnSplit:
-    """What a layer needs to run a column-split fc1: the model axis's
-    group, this rank's first output column, and the whole width."""
+    """What one layer needs to run column-split: the model axis's group,
+    this rank's first output column, and the layer's whole width."""
 
     def __init__(self, group: Any, offset: int, total: int):
         self.group, self.offset, self.total = group, int(offset), int(total)
@@ -158,32 +163,31 @@ def gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def shard_state(model: nn.Module, mesh: Mesh,
                 min_elements: int = 1 << 20) -> nn.Module:
     """Split ``model``'s parameters per :func:`param_shardings`, in place:
-    each split parameter is replaced by this rank's rows, and the layer
-    that owns it is told its columns (``column_split``; the CNN branch
-    runs its fc1 split, ``models/layers.py::CNNNet``).  Build the
-    optimizer after this call.  Identity on a mesh without a model
-    axis."""
+    each split parameter is replaced by this rank's rows, and every layer
+    the reference's rule splits is given its own ``column_split`` (its
+    width and this rank's offset in it), which its forward runs
+    (``models/layers.py::TorchLinear``).  Build the optimizer after this
+    call.  Identity on a mesh without a model axis.  Raises
+    ``NotImplementedError`` where a parameter to split sits in a layer
+    with no column-split forward."""
+    k = _model_ways(mesh)
     dims = param_shardings(mesh, model, min_elements)
     for name, dim in dims.items():
         if dim is None:
             continue
         path, _, attr = name.rpartition(".")
         layer = model.get_submodule(path)
-        owner_path, _, _ = path.rpartition(".")
-        owner = model.get_submodule(owner_path)
-        if not hasattr(owner, "column_split"):
+        if not hasattr(layer, "column_split"):
             raise NotImplementedError(
-                f"{name} would be column-split, but {type(owner).__name__} "
-                "has no column-split forward (only the CNN branch's fc1 "
-                "has one)")
+                f"{name} would be column-split, but {type(layer).__name__} "
+                "has no column-split forward (TorchLinear has one)")
         p = getattr(layer, attr)
-        total = p.shape[0]
+        if attr == "weight":
+            total = p.shape[0]
+            layer.column_split = ColumnSplit(
+                mesh.model_group, mesh.coords["model"] * (total // k), total)
         setattr(layer, attr, nn.Parameter(shard_rows(p.detach(), mesh),
                                           requires_grad=p.requires_grad))
-        owner.column_split = ColumnSplit(
-            mesh.model_group, mesh.coords["model"] * (total
-                                                      // _model_ways(mesh)),
-            total)
     return model
 
 

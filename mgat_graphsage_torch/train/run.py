@@ -34,9 +34,12 @@ processes of this command, each with ``--distributed``:
 (or 8 launches with ``MGAT_COORDINATOR=host:port``,
 ``MGAT_NUM_PROCESSES=8`` and ``MGAT_PROCESS_ID=0..7``).  Each rank takes
 ``cuda:{LOCAL_RANK}``; ``--distributed`` implies a mesh over every rank,
-``--model-parallel k`` splits the CNN fc1 k ways, and ``--data-parallel``
-alone is a mesh over this one process.  ``--dist-backend gloo`` runs
-several ranks on one card (NCCL refuses that), for checks only.
+``--model-parallel k`` splits k ways every layer the reference's rule
+splits (the CNN fc1; ``fc_g1`` of ``model1`` and ``gat_gcn``;
+``combined.fc1`` of ``morgan2048`` and ``ecfp2048``, and the latter's CNN
+fc2), and ``--data-parallel`` alone is a mesh over this one process.
+``--dist-backend gloo`` runs several ranks on one card (NCCL refuses
+that), for checks only.
 """
 
 from __future__ import annotations
@@ -75,7 +78,9 @@ def main(argv=None):
     ap.add_argument("--data-parallel", action="store_true",
                     help="train on a mesh over every rank (its data axis)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="split the CNN fc1 this many ways on a (data, "
+                    help="split every layer the reference's rule splits "
+                         "(2-D weights of >= 2^20 elements whose output "
+                         "width divides K) this many ways on a (data, "
                          "model) mesh")
     ap.add_argument("--distributed", action="store_true",
                     help="start the process group (coordinator from MGAT_* "

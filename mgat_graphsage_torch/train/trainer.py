@@ -55,11 +55,13 @@ global sample count, the KL term, GIN's batch norms and the dropout
 masks are the global batch's (``parallel.batch_shard``), each rank adds
 ``kl_lambda * KL / P_data`` (the KL is replicated and its backward sums
 over the ranks), and the gradients are summed over the data axis before
-the optimizer step.  A ``model`` axis splits the CNN fc1 by columns
-(``parallel.shard_state``); ``cnn_pallas_bwd`` is then turned off, with
-a warning.  Evaluation runs every batch whole on every rank.  Only rank
-0 prints and writes the log and the checkpoint; a checkpoint holds the
-whole fc1, whatever the mesh.
+the optimizer step.  A ``model`` axis splits by columns every layer the
+reference's rule splits (the CNN fc1, and ``fc_g1``, ``combined.fc1`` or
+the CNN fc2 where the preset's are big enough; ``parallel.shard_state``);
+``cnn_pallas_bwd`` is then turned off, with a warning.  Evaluation runs
+every batch whole on every rank.  Only rank 0 prints and writes the log
+and the checkpoint; a checkpoint holds every split layer whole, whatever
+the mesh.
 
 On CUDA each step runs the adjacency kernel, the attention kernels
 (forward and backward; the modified attention only) and, with
@@ -437,7 +439,7 @@ class Trainer:
                  ds: Optional[MolecularDataset] = None) -> Dict:
         """Mean of per-batch MSEs for normalized and original-scale
         targets (reference ``train.py:278``), and the predictions.  Under a
-        mesh every rank evaluates every batch whole (a split fc1 needs
+        mesh every rank evaluates every batch whole (a split layer needs
         every rank of its model axis), so the results are the 1-process
         run's."""
         self._check_divides("eval_batch_size", self.cfg.eval_batch_size)
@@ -545,9 +547,10 @@ class Trainer:
     def save(self, path: str, state: TrainState,
              extra_meta: Optional[Dict] = None, light: bool = False) -> None:
         """Checkpoint with the reference's sidecar; ``light=True`` leaves
-        the optimizer state out.  Under a mesh every rank calls it: a split
-        fc1 and its Adam moments are gathered whole over the model axis,
-        and rank 0 writes, so the file is the same whatever the mesh."""
+        the optimizer state out.  Under a mesh every rank calls it: each
+        split layer and its Adam moments are gathered whole over the model
+        axis, and rank 0 writes, so the file is the same whatever the
+        mesh."""
         meta = {
             "config": dataclasses.asdict(self.cfg),
             "scaler": self.scaler.to_dict(),

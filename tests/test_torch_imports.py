@@ -84,3 +84,39 @@ def test_walk_covers_interchange_and_tooling():
               "parallel/mesh.py", "parallel/distributed.py",
               "compare/classical.py", "compare/stats.py"):
         assert f in rel, f
+
+
+def test_console_scripts_resolve_without_jax():
+    """``pyproject.toml`` names seven ``mgat-torch-*`` commands, one for
+    each of the port's ``main``s; each target imports in a fresh
+    interpreter, is callable, and leaves neither jax nor the reference
+    package in ``sys.modules``.  The reference's seven commands stay."""
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    ours = {k: v for k, v in scripts.items() if k.startswith("mgat-torch-")}
+    assert sorted(ours) == sorted(
+        f"mgat-torch-{c}" for c in ("train", "predict", "explain",
+                                    "classical", "stats", "compat",
+                                    "serve"))
+    for cmd in ("train", "predict", "explain", "classical", "stats",
+                "compat", "serve"):
+        assert scripts[f"mgat-{cmd}"].startswith("mgat_graphsage_tpu.")
+        assert ours[f"mgat-torch-{cmd}"].split(":")[0].replace(
+            "mgat_graphsage_torch", "mgat_graphsage_tpu") == \
+            scripts[f"mgat-{cmd}"].split(":")[0]
+    targets = sorted(ours.values())
+    code = f"""
+import importlib, sys
+for target in {targets!r}:
+    module, _, attr = target.partition(":")
+    assert attr == "main", target
+    assert callable(getattr(importlib.import_module(module), attr)), target
+bad = [m for m in ("jax", "mgat_graphsage_tpu") if m in sys.modules]
+assert not bad, bad
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       env=dict(os.environ, PYTHONPATH=REPO),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

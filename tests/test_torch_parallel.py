@@ -10,8 +10,10 @@ reference's 16 SMILES, batch 8.  The ranks run while this process
 computes the 1-process runs; PyTorch runs on one thread everywhere.
 """
 
+import contextlib
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -21,7 +23,11 @@ import pytest
 import torch
 
 from mgat_graphsage_torch.data import MolecularDataset
-from mgat_graphsage_torch.models import build_model, params_from_jax
+from mgat_graphsage_torch.models import (
+    TorchLinear,
+    build_model,
+    params_from_jax,
+)
 from mgat_graphsage_torch.parallel import (
     Mesh,
     all_reduce_sum,
@@ -33,17 +39,24 @@ from mgat_graphsage_torch.parallel import (
     shard_batch,
     shard_state,
 )
-from mgat_graphsage_torch.train import Trainer, get_config, save_checkpoint
+from mgat_graphsage_torch.train import (
+    PRESETS,
+    Trainer,
+    get_config,
+    save_checkpoint,
+)
 from mgat_graphsage_torch.train.optim import hash_noise16, sr_to_bf16
 
 import torch_mesh_worker as worker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# "jax_model" turns dropout off for the rest of the ranks' run
 TWO_RANKS = ["collectives", "graphsage_data", "gin_data", "gin_grad",
              "flagship_model",
              "flagship_data_pallas", "flagship_no_kl_share",
-             "factored_model",
-             "jax_model", "jax_grad", "cli"]
+             "factored_model", "gat_gcn_model", "model1_model",
+             "morgan2048_model", "ecfp2048_grad", "ecfp2048_save",
+             "jax_model", "jax_grad", "jax_gat_gcn_grad", "cli"]
 TIMEOUT = 420
 
 
@@ -95,18 +108,11 @@ class _Ranks:
                 for r in range(self.world)]
 
 
-def _jax_init(out):
-    """The JAX trainer's initial flagship weights as a light checkpoint of
-    the port; the JAX package's mesh run (data=4 x model=2 over 8 virtual
-    devices, dropout off) from them, one epoch; and the gradient of the
-    first step's loss in the JAX package, on the global batch."""
+@contextlib.contextmanager
+def _jax_without_dropout():
+    """flax's ``Dropout`` as the identity inside the block (the packages
+    draw their masks differently)."""
     import flax.linen as fnn
-    import jax
-
-    from mgat_graphsage_tpu.data import MolecularDataset as JDataset
-    from mgat_graphsage_tpu.parallel import make_mesh as jmake_mesh
-    from mgat_graphsage_tpu.train import Trainer as JTrainer
-    from mgat_graphsage_tpu.train import get_config as jget_config
 
     class _NoDropout(fnn.Module):
         rate: float = 0.0
@@ -119,28 +125,61 @@ def _jax_init(out):
     saved = fnn.Dropout
     fnn.Dropout = _NoDropout
     try:
-        cfg = jget_config("flagship", epochs=1, batch_size=8,
-                          eval_batch_size=8)
-        ds = JDataset(worker.SMILES, worker.TARGETS, fit_scaler=True,
-                      fingerprint="ecfp1024", max_nodes=16, max_edges=32,
-                      verbose=False)
-        jt = JTrainer(cfg, ds, ds,
-                      mesh=jmake_mesh(jax.devices()[:8], model_parallel=2))
-        st = jt.init_state()
-        params = jax.tree_util.tree_map(np.array, jax.device_get(st.params))
-        save_checkpoint(os.path.join(out, "jax_init.pt"),
-                        params_from_jax(params), {}, 0)
+        yield
+    finally:
+        fnn.Dropout = saved
+
+
+def _jax_trainer(preset, fp, devices, out, init_name):
+    """The JAX ``Trainer`` of ``preset`` on ``devices`` at model=2 (batch
+    8 on the reference's 16 SMILES), its initial state, and its initial
+    weights written as a light checkpoint of the port."""
+    import jax
+
+    from mgat_graphsage_tpu.data import MolecularDataset as JDataset
+    from mgat_graphsage_tpu.parallel import make_mesh as jmake_mesh
+    from mgat_graphsage_tpu.train import Trainer as JTrainer
+    from mgat_graphsage_tpu.train import get_config as jget_config
+
+    cfg = jget_config(preset, epochs=1, batch_size=8, eval_batch_size=8)
+    ds = JDataset(worker.SMILES, worker.TARGETS,
+                  fit_scaler=cfg.scale_targets, fingerprint=fp,
+                  max_nodes=16, max_edges=32, verbose=False)
+    jt = JTrainer(cfg, ds, ds, mesh=jmake_mesh(jax.devices()[:devices],
+                                               model_parallel=2))
+    st = jt.init_state()
+    params = jax.tree_util.tree_map(np.array, jax.device_get(st.params))
+    save_checkpoint(os.path.join(out, init_name), params_from_jax(params),
+                    {}, 0)
+    return jt, st, params, ds, cfg
+
+
+def _jax_init(out):
+    """The JAX trainer's initial flagship weights as a light checkpoint of
+    the port; the JAX package's mesh run (data=4 x model=2 over 8 virtual
+    devices, dropout off) from them, one epoch; and the gradient of the
+    first step's loss in the JAX package, on the global batch.  Then
+    gat_gcn's on 2 devices at model=2: its initial weights, where its
+    ``fc_g1`` kernel lies, and its first step's gradients."""
+    import jax
+
+    with _jax_without_dropout():
+        jt, st, params, ds, cfg = _jax_trainer("flagship", "ecfp1024", 8,
+                                               out, "jax_init.pt")
         grads = params_from_jax(jax.device_get(jax.grad(
             _jax_first_loss(jt, ds, cfg))(params)))
         _, _, hist = jt.fit(state=st, verbose=False, save_best=False)
-    finally:
-        fnn.Dropout = saved
-    return hist, grads
+        jt, st, params, ds, cfg = _jax_trainer("gat_gcn", None, 2, out,
+                                               "jax_gat_gcn_init.pt")
+        gat_gcn = {"spec": st.params["fc_g1"]["kernel"].sharding.spec,
+                   "grads": params_from_jax(jax.device_get(jax.grad(
+                       _jax_first_loss(jt, ds, cfg))(params)))}
+    return hist, grads, gat_gcn
 
 
 def _jax_first_loss(jt, ds, cfg):
-    """The JAX package's loss of the first batch of epoch 0 (masked MSE +
-    kl_lambda * KL), as a function of the parameters."""
+    """The JAX package's loss of the first batch of epoch 0 (masked MSE,
+    + kl_lambda * KL for the hybrid), as a function of the parameters."""
     import jax.numpy as jnp
 
     from mgat_graphsage_tpu.models.zoo import kl_loss as jkl_loss
@@ -154,11 +193,16 @@ def _jax_first_loss(jt, ds, cfg):
 
     def loss(p):
         adj = jdense(b["edges"], b["edge_mask"], b["nodes"].shape[1])
-        pred, latent = jt.model.apply({"params": p}, b["nodes"], adj,
-                                      b["node_mask"] * sm[:, None], b["fp"])
+        args = (b["nodes"], adj, b["node_mask"] * sm[:, None])
+        if cfg.is_hybrid:
+            pred, latent = jt.model.apply({"params": p}, *args, b["fp"])
+        else:
+            pred, latent = jt.model.apply({"params": p}, *args), None
         err = (pred.reshape(-1) - b["y"]) ** 2
-        return (err * sm).sum() / jnp.maximum(sm.sum(), 1.0) \
-            + cfg.kl_lambda * jkl_loss(latent, sm)
+        mse = (err * sm).sum() / jnp.maximum(sm.sum(), 1.0)
+        if latent is None:
+            return mse
+        return mse + cfg.kl_lambda * jkl_loss(latent, sm)
 
     return loss
 
@@ -170,15 +214,19 @@ def ranks(tmp_path_factory):
     out4 = tmp_path_factory.mktemp("four")
     four = _Ranks(4, ["round_trip", "sr_model"], out4)
     out2 = tmp_path_factory.mktemp("two")
-    jax_hist, jax_grads = _jax_init(str(out2))
+    jax_hist, jax_grads, jax_gat_gcn = _jax_init(str(out2))
     two = _Ranks(2, TWO_RANKS, out2)
     yield {"two": two, "four": four, "jax": jax_hist,
-           "jax_grads": jax_grads, "out2": str(out2), "out4": str(out4)}
+           "jax_grads": jax_grads, "jax_gat_gcn": jax_gat_gcn,
+           "out2": str(out2), "out4": str(out4)}
     for group in (two, four):
         for p in group.procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+    # the full-width ecfp2048 checkpoint and gradients take ~2 GB
+    for out in (out2, out4):
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def _one_process(scenario, **over):
@@ -241,8 +289,70 @@ def test_param_shardings_split_fc1_rows_only():
     shard_state(model, two)
     assert model.cnn.fc1.weight.shape == (128, 131072)
     assert torch.equal(model.cnn.fc1.weight, full[128:])
-    split = model.cnn.column_split
+    split = model.cnn.fc1.column_split
     assert (split.offset, split.total) == (128, 256)
+    assert model.cnn.fc2.column_split is None
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_every_preset_split_has_a_forward(preset, k):
+    """``shard_state`` on a model=k mesh with no process group, the model
+    built on the ``meta`` device: every parameter the reference's rule
+    splits sits in a ``TorchLinear`` with its own ``ColumnSplit`` (the
+    layer's whole width as ``total``, this rank's offset in it) and keeps
+    ``[rows / k, in]``; nothing else is split.  The presets that split
+    outside the CNN fc1 are named: ``model1``, ``gat_gcn``,
+    ``morgan2048`` and ``ecfp2048`` (whose fc1 and fc2 differ in
+    width)."""
+    with torch.device("meta"):
+        model = build_model(get_config(preset))
+    coord = k - 1
+    mesh = Mesh({"data": 1, "model": k}, {"data": 0, "model": coord},
+                model_ranks=tuple(range(k)))
+    dims = param_shardings(mesh, model)
+    whole = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    split = sorted({n.rpartition(".")[0] for n, d in dims.items()
+                    if d is not None})
+    shard_state(model, mesh)
+    params = dict(model.named_parameters())
+    seen = []
+    for path, layer in model.named_modules():
+        if not isinstance(layer, TorchLinear):
+            continue
+        cs = layer.column_split
+        if path not in split:
+            assert cs is None, path
+            continue
+        rows, cols = whole[f"{path}.weight"]
+        assert dims[f"{path}.weight"] == 0 and dims[f"{path}.bias"] == 0
+        assert (cs.total, cs.offset) == (rows, coord * rows // k), path
+        assert tuple(params[f"{path}.weight"].shape) == (rows // k, cols)
+        assert tuple(params[f"{path}.bias"].shape) == (rows // k,)
+        seen.append(cs)
+    assert len(seen) == len(split) == len({id(cs) for cs in seen})
+    want = {"model1": ["fc_g1"], "gat_gcn": ["fc_g1"],
+            "morgan2048": ["cnn.fc1", "combined.fc1"],
+            "ecfp2048": ["cnn.fc1", "cnn.fc2", "combined.fc1"]}
+    if preset in want:
+        assert split == want[preset]
+    elif get_config(preset).is_hybrid:
+        assert split == ["cnn.fc1"]
+    else:
+        assert split == []
+
+
+def test_shard_state_refuses_a_layer_with_no_split_forward():
+    """A parameter the rule splits in a layer that has no column-split
+    forward (here ``nn.Linear``) is refused, not split."""
+    model = torch.nn.Sequential(torch.nn.Linear(1024, 1024, device="meta"))
+    mesh = Mesh({"data": 1, "model": 2}, {"data": 0, "model": 0},
+                model_ranks=(0, 1))
+    assert param_shardings(mesh, model)["0.weight"] == 0
+    with pytest.raises(NotImplementedError,
+                       match="0.weight would be column-split, but Linear "
+                             "has no column-split forward"):
+        shard_state(model, mesh)
 
 
 def test_make_mesh_refuses_indivisible_and_makes_one_rank():
@@ -320,6 +430,102 @@ def test_hash_noise_offset():
 # ---------------------------------------------------------------------------
 # 2 and 4 ranks (gloo, CPU)
 # ---------------------------------------------------------------------------
+
+# ecfp2048's split parameters: cnn.fc1 [512, 262144], cnn.fc2 [2048, 512],
+# combined.fc1 [512, 2049], and their biases
+ECFP2048_SPLIT = [f"{layer}.{attr}" for layer in ("cnn.fc1", "cnn.fc2",
+                                                  "combined.fc1")
+                  for attr in ("weight", "bias")]
+
+
+@pytest.mark.parametrize("scenario", ["gat_gcn_model", "model1_model",
+                                      "morgan2048_model"])
+def test_split_layers_model2_match_one_process(ranks, scenario):
+    """model=2 beyond the CNN fc1: ``fc_g1`` [1500, 700] of gat_gcn and
+    model1 (2 epochs), morgan2048's CNN fc1 and ``combined.fc1`` chained
+    through the KL latent (1 epoch); within the reference's bound of the
+    1-process run (rel 1e-4 / abs 1e-5), the ranks equal."""
+    _, _, hist, pred = _one_process(scenario)
+    runs = ranks["two"].result(scenario)
+    assert runs[0]["mesh"] == {"data": 1, "model": 2}
+    _hold(runs, hist, pred)
+
+
+def test_ecfp2048_model2_first_gradients_match_one_process(ranks):
+    """ecfp2048 at full width, its three layers split 2 ways: the first
+    step's gradients, every split one gathered, within 1e-5 of each
+    parameter's largest 1-process gradient (only the order of the f32
+    sums differs)."""
+    want = worker.first_gradients("ecfp2048", "ecfp2048",
+                                  dict(epochs=1))["grad"]
+    ranks["two"].wait()
+    got = torch.load(os.path.join(ranks["out2"], "ecfp2048_grad.pt"))
+    assert got.keys() == want.keys()
+    assert tuple(got["cnn.fc1.weight"].shape) == (512, 262144)
+    for name, w in want.items():
+        assert got[name].shape == w.shape, name
+        err = float((got[name] - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), (name, err)
+
+
+def test_ecfp2048_model2_checkpoint_saves_whole_and_loads_split(ranks):
+    """A full checkpoint saved from ecfp2048's 2-rank model=2 run after
+    one step loads into a 1-process ``Trainer`` with ``cnn.fc1``,
+    ``cnn.fc2``, ``combined.fc1`` and their Adam moments whole, each
+    rank's rows in its place bit for bit; a fresh model=2 trainer that
+    loads it holds each rank's rows of all three bit for bit.
+    ``TorchAdam`` gets each split parameter's flat offset and group."""
+    r = ranks["two"].result("ecfp2048_save")
+    cfg = get_config("ecfp2048", epochs=1, batch_size=8, eval_batch_size=8)
+    ds = worker.dataset(cfg, "ecfp2048")
+    t = Trainer(cfg, ds, ds, device="cpu")
+    state, _ = t.load(os.path.join(ranks["out2"], "ecfp2048.pt"))
+    params = dict(state.model.named_parameters())
+    assert state.step == 1
+    assert tuple(params["cnn.fc1.weight"].shape) == (512, 262144)
+    assert tuple(params["cnn.fc2.weight"].shape) == (2048, 512)
+    assert tuple(params["combined.fc1.weight"].shape) == (512, 2049)
+    for rank, d in enumerate(r):
+        assert d["coords"] == {"data": 0, "model": rank}
+        assert sorted(d["split"]) == sorted(ECFP2048_SPLIT)
+        assert d["after"] == d["before"] and d["step"] == 1
+        for name in ECFP2048_SPLIT:
+            p = params[name]
+            rows = p.shape[0] // 2
+            assert d["local"][name] == [rows] + list(p.shape[1:])
+            assert d["offsets"][name] == rank * rows * p[0].numel()
+            assert d["ways"][name] == 2
+            block = slice(rank * rows, (rank + 1) * rows)
+            assert worker.digest(p[block]) == d["before"][name], name
+            for k in ("exp_avg", "exp_avg_sq"):
+                m = state.optimizer.state[p][k]
+                assert m.shape == p.shape and bool(m.abs().max() > 0)
+                assert worker.digest(m[block]) == \
+                    d["before"][f"{name}:{k}"], (name, k)
+
+
+def test_jax_gat_gcn_model2_splits_fc_g1_and_matches_port_gradients(ranks):
+    """The JAX ``Trainer`` of gat_gcn on 2 virtual devices at model=2
+    places ``fc_g1/kernel`` at ``P(None, "model")``, the layer the port
+    splits; from its weights, dropout off on both sides, its first step's
+    gradients and the port's 2-rank ones (``fc_g1`` gathered) agree to
+    1e-4 of each parameter's largest JAX gradient, floored at 1e-5 of the
+    model's largest."""
+    from jax.sharding import PartitionSpec
+
+    jax_run = ranks["jax_gat_gcn"]
+    assert jax_run["spec"] == PartitionSpec(None, "model")
+    want = jax_run["grads"]
+    ranks["two"].wait()
+    got = torch.load(os.path.join(ranks["out2"], "jax_gat_gcn_grad.pt"))
+    assert got.keys() == want.keys()
+    assert tuple(got["fc_g1.weight"].shape) == (1500, 700)
+    top = max(float(g.abs().max()) for g in want.values())
+    for name, w in want.items():
+        assert got[name].shape == w.shape, name
+        err = float((got[name] - w).abs().max())
+        assert err <= 1e-4 * max(float(w.abs().max()), 1e-5 * top), \
+            (name, err)
 
 def test_collectives_match_one_rank_values(ranks):
     r = ranks["two"].result("collectives")

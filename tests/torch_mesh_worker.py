@@ -9,6 +9,7 @@ where asked, tensors as ``OUT_DIR/<scenario>.<rank>.pt``.  PyTorch runs
 on one thread.
 """
 
+import hashlib
 import json
 import os
 import sys
@@ -66,6 +67,13 @@ RUNS = {
     "sr_model": ("flagship", "ecfp1024", dict(
         epochs=1, compute_dtype="bfloat16", adam_moment_dtype="bfloat16",
         master_dtype="bfloat16"), 2),
+    # fc_g1 [1500, 700] split: the layers the reference's rule splits
+    # outside the CNN branch
+    "gat_gcn_model": ("gat_gcn", None, dict(epochs=2), 0),
+    "model1_model": ("model1", None, dict(epochs=2), 0),
+    # cnn.fc1 [256, 262144] and combined.fc1 [512, 2049], chained through
+    # the KL latent
+    "morgan2048_model": ("morgan2048", "morgan2048", dict(epochs=1), 0),
 }
 
 
@@ -180,6 +188,28 @@ def main():
                                     init=os.path.join(out, "jax_init.pt"))
             if rank == 0:
                 torch.save(grads["grad"], os.path.join(out, "jax_grad.pt"))
+        elif name == "ecfp2048_grad":
+            # cnn.fc1 [512, 262144], cnn.fc2 [2048, 512] and combined.fc1
+            # [512, 2049] split, at full width; the first step's gradients
+            write(out, name, rank, {})
+            grads = first_gradients("ecfp2048", "ecfp2048", dict(epochs=1),
+                                    model_parallel=world)
+            if rank == 0:
+                torch.save(grads["grad"], os.path.join(out,
+                                                       "ecfp2048_grad.pt"))
+        elif name == "ecfp2048_save":
+            write(out, name, rank, save_and_load(out))
+        elif name == "jax_gat_gcn_grad":
+            # from the JAX trainer's initial gat_gcn weights, dropout off
+            Dropout.forward = lambda self, x, generator=None: x
+            write(out, name, rank, {})
+            grads = first_gradients("gat_gcn", None, dict(epochs=1),
+                                    model_parallel=world,
+                                    init=os.path.join(out,
+                                                      "jax_gat_gcn_init.pt"))
+            if rank == 0:
+                torch.save(grads["grad"],
+                           os.path.join(out, "jax_gat_gcn_grad.pt"))
         elif name == "gin_grad":
             write(out, name, rank, {})
             grads = first_gradients(*RUNS["gin_data"][:3])
@@ -211,6 +241,64 @@ def first_gradients(preset, fp, over, model_parallel=1, init=None):
     grads = {n: gather_rows(p.grad, t.mesh) if n in t._split else p.grad
              for n, p in state.model.named_parameters()}
     return {"grad": grads, "buffers": dict(state.model.named_buffers())}
+
+
+def digest(t):
+    """The SHA-1 of a tensor's bytes: equal digests are equal tensors, bit
+    for bit."""
+    return hashlib.sha1(t.detach().contiguous().numpy().tobytes()).hexdigest()
+
+
+def split_digests(t, state):
+    """Each split parameter's local rows and its Adam moments, digested."""
+    params = dict(state.model.named_parameters())
+    out = {}
+    for name in t._split:
+        p = params[name]
+        out[name] = digest(p)
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[f"{name}:{k}"] = digest(state.optimizer.state[p][k])
+    return out
+
+
+def save_and_load(out):
+    """ecfp2048 at model=2, full width: one optimizer step, a full
+    checkpoint (every split layer and its moments gathered whole), and a
+    fresh model=2 trainer that loads it; each rank's rows before the save
+    and after the load, and the local shapes.  Also the flat offsets and
+    groups ``TorchAdam`` is given for the split parameters (the bf16
+    moment preset of the same model)."""
+    cfg = get_config("ecfp2048", epochs=1, batch_size=8, eval_batch_size=8)
+    ds = dataset(cfg, "ecfp2048")
+
+    def trainer(c=cfg):
+        return Trainer(c, ds, ds, mesh=make_mesh(model_parallel=2),
+                       device="cpu")
+
+    t = trainer()
+    state = t.init_state()
+    batch = next(t._batches(ds, cfg.batch_size,
+                            np.random.default_rng(cfg.seed), shard=True))
+    t.train_step(state, batch, t._dropout_generator(0))
+    path = os.path.join(out, "ecfp2048.pt")
+    t.save(path, state)
+    torch.distributed.barrier()
+    t2 = trainer()
+    restored, _ = t2.load(path)
+    params = dict(restored.model.named_parameters())
+    bf16_moments = trainer(cfg.replace(
+        adam_moment_dtype="bfloat16")).init_state()
+    opt = bf16_moments.optimizer
+    index = {n: i for i, (n, _) in enumerate(
+        bf16_moments.model.named_parameters())}
+    return {"split": t._split, "before": split_digests(t, state),
+            "after": split_digests(t2, restored),
+            "local": {n: list(params[n].shape) for n in t._split},
+            "step": restored.step,
+            "offsets": {n: opt.index_offsets.get(index[n]) for n in t._split},
+            "ways": {n: opt.split_groups[index[n]][1] for n in t._split
+                     if index[n] in opt.split_groups},
+            "coords": t.mesh.coords}
 
 
 def cli(out):
