@@ -25,6 +25,7 @@ import numpy as np
 
 from ..chem import smiles_to_graph
 from ..chem.fingerprints import FINGERPRINTS
+from ..utils import telemetry
 
 __all__ = [
     "StandardScaler",
@@ -242,13 +243,15 @@ class MolecularDataset:
                           verbose):
         """The same lists as :meth:`_featurize_python`, through the C++
         library (bit for bit the same graphs and fingerprints), for the
-        molecules that parse and fit :data:`NATIVE_BUDGET`."""
+        molecules that parse and fit :data:`NATIVE_BUDGET`; the library's
+        call is the ``featurize.native`` span (``utils/telemetry.py``)."""
         from ..chem.native import featurize_batch_native
 
         fp_bits, use_features = _NATIVE_FPS[fingerprint]
-        nodes, edges, _, edge_mask, fp, status = featurize_batch_native(
-            [str(s) for s in smiles], 35 if featurizer == "35" else 5,
-            *NATIVE_BUDGET, fp_bits=fp_bits, use_features=use_features)
+        with telemetry.span("featurize.native"):
+            nodes, edges, _, edge_mask, fp, status = featurize_batch_native(
+                [str(s) for s in smiles], 35 if featurizer == "35" else 5,
+                *NATIVE_BUDGET, fp_bits=fp_bits, use_features=use_features)
         graphs, fps, kept_targets, kept_smiles, kept_indices = \
             [], [], [], [], []
         n_edges = edge_mask.sum(axis=1).astype(np.int64)

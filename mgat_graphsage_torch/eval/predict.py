@@ -35,7 +35,6 @@ and Pearson r.
 from __future__ import annotations
 
 import json
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -47,10 +46,18 @@ from ..models import build_model, matmul_precision
 from ..ops import dense_adjacency
 from ..train.checkpoint import load_checkpoint
 from ..train.config import TrainConfig
+from ..utils import telemetry
 from .metrics import regression_metrics
 
 __all__ = ["load_model_from_checkpoint", "predict_dataset", "predict_csv",
            "Predictor", "main"]
+
+# Predictor.last_timings: key -> the span of the call it reads
+_TIMINGS = {"featurize_s": "predict.featurize",
+            "dispatch_s": "predict.dispatch",
+            "native_s": "featurize.native",
+            "upload_s": "predict.upload",
+            "readback_s": "predict.readback"}
 
 
 def _check_infer_dtype(infer_dtype: Optional[str]) -> str:
@@ -93,7 +100,10 @@ def predict_dataset(model, cfg: TrainConfig, scaler: StandardScaler,
     numerics for ``cfg.matmul_precision`` and the compute dtype
     ``infer_dtype`` (``models/layers.py::matmul_precision``).
     ``"bfloat16"`` takes a model already cast to bf16, as ``Predictor``
-    casts it.
+    casts it.  The spans ``predict.upload`` (the dataset and its index
+    arrays to the device) and ``predict.readback`` (the predictions to the
+    host, which waits there for the device) time the host's part of each
+    (``utils/telemetry.py``).
     """
     compute = _check_infer_dtype(infer_dtype)
     cdt = torch.bfloat16 if compute == "bfloat16" else None
@@ -113,10 +123,11 @@ def predict_dataset(model, cfg: TrainConfig, scaler: StandardScaler,
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    data = {k: up(getattr(ds, k)) for k in
-            ("nodes", "edges", "node_mask", "edge_mask", "fp")}
-    idx_d = up(idx).view(n_batches, batch_size)
-    smask_d = up(smask).view(n_batches, batch_size)
+    with telemetry.span("predict.upload"):
+        data = {k: up(getattr(ds, k)) for k in
+                ("nodes", "edges", "node_mask", "edge_mask", "fp")}
+        idx_d = up(idx).view(n_batches, batch_size)
+        smask_d = up(smask).view(n_batches, batch_size)
     num_nodes = data["nodes"].shape[1]
     mean, scale = float(scaler.mean_), float(scaler.scale_)
     preds = []
@@ -134,7 +145,8 @@ def predict_dataset(model, cfg: TrainConfig, scaler: StandardScaler,
             out = model(*args)
             pred = out[0] if cfg.is_hybrid else out
             preds.append(pred.reshape(-1).float() * scale + mean)
-        out = torch.cat(preds).cpu().numpy()
+        with telemetry.span("predict.readback"):
+            out = torch.cat(preds).cpu().numpy()
     return out[:n]
 
 
@@ -180,9 +192,12 @@ class Predictor:
     over-budget molecules get NaN (past the checkpoint's budget, or past
     the native featuriser's ``data/dataset.py::NATIVE_BUDGET``).
     ``infer_dtype="bfloat16"`` casts the
-    parameters to bf16 once, here, and serves in bf16.  ``last_timings``
-    holds the split of the latest call in seconds: ``featurize_s`` (host)
-    and ``dispatch_s`` (upload, device work and the copy back).
+    parameters to bf16 once, here, and serves in bf16.  A call is a
+    ``predict_call`` unit of ``utils/telemetry.py``; ``last_timings`` holds
+    the split of the latest call in seconds, from its spans:
+    ``featurize_s`` (host) and ``dispatch_s`` (upload, device work and the
+    copy back), and within them ``native_s`` (the native featuriser's
+    call), ``upload_s`` and ``readback_s``.
     """
 
     def __init__(self, ckpt_path: str, infer_dtype: Optional[str] = None,
@@ -195,32 +210,31 @@ class Predictor:
         if infer_dtype == "bfloat16":
             self.model.to(torch.bfloat16)
         self.device = next(self.model.parameters()).device
-        self.last_timings = {"featurize_s": 0.0, "dispatch_s": 0.0}
+        self.last_timings = dict.fromkeys(_TIMINGS, 0.0)
 
     def __call__(self, smiles, batch_size: int = 64) -> np.ndarray:
         if isinstance(smiles, str):
             smiles = [smiles]
         smiles = list(smiles)
         out = np.full(len(smiles), np.nan, dtype=np.float32)
-        t0 = time.perf_counter()
-        try:
-            ds = MolecularDataset(smiles,
-                                  np.zeros(len(smiles), np.float32),
-                                  scaler=self.scaler,
-                                  fingerprint=self.cfg.fingerprint,
-                                  featurizer=self.cfg.featurizer,
-                                  max_nodes=self.max_nodes,
-                                  max_edges=self.max_edges, verbose=False)
-        except ValueError:
-            self.last_timings = {"featurize_s": time.perf_counter() - t0,
-                                 "dispatch_s": 0.0}
-            return out  # no valid molecules at all
-        t1 = time.perf_counter()
-        preds = predict_dataset(self.model, self.cfg, self.scaler, ds,
-                                batch_size, infer_dtype=self.infer_dtype)
-        out[ds.kept_indices] = preds
-        self.last_timings = {"featurize_s": t1 - t0,
-                             "dispatch_s": time.perf_counter() - t1}
+        with telemetry.unit("predict_call", molecules=len(smiles)) as rec:
+            try:
+                with telemetry.span("predict.featurize"):
+                    ds = MolecularDataset(
+                        smiles, np.zeros(len(smiles), np.float32),
+                        scaler=self.scaler, fingerprint=self.cfg.fingerprint,
+                        featurizer=self.cfg.featurizer,
+                        max_nodes=self.max_nodes, max_edges=self.max_edges,
+                        verbose=False)
+            except ValueError:
+                ds = None   # no valid molecules at all
+            if ds is not None:
+                with telemetry.span("predict.dispatch"):
+                    out[ds.kept_indices] = predict_dataset(
+                        self.model, self.cfg, self.scaler, ds, batch_size,
+                        infer_dtype=self.infer_dtype)
+        self.last_timings = {key: rec.spans.get(name, 0.0)
+                             for key, name in _TIMINGS.items()}
         return out
 
 

@@ -29,7 +29,12 @@ requests are merged into one featurise + one dispatch (up to
 ``MAX_COALESCE`` molecules) and the results are split back per request.
 A solo request pays up to the window in extra latency; 0 (the default)
 turns it off.  ``{"timing": true}`` in a request returns its own
-host/device split, measured inside that request.
+host/device split: on the direct path measured inside that request, on
+the coalesced path its ``queue_wait_ms`` (the ``serve.queue_wait`` span:
+enqueue until its thread resumes after its group's dispatch started) and
+its group's ``featurize_ms`` and ``dispatch_ms``.  ``/health`` carries the
+process's span and unit totals and kernel launch counts
+(``utils/telemetry.py``) as ``telemetry``.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from urllib.parse import urlsplit
 import numpy as np
 
 from .eval.predict import Predictor
+from .utils import telemetry
 
 __all__ = ["PredictionServer", "make_server", "serve_until_signalled",
            "main", "MAX_BODY_BYTES", "MAX_BATCH", "MAX_COALESCE"]
@@ -62,12 +68,17 @@ MAX_COALESCE = 4096
 class _Pending:
     """One enqueued predict request awaiting the coalescing worker."""
 
-    __slots__ = ("smiles", "event", "result", "error", "cancelled")
+    __slots__ = ("smiles", "started", "event", "result", "timings", "error",
+                 "cancelled")
 
     def __init__(self, smiles: List[str]):
         self.smiles = smiles
+        # set when its group's dispatch starts (the end of its queue wait)
+        self.started = threading.Event()
         self.event = threading.Event()
         self.result: Optional[np.ndarray] = None
+        # its group's featurise / dispatch split (the predictor's timings)
+        self.timings: dict = {}
         self.error: Optional[Exception] = None
         # Set by a waiter that gave up (queue timeout): the worker
         # skips cancelled entries instead of burning a device dispatch
@@ -189,8 +200,10 @@ class PredictionServer:
                 group.append(nxt)
                 total += len(nxt.smiles)
             flat = [s for it in group for s in it.smiles]
+            for it in group:
+                it.started.set()
             try:
-                preds, _ = self._dispatch(flat, len(group))
+                preds, lt = self._dispatch(flat, len(group))
             except Exception as e:  # noqa: BLE001 — deliver to each waiter
                 for it in group:
                     it.error = e
@@ -199,6 +212,7 @@ class PredictionServer:
             off = 0
             for it in group:
                 it.result = preds[off:off + len(it.smiles)]
+                it.timings = lt
                 off += len(it.smiles)
                 it.event.set()
 
@@ -232,6 +246,7 @@ class PredictionServer:
             "molecules_served": self._molecules,
             "device_dispatches": self._dispatches,
             "coalesce_ms": self.coalesce_ms,
+            "telemetry": telemetry.snapshot(),
         }
 
     def predict_payload(self, payload: dict) -> dict:
@@ -255,7 +270,11 @@ class PredictionServer:
                 pending = _Pending(smiles)
                 self._queue.put(pending)
         if pending is not None:
-            if not pending.event.wait(timeout=self.queue_timeout_s):
+            deadline = time.monotonic() + self.queue_timeout_s
+            with telemetry.span("serve.queue_wait") as waited:
+                pending.started.wait(timeout=self.queue_timeout_s)
+            if not pending.event.wait(
+                    timeout=max(deadline - time.monotonic(), 0.0)):
                 # Mark the entry so the worker drops it instead of
                 # spending a device dispatch on an abandoned result.
                 # (Benign race: if the worker grouped it in the same
@@ -268,22 +287,26 @@ class PredictionServer:
                     f"after {self.queue_timeout_s:g}s")
             if pending.error is not None:
                 raise pending.error
-            preds = pending.result
-            timing = {"path": "coalesced"}
+            preds, lt = pending.result, pending.timings
+            timing = {"path": "coalesced",
+                      "queue_wait_ms": round(waited.seconds * 1e3, 2)}
         else:
             preds, lt = self._dispatch(smiles, 1)
-            timing = {"path": "direct",
-                      "featurize_ms": round(lt["featurize_s"] * 1e3, 2),
-                      "dispatch_ms": round(lt["dispatch_s"] * 1e3, 2)}
+            timing = {"path": "direct"}
         out: List[Optional[float]] = [
             None if not np.isfinite(p) else float(p) for p in preds]
         resp = {"predictions": out, "model": self.predictor.cfg.name,
                 "count": len(out)}
         if want_timing:
             # one-pass split: the components are measured inside this
-            # request, so client_total >= server_ms >= featurize +
-            # dispatch by construction; the reply's serialisation and
-            # socket write land in the client's residual
+            # request (a coalesced request: its group's, inside its wait),
+            # so client_total >= server_ms >= featurize + dispatch by
+            # construction, and server_ms >= queue_wait_ms, which ends when
+            # this thread resumes after its group's dispatch started; the
+            # reply's serialisation and socket write land in the client's
+            # residual
+            timing["featurize_ms"] = round(lt["featurize_s"] * 1e3, 2)
+            timing["dispatch_ms"] = round(lt["dispatch_s"] * 1e3, 2)
             timing["server_ms"] = round(
                 (time.perf_counter() - t_start) * 1e3, 2)
             resp["timing"] = timing

@@ -111,6 +111,7 @@ from ..parallel import (
     shard_state,
 )
 from ..parallel.distributed import all_reduce_
+from ..utils import telemetry
 from .checkpoint import load_checkpoint, save_checkpoint
 from .config import TrainConfig
 from .optim import (
@@ -345,7 +346,10 @@ class Trainer:
         on (:meth:`compute_copy`, made here when not given); the optimizer
         writes the next step's copy into it.  A bf16 master is rounded
         stochastically with the salt of this step's count
-        (``train/optim.py::step_salt``)."""
+        (``train/optim.py::step_salt``).  The spans ``train.forward`` (the
+        forward and the loss terms), ``train.backward`` (``zero_grad`` and
+        the backward) and ``train.optimizer`` (the lr and the optimizer
+        step) time the host's part of each (``utils/telemetry.py``)."""
         cfg, model = self.cfg, state.model
         model.train()
         if params_c is None:
@@ -361,19 +365,21 @@ class Trainer:
                                     group)
         with matmul_precision(cfg.matmul_precision, cfg.compute_dtype), \
                 shard_ctx:
-            if cfg.remat:
-                pred, latent = self._remat_forward(model, batch, generator,
-                                                   params_c)
-            else:
-                pred, latent = self._forward(model, batch, generator,
-                                             params_c)
-            mse = _masked_mse(pred, batch["y"], smask, count)
-            loss, kl = mse, torch.zeros((), device=mse.device)
-            if cfg.is_hybrid and cfg.kl_lambda > 0:
-                kl = kl_loss(latent, smask)
-                loss = loss + self._kl_weight() * kl
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            with telemetry.span("train.forward"):
+                if cfg.remat:
+                    pred, latent = self._remat_forward(model, batch,
+                                                       generator, params_c)
+                else:
+                    pred, latent = self._forward(model, batch, generator,
+                                                 params_c)
+                mse = _masked_mse(pred, batch["y"], smask, count)
+                loss, kl = mse, torch.zeros((), device=mse.device)
+                if cfg.is_hybrid and cfg.kl_lambda > 0:
+                    kl = kl_loss(latent, smask)
+                    loss = loss + self._kl_weight() * kl
+            with telemetry.span("train.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
         if self.mesh is not None:
             # the gradients of the global loss; the reported loss is the
             # global one, the same on every rank
@@ -383,14 +389,15 @@ class Trainer:
             mse = all_reduce_(mse.detach().clone(), self.mesh.data_group)
             loss = mse + cfg.kl_lambda * kl.detach() \
                 if cfg.is_hybrid and cfg.kl_lambda > 0 else mse
-        set_lr(state.optimizer, self._lr(state.step + 1)
-               if callable(self._lr) else self._lr)
-        if params_c is not None:
-            state.optimizer.step(copies=list(params_c.values()))
-        elif self._master_narrow:
-            state.optimizer.step(salt=step_salt(cfg.seed, state.step))
-        else:
-            state.optimizer.step()
+        with telemetry.span("train.optimizer"):
+            set_lr(state.optimizer, self._lr(state.step + 1)
+                   if callable(self._lr) else self._lr)
+            if params_c is not None:
+                state.optimizer.step(copies=list(params_c.values()))
+            elif self._master_narrow:
+                state.optimizer.step(salt=step_salt(cfg.seed, state.step))
+            else:
+                state.optimizer.step()
         state.step += 1
         return {"loss": loss.detach(), "mse": mse.detach(),
                 "kl": kl.detach()}
@@ -418,22 +425,32 @@ class Trainer:
 
     def train_epoch(self, state: TrainState, epoch: int
                     ) -> Tuple[TrainState, Dict]:
+        """One epoch of train steps, a ``train_epoch`` unit of
+        ``utils/telemetry.py``: the dict gives its wall seconds and the
+        host seconds of its forward, backward, optimizer and sync spans."""
         self._check_divides("batch_size", self.cfg.batch_size)
-        t0 = time.perf_counter()
-        gen = self._dropout_generator(epoch)
-        # the bf16 working copy: cast from the master once per epoch, then
-        # carried (each step's optimizer writes the next step's copy)
-        params_c = self.compute_copy(state.model)
-        losses = [self.train_step(state, batch, gen, params_c)["loss"]
-                  for batch in self._batches(
-                      self.train_ds, self.cfg.batch_size,
-                      np.random.default_rng(self.cfg.seed + epoch),
-                      shard=True)]
-        train_loss = float(torch.stack(losses).mean())   # one host sync
-        dt = time.perf_counter() - t0
+        with telemetry.unit("train_epoch") as rec:
+            gen = self._dropout_generator(epoch)
+            # the bf16 working copy: cast from the master once per epoch,
+            # then carried (each step's optimizer writes the next step's
+            # copy)
+            params_c = self.compute_copy(state.model)
+            losses = [self.train_step(state, batch, gen, params_c)["loss"]
+                      for batch in self._batches(
+                          self.train_ds, self.cfg.batch_size,
+                          np.random.default_rng(self.cfg.seed + epoch),
+                          shard=True)]
+            with telemetry.span("train.sync"):        # one host sync
+                train_loss = float(torch.stack(losses).mean())
+            rec.counts["steps"] = len(losses)
+        dt, spans = rec.wall_s, rec.spans
         n_mol = len(self.train_ds)
         return state, {"train_loss": train_loss, "epoch_time_s": dt,
-                       "molecules_per_s": n_mol / dt if dt > 0 else 0.0}
+                       "molecules_per_s": n_mol / dt if dt > 0 else 0.0,
+                       "forward_s": spans.get("train.forward", 0.0),
+                       "backward_s": spans.get("train.backward", 0.0),
+                       "optimizer_s": spans.get("train.optimizer", 0.0),
+                       "sync_s": spans.get("train.sync", 0.0)}
 
     def evaluate(self, state: TrainState,
                  ds: Optional[MolecularDataset] = None) -> Dict:
@@ -441,7 +458,8 @@ class Trainer:
         targets (reference ``train.py:278``), and the predictions.  Under a
         mesh every rank evaluates every batch whole (a split layer needs
         every rank of its model axis), so the results are the 1-process
-        run's."""
+        run's.  An ``evaluate`` unit of ``utils/telemetry.py``, with its
+        copies to the host in the ``eval.readback`` span."""
         self._check_divides("eval_batch_size", self.cfg.eval_batch_size)
         ds = ds or self.val_ds
         model = state.model
@@ -449,7 +467,9 @@ class Trainer:
         mean = float(self.scaler.mean_)
         scale = float(self.scaler.scale_)
         preds, mses, omses, keeps = [], [], [], []
-        with torch.inference_mode(), \
+        n_batches = -(-len(ds) // self.cfg.eval_batch_size)
+        with telemetry.unit("evaluate", batches=n_batches), \
+                torch.inference_mode(), \
                 matmul_precision(self.cfg.matmul_precision,
                                  self.cfg.compute_dtype):
             params_c = self.compute_copy(model, grad=False)
@@ -467,7 +487,8 @@ class Trainer:
             out = {"val_mse": torch.stack(mses).mean(),
                    "original_mse": torch.stack(omses).mean(),
                    "pred": pred, "pred_denorm": pred * scale + mean}
-            out = {k: v.cpu() for k, v in out.items()}
+            with telemetry.span("eval.readback"):
+                out = {k: v.cpu() for k, v in out.items()}
         return {"val_mse": float(out["val_mse"]),
                 "original_mse": float(out["original_mse"]),
                 "pred": out["pred"].numpy(),
@@ -483,10 +504,11 @@ class Trainer:
         history)``.  The best state is a deep copy (model and optimizer)
         kept on the device; it is written light at most every
         ``save_min_interval_s`` and in full once at the end, to
-        ``<ckpt_dir>/best_model.pt``.  Under a process group every rank
-        runs this; rank 0 alone prints and writes the log and the
-        checkpoint, and its decisions (a new best, a save) hold on every
-        rank."""
+        ``<ckpt_dir>/best_model.pt``.  Each log row carries the epoch's
+        :meth:`train_epoch` dict, its span seconds included.  Under a
+        process group every rank runs this; rank 0 alone prints and writes
+        the log and the checkpoint, and its decisions (a new best, a save)
+        hold on every rank."""
         cfg = self.cfg
         epochs = cfg.epochs if epochs is None else epochs
         if state is None:

@@ -5,11 +5,8 @@ all, only wall-clock prints in ``pycaret.py:296``).
 - ``trace(logdir)``: context manager around a ``torch.profiler`` trace of
   the host and, where there is one, the CUDA device, written as a Chrome
   trace (``<logdir>/trace.json``, viewable in Perfetto or
-  ``chrome://tracing``);
-- ``StepTimer``: cheap per-step wall-clock stats (mean/p50/p95) that the
-  trainer can report without a profiler attached.  It reads the host's
-  clock, as the reference package's does: a caller timing device work
-  synchronises first;
+  ``chrome://tracing``), with the program's spans (``utils/telemetry.py``)
+  in it by name;
 - ``device_memory_stats()``: per-CUDA-device allocator statistics.
 """
 
@@ -17,13 +14,11 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Dict, List, Optional
+from typing import Dict
 
-import numpy as np
 import torch
 
-__all__ = ["trace", "StepTimer", "device_memory_stats"]
+__all__ = ["trace", "device_memory_stats"]
 
 
 @contextlib.contextmanager
@@ -44,42 +39,6 @@ def trace(logdir: str):
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-class StepTimer:
-    """Rolling wall-clock statistics for training steps."""
-
-    def __init__(self, window: int = 200):
-        self.window = window
-        self._times: List[float] = []
-        self._t0: Optional[float] = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self) -> float:
-        dt = time.perf_counter() - self._t0
-        self._times.append(dt)
-        if len(self._times) > self.window:
-            self._times.pop(0)
-        return dt
-
-    @contextlib.contextmanager
-    def step(self):
-        self.start()
-        yield
-        self.stop()
-
-    def stats(self) -> Dict[str, float]:
-        if not self._times:
-            return {}
-        arr = np.asarray(self._times)
-        return {
-            "mean_s": float(arr.mean()),
-            "p50_s": float(np.percentile(arr, 50)),
-            "p95_s": float(np.percentile(arr, 95)),
-            "steps": len(arr),
-        }
 
 
 def device_memory_stats() -> Dict[str, Dict[str, int]]:

@@ -41,6 +41,7 @@ from mgat_graphsage_torch.serve import (
     serve_until_signalled,
 )
 from mgat_graphsage_torch.train import save_checkpoint
+from mgat_graphsage_torch.utils import telemetry
 
 SMILES = ["CCO", "c1ccccc1", "CC(=O)O", "CCN", "c1ccncc1", "CCCC",
           "CC(C)O", "c1ccc(Cl)cc1"] * 2
@@ -487,6 +488,49 @@ def test_one_pass_timing_split(server):
     assert status == 200 and "timing" not in body
 
 
+def test_coalesced_timing_split(ckpt):
+    """On the coalesced path ``timing`` gives the request's queue wait and
+    its group's featurise / dispatch split, and the wait is the
+    ``serve.queue_wait`` span of the registry."""
+    backend = _backend(ckpt, coalesce_ms=50.0)
+    try:
+        before = telemetry.snapshot()["spans"].get(
+            "serve.queue_wait", {"count": 0, "seconds": 0.0})
+        reply = backend.predict_payload({"smiles": SMILES[:3],
+                                         "timing": True})
+        t = reply["timing"]
+        assert t["path"] == "coalesced" and reply["count"] == 3
+        assert t["featurize_ms"] > 0 and t["dispatch_ms"] > 0
+        # the wait holds the coalescing window: the group's dispatch
+        # starts when the window closes
+        assert 40.0 <= t["queue_wait_ms"] <= t["server_ms"]
+        assert t["server_ms"] >= t["featurize_ms"] + t["dispatch_ms"] - 0.01
+        after = telemetry.snapshot()["spans"]["serve.queue_wait"]
+        assert after["count"] == before["count"] + 1
+        assert after["seconds"] - before["seconds"] == pytest.approx(
+            t["queue_wait_ms"] / 1e3, abs=1e-4)
+        assert "timing" not in backend.predict_payload({"smiles": ["CCO"]})
+    finally:
+        backend.close()
+
+
+def test_health_carries_the_telemetry_totals(server):
+    """``/health``'s ``telemetry`` holds the registry's totals: a request
+    adds one ``predict_call`` unit and one ``predict.dispatch`` span, and
+    the kernel wrappers' launch counters ride beside them."""
+    _, before = _get(server + "/health")
+    _post(server + "/predict", {"smiles": ["CCO", "c1ccccc1"]})
+    _, after = _get(server + "/health")
+    b, a = before["telemetry"], after["telemetry"]
+    assert a["units"]["predict_call"]["count"] == \
+        b["units"]["predict_call"]["count"] + 1
+    for name in ("predict.featurize", "predict.dispatch", "featurize.native",
+                 "predict.upload", "predict.readback"):
+        assert a["spans"][name]["count"] == b["spans"][name]["count"] + 1
+        assert a["spans"][name]["seconds"] > b["spans"][name]["seconds"]
+    assert "dense_adjacency_cuda" in a["launches"]
+
+
 def test_answers_as_the_reference_server_does(ckpts):
     """Same weights, same requests: the port's server within 1e-4 pChEMBL
     of the reference package's, with null in the same slots."""
@@ -504,7 +548,9 @@ def test_answers_as_the_reference_server_does(ckpts):
                          for p in b["predictions"]])
         np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
-    assert set(ours.health()) == set(ref.health()) | {"device"}
+    # the port's own additions: the device it serves on, and the span and
+    # unit totals of utils/telemetry.py
+    assert set(ours.health()) == set(ref.health()) | {"device", "telemetry"}
 
 
 def test_batch_rounding_leaves_outputs_unchanged(ckpt, monkeypatch):

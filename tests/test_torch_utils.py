@@ -1,12 +1,11 @@
-"""The port's tooling (``utils/``): metric logging and step timing
-(copies of the reference package's, mirroring ``tests/test_utils.py`` and
-``tests/test_profiling.py``), the ``torch.profiler`` trace, CUDA memory
-statistics and the bounded CUDA probe, on the CPU."""
+"""The port's tooling (``utils/``): metric logging (a copy of the reference
+package's, mirroring ``tests/test_utils.py``), the ``torch.profiler``
+trace, CUDA memory statistics and the bounded CUDA probe, on the CPU (the
+spans and units of ``utils/telemetry.py``: ``tests/test_torch_telemetry.py``)."""
 
 import json
 import os
 import subprocess
-import time
 
 import numpy as np
 import pytest
@@ -14,7 +13,6 @@ import torch
 
 from mgat_graphsage_torch.utils import (
     MetricLogger,
-    StepTimer,
     device_memory_stats,
     probe_backend,
     read_jsonl,
@@ -39,18 +37,6 @@ def test_metric_logger_jsonl_and_csv(tmp_path):
     log.log({"loss": 0.5, "array": np.zeros(3), "note": "ok"}, step=3)
     assert "array" not in read_jsonl(jp)[-1]
     assert read_jsonl(jp)[-1]["note"] == "ok"
-
-
-def test_step_timer_stats():
-    t = StepTimer(window=4)
-    assert t.stats() == {}
-    for _ in range(6):
-        with t.step():
-            time.sleep(0.001)
-    s = t.stats()
-    assert s["steps"] == 4                      # rolling window capped
-    assert 0.0005 < s["mean_s"] < 0.5
-    assert s["p50_s"] <= s["p95_s"]
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
