@@ -8,7 +8,7 @@ at a multiple of its rate (``PERF.md``).
 
 The library is built with the host ``g++`` at first use,
 
-    g++ -O3 -shared -fPIC -std=c++17 csrc/featurizer.cpp \\
+    g++ -O3 -shared -fPIC -std=c++17 -pthread csrc/featurizer.cpp \\
         -o csrc/build/featurizer-<hash>.so
 
 named by a hash of the source and the flags and moved into place from a
@@ -19,6 +19,19 @@ only where a caller asks for it (``MolecularDataset(use_native=False)``)
 or for a configuration the library does not cover
 (``MolecularDataset._featurize_native``).  The library keeps no mutable
 state, so threads may call it at once (ctypes releases the GIL).
+
+One batch call runs its molecules on several worker threads of the
+library's own: ``max(1, min(usable CPUs, n // 64))`` of them for ``n``
+SMILES (:func:`worker_count`), so each worker has at least 64 molecules
+(~10 ms) and a call of under 128 runs on the calling thread alone.  The
+workers take blocks of 16 molecules from one shared cursor and write only
+their molecules' slots, so the outputs are the same bytes for any count.
+The library joins every worker before the call returns: no thread, pool
+or state outlives a call, and a ``fork`` after one is safe.
+``featurize_batch_native`` counts its ``calls``, ``parallel_calls`` (more
+than one worker), ``molecules`` and ``workers`` (summed over calls; the
+workers the library reports it ran, never more than its blocks of 16),
+which ``utils/telemetry.snapshot()`` reports under ``"featurize"``.
 """
 
 from __future__ import annotations
@@ -26,19 +39,26 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..ops import _build
 
 __all__ = ["native_available", "featurize_batch_native", "get_lib",
-           "GXX_FLAGS", "SOURCE"]
+           "usable_cpus", "worker_count", "counts", "COUNTERS", "GXX_FLAGS",
+           "SOURCE"]
 
 SOURCE = os.path.join(_build.CSRC_DIR, "featurizer.cpp")
-GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
+# the least molecules a worker takes: ~10 ms at ~160 us a molecule, far
+# above a thread's start
+MIN_PER_WORKER = 64
+CGROUP_CPU_MAX = "/sys/fs/cgroup/cpu.max"
+COUNTERS = ("calls", "parallel_calls", "molecules", "workers")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 
 _P_I32 = ctypes.POINTER(ctypes.c_int32)
@@ -69,6 +89,7 @@ def get_lib():
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 _P_F32, _P_I32, _P_I32, _P_F32,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, _P_I32,
+                ctypes.c_int,
             ]
             _lib = lib
     return _lib
@@ -88,6 +109,29 @@ def _ptr(a: Optional[np.ndarray], kind):
     return None if a is None else a.ctypes.data_as(kind)
 
 
+def usable_cpus() -> int:
+    """The CPUs this process may run on (its affinity), or fewer where a
+    cgroup v2 quota (``cpu.max``: quota and period) allows less."""
+    n = len(os.sched_getaffinity(0))
+    try:
+        with open(CGROUP_CPU_MAX) as f:
+            quota, period = f.read().split()[:2]
+        if quota == "max":
+            return n
+        return max(1, min(n, -(-int(quota) // int(period))))
+    except (OSError, ValueError, ZeroDivisionError):
+        return n
+
+
+def worker_count(n: int) -> int:
+    """The library's workers for a call of ``n`` SMILES: every worker gets
+    at least :data:`MIN_PER_WORKER` of them, and there are no more than
+    :func:`usable_cpus`; 1 below ``2 * MIN_PER_WORKER``."""
+    if n < 2 * MIN_PER_WORKER:
+        return 1
+    return min(usable_cpus(), n // MIN_PER_WORKER)
+
+
 def featurize_batch_native(
     smiles_list: List[str],
     feat_dim: int,
@@ -104,6 +148,12 @@ def featurize_batch_native(
     node_mask, edge_mask, fp [n, fp_bits] or None, status [n])`` where
     ``status[i]`` is the atom count, -1 for a SMILES that does not parse,
     -2 past ``max_nodes`` and -3 past ``max_edges``.
+
+    The library runs the call on :func:`worker_count` threads of the
+    call's size, the calling one among them, and joins them before it
+    returns.  The outputs are the same bytes for any count.  Raises
+    ``RuntimeError`` when the library reports a failure (a worker ran out
+    of memory).
     """
     lib = get_lib()
     n = len(smiles_list)
@@ -123,11 +173,21 @@ def featurize_batch_native(
     n_edges = np.zeros(n, np.int32)
     fp = np.zeros((n, fp_bits), np.float32) if fp_bits else None
     status = np.zeros(n, np.int32)
-    lib.mgat_featurize_batch(
+    workers = worker_count(n)
+    ran = lib.mgat_featurize_batch(
         blob, _ptr(offsets, _P_I32), n, feat_dim, max_nodes, max_edges,
         _ptr(nodes, _P_F32), _ptr(edges, _P_I32), _ptr(n_edges, _P_I32),
         _ptr(fp, _P_F32), fp_bits, fp_radius, 1 if use_features else 0,
-        _ptr(status, _P_I32))
+        _ptr(status, _P_I32), workers)
+    if ran < 1:
+        raise RuntimeError(
+            f"the native featuriser failed on a batch of {n} SMILES "
+            f"({workers} workers): code {ran}")
+    with _count_lock:
+        featurize_batch_native.calls += 1
+        featurize_batch_native.parallel_calls += int(ran > 1)
+        featurize_batch_native.molecules += n
+        featurize_batch_native.workers += ran
 
     ok = status > 0
     node_mask = (np.arange(max_nodes) < np.where(ok, status, 0)[:, None]
@@ -135,3 +195,17 @@ def featurize_batch_native(
     edge_mask = (np.arange(max_edges) < np.where(ok, n_edges, 0)[:, None]
                  ).astype(np.float32)
     return nodes, edges, node_mask, edge_mask, fp, status
+
+
+def counts() -> Dict[str, int]:
+    """The process's totals of :data:`COUNTERS` over the batch calls,
+    read together."""
+    with _count_lock:
+        return {name: getattr(featurize_batch_native, name)
+                for name in COUNTERS}
+
+
+featurize_batch_native.calls = 0
+featurize_batch_native.parallel_calls = 0
+featurize_batch_native.molecules = 0
+featurize_batch_native.workers = 0

@@ -13,16 +13,20 @@
 // Thread-safe: every namespace-scope table is const and filled before any
 // call (the CRC table at compile time), so request threads of the HTTP
 // server may featurize at once (ctypes releases the GIL during a call).
+// The batch call splits its molecules over worker threads of its own and
+// joins them all before it returns: no thread outlives a call.
 //
 // Build (chem/native.py does this at first use, into csrc/build/):
-//   g++ -O3 -shared -fPIC -std=c++17 featurizer.cpp -o <hashed name>.so
+//   g++ -O3 -shared -fPIC -std=c++17 -pthread featurizer.cpp -o <name>.so
 
 #include <cstdint>
 #include <cstring>
 #include <algorithm>
+#include <atomic>
 #include <map>
 #include <set>
 #include <string>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -794,24 +798,57 @@ int mgat_featurize(const char* smiles, int feat_dim, int max_nodes,
 }
 
 // Batch variant: featurize many SMILES in one call (amortizes ctypes
-// overhead). smiles_blob is NUL-separated, counts gives offsets.
+// overhead). smiles_blob is NUL-separated, offsets gives where each starts.
 // results[i] = n_atoms or negative error code per molecule.
+//
+// The molecules are split over n_workers threads, the calling thread being
+// the last, and never more workers than blocks of kBlock molecules: each
+// takes blocks from one shared cursor (a molecule's cost grows with its
+// atoms and rings, so fixed ranges would leave one worker finishing last)
+// and writes only its molecules' slots, so the outputs are the same bytes
+// for any count. One worker starts no thread. A thread the system refuses
+// leaves its blocks to the workers that started. Every thread is joined
+// before the call returns. Returns the number of workers that ran, or -1
+// when a molecule's featurisation threw (std::bad_alloc): the outputs are
+// then incomplete.
 int mgat_featurize_batch(const char* smiles_blob, const int32_t* offsets,
                          int n_mols, int feat_dim, int max_nodes,
                          int max_edges, float* nodes, int32_t* edges,
                          int32_t* n_edges_out, float* fp, int fp_bits,
                          int fp_radius, int use_features,
-                         int32_t* results) {
+                         int32_t* results, int n_workers) {
+  constexpr int kBlock = 16;
   const size_t node_stride = (size_t)max_nodes * feat_dim;
   const size_t edge_stride = 2 * (size_t)max_edges;
-  for (int i = 0; i < n_mols; ++i) {
-    results[i] = mgat_featurize(
-        smiles_blob + offsets[i], feat_dim, max_nodes, max_edges,
-        nodes + i * node_stride, edges + i * edge_stride,
-        n_edges_out + i, fp ? fp + (size_t)i * fp_bits : nullptr,
-        fp_bits, fp_radius, use_features);
+  n_workers = std::max(1, std::min(n_workers, (n_mols + kBlock - 1) / kBlock));
+  std::atomic<int> cursor{0};
+  std::atomic<bool> failed{false};
+  auto work = [&]() noexcept {
+    try {
+      for (;;) {
+        const int lo = cursor.fetch_add(kBlock, std::memory_order_relaxed);
+        if (lo >= n_mols || failed.load(std::memory_order_relaxed)) return;
+        for (int i = lo; i < std::min(lo + kBlock, n_mols); ++i) {
+          results[i] = mgat_featurize(
+              smiles_blob + offsets[i], feat_dim, max_nodes, max_edges,
+              nodes + i * node_stride, edges + i * edge_stride,
+              n_edges_out + i, fp ? fp + (size_t)i * fp_bits : nullptr,
+              fp_bits, fp_radius, use_features);
+        }
+      }
+    } catch (...) {
+      failed.store(true, std::memory_order_relaxed);
+    }
+  };
+  std::vector<std::thread> threads;
+  try {
+    threads.reserve(n_workers - 1);
+    for (int w = 1; w < n_workers; ++w) threads.emplace_back(work);
+  } catch (...) {
   }
-  return 0;
+  work();
+  for (auto& t : threads) t.join();
+  return failed.load() ? -1 : 1 + (int)threads.size();
 }
 
 }  // extern "C"

@@ -16,7 +16,9 @@
   ``records(kind)``;
 - ``snapshot()``: the process totals of every span and unit kind, with
   the launch counters the kernel wrappers keep (``launches``,
-  ``launches_bf16``), read from the wrappers.
+  ``launches_bf16``) and the native featuriser's counters (``calls``,
+  ``parallel_calls``, ``molecules``, ``workers``), read from where they
+  are kept.
 
 Request threads and the serving dispatch thread use it at once: the totals
 and the deques sit under one lock.  ``SPANS`` names every span the
@@ -175,14 +177,17 @@ class Registry:
 
     def snapshot(self) -> Dict:
         """``{"spans": {name: {"seconds", "count"}}, "units": {kind:
-        {"seconds", "count"}}, "launches": {wrapper: count}}``: the process
-        totals, JSON-ready."""
+        {"seconds", "count"}}, "launches": {wrapper: count}, "featurize":
+        {counter: count}}``: the process totals, JSON-ready."""
         with self._lock:
             spans = {k: {"seconds": v[0] * 1e-9, "count": v[1]}
                      for k, v in self._spans.items()}
             units = {k: {"seconds": v[0] * 1e-9, "count": v[1]}
                      for k, v in self._units.items()}
-        return {"spans": spans, "units": units, "launches": _launches()}
+        from ..chem import native
+
+        return {"spans": spans, "units": units, "launches": _launches(),
+                "featurize": native.counts()}
 
 
 def _launches() -> Dict[str, int]:

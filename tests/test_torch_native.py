@@ -239,9 +239,22 @@ def test_molecule_past_the_native_budget_is_dropped_as_the_reference_does(
     assert python.max_nodes == 136
 
 
-def test_threads_featurise_at_once(train_sample):
-    want = native.featurize_batch_native(train_sample, 35, 96, 224,
-                                         fp_bits=1024)
+def _featurize(monkeypatch, workers, smiles, *args, **kwargs):
+    """``featurize_batch_native`` with the library asked for ``workers``
+    threads in place of the rule's."""
+    monkeypatch.setattr(native, "worker_count", lambda n: workers)
+    return native.featurize_batch_native(smiles, *args, **kwargs)
+
+
+@pytest.mark.parametrize("workers", [None, 4])
+def test_threads_featurise_at_once(train_sample, workers, monkeypatch):
+    """Four callers at once, each with the rule's workers or four of its
+    own: every call returns the one-thread bytes."""
+    rule = native.worker_count
+    want = _featurize(monkeypatch, 1, train_sample, 35, 96, 224,
+                      fp_bits=1024)
+    monkeypatch.setattr(native, "worker_count",
+                        rule if workers is None else lambda n: workers)
     got, errors = [None] * 4, []
     gate = threading.Barrier(4)
 
@@ -249,7 +262,8 @@ def test_threads_featurise_at_once(train_sample):
         try:
             gate.wait()
             got[i] = [native.featurize_batch_native(
-                train_sample, 35, 96, 224, fp_bits=1024) for _ in range(3)]
+                train_sample, 35, 96, 224, fp_bits=1024)
+                for _ in range(3)]
         except Exception as e:  # noqa: BLE001
             errors.append(e)
 
@@ -262,6 +276,110 @@ def test_threads_featurise_at_once(train_sample):
     for runs in got:
         for res in runs:
             _assert_same_outputs(res, want)
+
+
+# a failing SMILES of each kind, for the budget (64, 100): -1 unparseable,
+# -2 past 64 atoms, -3 past 100 directed edges (55 carbons: 108), -1 a NUL
+FAILING = {"C1CC(": -1, "C" * 70: -2, "C" * 55: -3, "CCO\x00X": -1}
+# the first and last molecules of the library's blocks of 16
+BLOCK_EDGES = (0, 15, 16, 17, 31, 32, 47, 48, 63)
+
+
+def _mixed(n):
+    """``n`` bundled SMILES with the failing ones placed on block edges."""
+    pool = load_csv(TRAIN_CSV)[0]
+    smiles = [pool[i % len(pool)] for i in range(n)]
+    edges = sorted({i for i in BLOCK_EDGES if i < n} | {n - 1} if n else ())
+    for k, i in enumerate(edges):
+        smiles[i] = list(FAILING)[k % len(FAILING)]
+    return smiles
+
+
+_ONE_THREAD = {}
+
+
+def _one_thread(n, monkeypatch):
+    if n not in _ONE_THREAD:
+        _ONE_THREAD[n] = _featurize(monkeypatch, 1, _mixed(n), 35, 64, 100,
+                                    fp_bits=1024)
+    return _ONE_THREAD[n]
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 64, 1000])
+@pytest.mark.parametrize("workers", [2, 3, 8])
+def test_workers_give_the_one_thread_bytes(workers, n, monkeypatch):
+    """Split over workers, a call returns bit for bit what one thread
+    returns, failing molecules on the blocks' edges included."""
+    smiles, want = _mixed(n), _one_thread(n, monkeypatch)
+    status = want[5]
+    for i, smi in enumerate(smiles):
+        assert status[i] == FAILING.get(smi, status[i]) and status[i] != 0, i
+    if n >= 17:
+        assert {-1, -2, -3} <= set(status.tolist()) and (status > 0).any()
+    _assert_same_outputs(_featurize(monkeypatch, workers, smiles, 35, 64,
+                                    100, fp_bits=1024), want)
+
+
+@pytest.mark.parametrize("n,workers,ran", [
+    (0, 4, 1), (1, 16, 1), (5, 1000, 1), (40, 64, 3), (1000, 1000, 63)])
+def test_more_workers_than_molecules(n, workers, ran, monkeypatch):
+    """More workers than molecules (or blocks of 16 of them) work, give the
+    one-thread bytes, and are counted as the workers the library ran: one
+    a block at most."""
+    before = native.counts()
+    res = _featurize(monkeypatch, workers, _mixed(n), 35, 64, 100,
+                     fp_bits=1024)
+    after = native.counts()
+    assert len(res[5]) == n
+    assert {k: after[k] - before[k] for k in native.COUNTERS} == {
+        "calls": 1, "parallel_calls": int(ran > 1), "molecules": n,
+        "workers": ran}
+    _assert_same_outputs(res, _one_thread(n, monkeypatch))
+
+
+@pytest.mark.parametrize("cpus,cpu_max,n,want", [
+    (8, None, 0, 1), (8, None, 1, 1), (8, None, 127, 1), (64, None, 127, 1),
+    (8, None, 128, 2), (8, None, 4096, 8), (64, None, 4096, 64),
+    (2, None, 4096, 2), (1, None, 4096, 1), (8, "max 100000", 4096, 8),
+    (8, "200000 100000", 4096, 2), (8, "150000 100000", 4096, 2),
+    (8, "50000 100000", 4096, 1), (2, "800000 100000", 4096, 2),
+    (8, "garbled", 4096, 8), (8, "x 100000", 4096, 8), (8, "1 0", 4096, 8),
+])
+def test_worker_rule(cpus, cpu_max, n, want, monkeypatch, tmp_path):
+    """One worker below 128 molecules; else one per 64 molecules, never more
+    than the CPUs of the process's affinity or its cgroup quota (rounded
+    up)."""
+    monkeypatch.setattr(native.os, "sched_getaffinity",
+                        lambda pid: set(range(cpus)))
+    path = tmp_path / "cpu.max"
+    if cpu_max is not None:
+        path.write_text(cpu_max + "\n")
+    monkeypatch.setattr(native, "CGROUP_CPU_MAX", str(path))
+    assert native.worker_count(n) == want
+    assert native.worker_count(n) <= native.usable_cpus() <= cpus
+
+
+class _FailingLib:
+    """Stands in for the library: returns the failure code, as a worker
+    that caught ``std::bad_alloc`` makes the call do."""
+
+    def __init__(self):
+        self.workers = []
+
+    def mgat_featurize_batch(self, *args):
+        self.workers.append(args[-1])
+        return -1
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_library_failure_raises(workers, monkeypatch):
+    lib = _FailingLib()
+    monkeypatch.setattr(native, "_lib", lib)
+    before = native.counts()
+    with pytest.raises(RuntimeError, match="native featuriser failed"):
+        _featurize(monkeypatch, workers, CORPUS, 35, 64, 160)
+    assert lib.workers == [workers]
+    assert native.counts() == before
 
 
 def test_library_is_named_by_source_and_flags(tmp_path, monkeypatch):

@@ -517,7 +517,8 @@ def test_coalesced_timing_split(ckpt):
 def test_health_carries_the_telemetry_totals(server):
     """``/health``'s ``telemetry`` holds the registry's totals: a request
     adds one ``predict_call`` unit and one ``predict.dispatch`` span, and
-    the kernel wrappers' launch counters ride beside them."""
+    the kernel wrappers' launch counters ride beside them, with the native
+    featuriser's: one more call, on the calling thread alone."""
     _, before = _get(server + "/health")
     _post(server + "/predict", {"smiles": ["CCO", "c1ccccc1"]})
     _, after = _get(server + "/health")
@@ -529,6 +530,9 @@ def test_health_carries_the_telemetry_totals(server):
         assert a["spans"][name]["count"] == b["spans"][name]["count"] + 1
         assert a["spans"][name]["seconds"] > b["spans"][name]["seconds"]
     assert "dense_adjacency_cuda" in a["launches"]
+    assert {k: a["featurize"][k] - b["featurize"][k]
+            for k in a["featurize"]} == {"calls": 1, "parallel_calls": 0,
+                                         "molecules": 2, "workers": 1}
 
 
 def test_answers_as_the_reference_server_does(ckpts):

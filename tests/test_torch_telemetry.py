@@ -266,6 +266,26 @@ def test_snapshot_reads_the_wrappers_launch_counters(monkeypatch):
             "attention_bwd_cuda"} <= set(launches)
 
 
+@pytest.mark.parametrize("cpus", [1, 4])
+def test_snapshot_counts_the_featuriser_calls(cpus, monkeypatch):
+    """Over a call of 10 SMILES and one of 256, ``featurize`` counts two
+    calls, 266 molecules, and the rule's workers: 1 for the small call,
+    ``min(cpus, 256 // 64)`` for the large one (a parallel call unless
+    that is 1)."""
+    from mgat_graphsage_torch.chem import native
+
+    monkeypatch.setattr(native, "usable_cpus", lambda: cpus)
+    smiles = load_csv(TRAIN_CSV)[0][:256]
+    before = telemetry.snapshot()["featurize"]
+    for n in (10, 256):
+        native.featurize_batch_native(smiles[:n], 35, 80, 176, fp_bits=1024)
+    after = telemetry.snapshot()["featurize"]
+    assert {k: after[k] - before[k] for k in native.COUNTERS} == {
+        "calls": 2, "parallel_calls": int(cpus > 1), "molecules": 266,
+        "workers": 1 + min(cpus, 4)}
+    json.dumps(after)
+
+
 READERS = {
     "featurize.native_share.score": ("predict_call", "featurize.native"),
     "predict.upload_share.score": ("predict_call", "predict.upload"),
