@@ -9,6 +9,13 @@
 [2, 2E])`` pair, which ``data/dataset.py`` pads to the dataset's
 ``(max_nodes, max_edges)`` budget; ``smiles_to_padded_graph`` pads one
 molecule to a given budget.
+
+``bond_types`` and ``graph_structure`` give what the graph transformer
+reads beside the features (``models/zoo.py::GraphormerNet``): a bond type
+per directed edge, and per molecule the atoms' degrees, the all-pairs
+shortest-path distances in bonds and the first ``hops`` bond types along
+one fixed shortest path, by the breadth-first rule that
+``csrc/featurizer.cpp`` follows too, bit for bit.
 """
 
 from __future__ import annotations
@@ -33,7 +40,21 @@ __all__ = [
     "mol_to_graph",
     "smiles_to_graph",
     "smiles_to_padded_graph",
+    "BOND_TYPES",
+    "MAX_HOPS",
+    "UNREACHABLE",
+    "bond_types",
+    "graph_structure",
+    "smiles_to_structure",
 ]
+
+# bond type codes per directed edge; 0 is padding and "no bond"
+BOND_TYPES = {"single": 1, "double": 2, "triple": 3, "aromatic": 4}
+# bonds of a shortest path whose types are kept (the public Graphormer's
+# multi_hop_max_dist)
+MAX_HOPS = 5
+# the distance of a pair in different components, and of a padded pair
+UNREACHABLE = -1
 
 # Vocabularies — byte-for-byte the lists from reference train.py:34-42.
 ATOM_SYMBOLS = ["C", "N", "O", "S", "F", "P", "Cl", "Br", "I", "Unknown"]
@@ -146,3 +167,68 @@ def smiles_to_padded_graph(
     edge_mask = np.zeros((max_edges,), dtype=np.float32)
     edge_mask[:e] = 1.0
     return nodes, edges, node_mask, edge_mask
+
+
+def bond_types(mol: Mol, edge_index: np.ndarray) -> np.ndarray:
+    """``[E]`` int8: the type code (:data:`BOND_TYPES`) of each directed
+    edge of ``edge_index``: aromatic, else the bond order.  Of two bonds
+    between one pair of atoms the first in the molecule's bond order
+    counts."""
+    code: dict = {}
+    for b in mol.GetBonds():
+        t = 4 if (b.aromatic or b.order == 1.5) else int(b.order)
+        code.setdefault((b.a1, b.a2), t)
+        code.setdefault((b.a2, b.a1), t)
+    return np.array([code[(int(s), int(d))] for s, d in edge_index.T],
+                    dtype=np.int8)
+
+
+def graph_structure(n: int, edge_index: np.ndarray, edge_types: np.ndarray,
+                    hops: int = MAX_HOPS
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(degree [n] int8, spd [n, n] int8, path_types [n, n, hops] int8)``
+    of one molecule's graph.
+
+    A breadth-first search from each atom visits a node's neighbours in
+    ``edge_index`` order, and a node's predecessor is the node that
+    discovered it first; that fixes one shortest path per pair.
+    ``spd[i, j]`` is its length in bonds (:data:`UNREACHABLE` for atoms in
+    different components, as in a salt), and ``path_types[i, j, :L]`` the
+    types of its first ``L = min(spd, hops)`` bonds from ``i``, zero
+    after."""
+    src, dst = edge_index[0].astype(np.int64), edge_index[1].astype(np.int64)
+    nbrs: List[List[Tuple[int, int]]] = [[] for _ in range(n)]
+    for k in range(src.shape[0]):
+        nbrs[src[k]].append((int(dst[k]), int(edge_types[k])))
+    degree = np.array([len(a) for a in nbrs], dtype=np.int8)
+    spd = np.full((n, n), UNREACHABLE, dtype=np.int8)
+    path = np.zeros((n, n, hops), dtype=np.int8)
+    for s in range(n):
+        dist, row = spd[s], path[s]
+        dist[s] = 0
+        queue = [s]
+        head = 0
+        while head < len(queue):
+            u = queue[head]
+            head += 1
+            du = int(dist[u])
+            for v, t in nbrs[u]:
+                if dist[v] == UNREACHABLE:
+                    dist[v] = du + 1
+                    row[v] = row[u]
+                    if du < hops:
+                        row[v, du] = t
+                    queue.append(v)
+    return degree, spd, path
+
+
+def smiles_to_structure(smiles: str, featurizer: str = "35",
+                        hops: int = MAX_HOPS):
+    """``(features, edge_index, degree, spd, path_types)`` of one SMILES
+    (:func:`smiles_to_graph` and :func:`graph_structure`); raises
+    ``ValueError`` on a bad SMILES."""
+    mol = parse_smiles(smiles)
+    feats, edge_index = mol_to_graph(mol, featurizer=featurizer)
+    types = bond_types(mol, edge_index)
+    return (feats, edge_index) + graph_structure(
+        feats.shape[0], edge_index, types, hops)

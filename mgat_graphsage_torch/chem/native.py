@@ -28,6 +28,10 @@ workers take blocks of 16 molecules from one shared cursor and write only
 their molecules' slots, so the outputs are the same bytes for any count.
 The library joins every worker before the call returns: no thread, pool
 or state outlives a call, and a ``fork`` after one is safe.
+``featurize_structure_native`` is the same call with, per molecule, what
+the graph transformer reads beside the features (a bond type per edge,
+the degrees, the shortest-path distances and the first bond types along
+each path; ``chem/featurize.py::graph_structure``, bit for bit).
 ``featurize_batch_native`` counts its ``calls``, ``parallel_calls`` (more
 than one worker), ``molecules`` and ``workers`` (summed over calls; the
 workers the library reports it ran, never more than its blocks of 16),
@@ -45,7 +49,8 @@ import numpy as np
 
 from ..ops import _build
 
-__all__ = ["native_available", "featurize_batch_native", "get_lib",
+__all__ = ["native_available", "featurize_batch_native",
+           "featurize_structure_native", "get_lib",
            "usable_cpus", "worker_count", "counts", "COUNTERS", "GXX_FLAGS",
            "SOURCE"]
 
@@ -63,6 +68,7 @@ _lib = None
 
 _P_I32 = ctypes.POINTER(ctypes.c_int32)
 _P_F32 = ctypes.POINTER(ctypes.c_float)
+_P_I8 = ctypes.POINTER(ctypes.c_int8)
 
 
 def library_path() -> str:
@@ -91,6 +97,10 @@ def get_lib():
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, _P_I32,
                 ctypes.c_int,
             ]
+            lib.mgat_featurize_batch_structure.restype = ctypes.c_int
+            lib.mgat_featurize_batch_structure.argtypes = \
+                lib.mgat_featurize_batch.argtypes + [
+                    ctypes.c_int, _P_I8, _P_I8, _P_I8, _P_I8]
             _lib = lib
     return _lib
 
@@ -155,6 +165,34 @@ def featurize_batch_native(
     ``RuntimeError`` when the library reports a failure (a worker ran out
     of memory).
     """
+    return _batch(smiles_list, feat_dim, max_nodes, max_edges, fp_bits,
+                  fp_radius, use_features, 0)[:6]
+
+
+def featurize_structure_native(
+    smiles_list: List[str],
+    feat_dim: int,
+    max_nodes: int,
+    max_edges: int,
+    fp_bits: int = 0,
+    fp_radius: int = 2,
+    use_features: bool = False,
+    hops: int = 5,
+) -> Tuple:
+    """:func:`featurize_batch_native`'s six arrays, then ``edge_types [n,
+    max_edges]``, ``degree [n, max_nodes]``, ``spd [n, max_nodes,
+    max_nodes]`` and ``path_types [n, max_nodes, max_nodes, hops]``, all
+    int8 (``chem/featurize.py::bond_types`` and ``::graph_structure``, bit
+    for bit; padding is 0, and -1 in ``spd``).  One batch call, on the same
+    workers and counted alike."""
+    if hops < 1:
+        raise ValueError(f"hops={hops}; expected 1 or more")
+    return _batch(smiles_list, feat_dim, max_nodes, max_edges, fp_bits,
+                  fp_radius, use_features, hops)
+
+
+def _batch(smiles_list, feat_dim, max_nodes, max_edges, fp_bits, fp_radius,
+           use_features, hops):
     lib = get_lib()
     n = len(smiles_list)
     # the library reads each SMILES up to its NUL, so one holding a NUL
@@ -174,11 +212,21 @@ def featurize_batch_native(
     fp = np.zeros((n, fp_bits), np.float32) if fp_bits else None
     status = np.zeros(n, np.int32)
     workers = worker_count(n)
-    ran = lib.mgat_featurize_batch(
-        blob, _ptr(offsets, _P_I32), n, feat_dim, max_nodes, max_edges,
-        _ptr(nodes, _P_F32), _ptr(edges, _P_I32), _ptr(n_edges, _P_I32),
-        _ptr(fp, _P_F32), fp_bits, fp_radius, 1 if use_features else 0,
-        _ptr(status, _P_I32), workers)
+    args = [blob, _ptr(offsets, _P_I32), n, feat_dim, max_nodes, max_edges,
+            _ptr(nodes, _P_F32), _ptr(edges, _P_I32), _ptr(n_edges, _P_I32),
+            _ptr(fp, _P_F32), fp_bits, fp_radius, 1 if use_features else 0,
+            _ptr(status, _P_I32), workers]
+    extra = ()
+    if hops:
+        # padding as the library leaves a molecule that fails
+        extra = (np.zeros((n, max_edges), np.int8),
+                 np.zeros((n, max_nodes), np.int8),
+                 np.full((n, max_nodes, max_nodes), -1, np.int8),
+                 np.zeros((n, max_nodes, max_nodes, hops), np.int8))
+        ran = lib.mgat_featurize_batch_structure(
+            *args, hops, *(_ptr(a, _P_I8) for a in extra))
+    else:
+        ran = lib.mgat_featurize_batch(*args)
     if ran < 1:
         raise RuntimeError(
             f"the native featuriser failed on a batch of {n} SMILES "
@@ -194,7 +242,7 @@ def featurize_batch_native(
                  ).astype(np.float32)
     edge_mask = (np.arange(max_edges) < np.where(ok, n_edges, 0)[:, None]
                  ).astype(np.float32)
-    return nodes, edges, node_mask, edge_mask, fp, status
+    return (nodes, edges, node_mask, edge_mask, fp, status) + extra
 
 
 def counts() -> Dict[str, int]:

@@ -760,22 +760,69 @@ void morgan(const Mol& m, int radius, int nbits, bool use_features,
   }
 }
 
-}  // namespace
+// ------------------------------------------------------------ structure
+// What the graph transformer reads beside the features
+// (chem/featurize.py::bond_types and ::graph_structure, bit for bit): a
+// bond type per directed edge (1 single, 2 double, 3 triple, 4 aromatic;
+// of two bonds between one pair the first counts), and a breadth-first
+// search from each atom that visits a node's neighbours in edge-list order
+// and keeps the first discoverer as the predecessor. spd[i][j] is the
+// path's length in bonds (-1: unreachable or padding), path[i][j][0..L)
+// the types of its first L = min(spd, hops) bonds from i.
+// edge_types [max_edges], degree [max_nodes], spd [max_nodes^2] and
+// path [max_nodes^2 * hops] are filled whole, padding included.
+void structure(const Mol& m, const int32_t* edges, int ne, int max_nodes,
+               int max_edges, int hops, int8_t* edge_types, int8_t* degree,
+               int8_t* spd, int8_t* path) {
+  const int n = (int)m.atoms.size();
+  std::map<std::pair<int, int>, int> code;
+  for (auto& b : m.bonds) {
+    const int t = (b.aromatic || b.order == 1.5) ? 4 : (int)b.order;
+    code.insert({{b.a1, b.a2}, t});
+    code.insert({{b.a2, b.a1}, t});
+  }
+  std::memset(edge_types, 0, (size_t)max_edges);
+  std::memset(degree, 0, (size_t)max_nodes);
+  std::memset(spd, -1, (size_t)max_nodes * max_nodes);
+  std::memset(path, 0, (size_t)max_nodes * max_nodes * hops);
+  std::vector<std::vector<std::pair<int, int>>> nbrs(n);
+  for (int k = 0; k < ne; ++k) {
+    const int a = edges[k], b = edges[max_edges + k];
+    edge_types[k] = (int8_t)code[{a, b}];
+    nbrs[a].push_back({b, edge_types[k]});
+  }
+  for (int i = 0; i < n; ++i) degree[i] = (int8_t)nbrs[i].size();
+  std::vector<int> queue(n);
+  for (int s = 0; s < n; ++s) {
+    int8_t* dist = spd + (size_t)s * max_nodes;
+    int8_t* row = path + (size_t)s * max_nodes * hops;
+    dist[s] = 0;
+    int head = 0, tail = 0;
+    queue[tail++] = s;
+    while (head < tail) {
+      const int u = queue[head++];
+      const int du = dist[u];
+      for (auto& e : nbrs[u]) {
+        const int v = e.first;
+        if (dist[v] != -1) continue;
+        dist[v] = (int8_t)(du + 1);
+        std::memcpy(row + (size_t)v * hops, row + (size_t)u * hops,
+                    (size_t)hops);
+        if (du < hops) row[(size_t)v * hops + du] = (int8_t)e.second;
+        queue[tail++] = v;
+      }
+    }
+  }
+}
 
-// ------------------------------------------------------------------ C ABI
-extern "C" {
-
-// Parse + featurize one SMILES.
-// nodes: [max_nodes * feat_dim] float32, pre-zeroed by this function.
-// edges: [2 * max_edges] int32 (row 0 = src, row 1 = dst), pre-zeroed.
-// fp:    [fp_bits] float32 or NULL, pre-zeroed.
-// feat_dim: 35 or 5.
-// Returns n_atoms on success; -1 parse error; -2 over node budget;
-// -3 over edge budget.
-int mgat_featurize(const char* smiles, int feat_dim, int max_nodes,
-                   int max_edges, float* nodes, int32_t* edges,
-                   int32_t* n_edges_out, float* fp, int fp_bits,
-                   int fp_radius, int use_features) {
+// One molecule: features, edges and fingerprint (mgat_featurize), and with
+// hops > 0 its structure (above).
+int featurize_one(const char* smiles, int feat_dim, int max_nodes,
+                  int max_edges, float* nodes, int32_t* edges,
+                  int32_t* n_edges_out, float* fp, int fp_bits,
+                  int fp_radius, int use_features, int hops,
+                  int8_t* edge_types, int8_t* degree, int8_t* spd,
+                  int8_t* path) {
   if (!smiles || !*smiles) return -1;
   Mol m;
   if (!parse_smiles(std::string(smiles), m)) return -1;
@@ -794,7 +841,80 @@ int mgat_featurize(const char* smiles, int feat_dim, int max_nodes,
     std::memset(fp, 0, sizeof(float) * (size_t)fp_bits);
     morgan(m, fp_radius, fp_bits, use_features != 0, fp);
   }
+  if (hops > 0)
+    structure(m, edges, ne, max_nodes, max_edges, hops, edge_types, degree,
+              spd, path);
   return n;
+}
+
+// The batch call of mgat_featurize_batch (the comment there), with the
+// structure when hops > 0.
+int featurize_batch(const char* smiles_blob, const int32_t* offsets,
+                    int n_mols, int feat_dim, int max_nodes, int max_edges,
+                    float* nodes, int32_t* edges, int32_t* n_edges_out,
+                    float* fp, int fp_bits, int fp_radius, int use_features,
+                    int32_t* results, int n_workers, int hops,
+                    int8_t* edge_types, int8_t* degree, int8_t* spd,
+                    int8_t* path) {
+  constexpr int kBlock = 16;
+  const size_t node_stride = (size_t)max_nodes * feat_dim;
+  const size_t edge_stride = 2 * (size_t)max_edges;
+  const size_t pair_stride = (size_t)max_nodes * max_nodes;
+  n_workers = std::max(1, std::min(n_workers, (n_mols + kBlock - 1) / kBlock));
+  std::atomic<int> cursor{0};
+  std::atomic<bool> failed{false};
+  auto work = [&]() noexcept {
+    try {
+      for (;;) {
+        const int lo = cursor.fetch_add(kBlock, std::memory_order_relaxed);
+        if (lo >= n_mols || failed.load(std::memory_order_relaxed)) return;
+        for (int i = lo; i < std::min(lo + kBlock, n_mols); ++i) {
+          const bool st = hops > 0;
+          results[i] = featurize_one(
+              smiles_blob + offsets[i], feat_dim, max_nodes, max_edges,
+              nodes + i * node_stride, edges + i * edge_stride,
+              n_edges_out + i, fp ? fp + (size_t)i * fp_bits : nullptr,
+              fp_bits, fp_radius, use_features, hops,
+              st ? edge_types + (size_t)i * max_edges : nullptr,
+              st ? degree + (size_t)i * max_nodes : nullptr,
+              st ? spd + i * pair_stride : nullptr,
+              st ? path + i * pair_stride * hops : nullptr);
+        }
+      }
+    } catch (...) {
+      failed.store(true, std::memory_order_relaxed);
+    }
+  };
+  std::vector<std::thread> threads;
+  try {
+    threads.reserve(n_workers - 1);
+    for (int w = 1; w < n_workers; ++w) threads.emplace_back(work);
+  } catch (...) {
+  }
+  work();
+  for (auto& t : threads) t.join();
+  return failed.load() ? -1 : 1 + (int)threads.size();
+}
+
+}  // namespace
+
+// ------------------------------------------------------------------ C ABI
+extern "C" {
+
+// Parse + featurize one SMILES.
+// nodes: [max_nodes * feat_dim] float32, pre-zeroed by this function.
+// edges: [2 * max_edges] int32 (row 0 = src, row 1 = dst), pre-zeroed.
+// fp:    [fp_bits] float32 or NULL, pre-zeroed.
+// feat_dim: 35 or 5.
+// Returns n_atoms on success; -1 parse error; -2 over node budget;
+// -3 over edge budget.
+int mgat_featurize(const char* smiles, int feat_dim, int max_nodes,
+                   int max_edges, float* nodes, int32_t* edges,
+                   int32_t* n_edges_out, float* fp, int fp_bits,
+                   int fp_radius, int use_features) {
+  return featurize_one(smiles, feat_dim, max_nodes, max_edges, nodes, edges,
+                       n_edges_out, fp, fp_bits, fp_radius, use_features, 0,
+                       nullptr, nullptr, nullptr, nullptr);
 }
 
 // Batch variant: featurize many SMILES in one call (amortizes ctypes
@@ -817,38 +937,28 @@ int mgat_featurize_batch(const char* smiles_blob, const int32_t* offsets,
                          int32_t* n_edges_out, float* fp, int fp_bits,
                          int fp_radius, int use_features,
                          int32_t* results, int n_workers) {
-  constexpr int kBlock = 16;
-  const size_t node_stride = (size_t)max_nodes * feat_dim;
-  const size_t edge_stride = 2 * (size_t)max_edges;
-  n_workers = std::max(1, std::min(n_workers, (n_mols + kBlock - 1) / kBlock));
-  std::atomic<int> cursor{0};
-  std::atomic<bool> failed{false};
-  auto work = [&]() noexcept {
-    try {
-      for (;;) {
-        const int lo = cursor.fetch_add(kBlock, std::memory_order_relaxed);
-        if (lo >= n_mols || failed.load(std::memory_order_relaxed)) return;
-        for (int i = lo; i < std::min(lo + kBlock, n_mols); ++i) {
-          results[i] = mgat_featurize(
-              smiles_blob + offsets[i], feat_dim, max_nodes, max_edges,
-              nodes + i * node_stride, edges + i * edge_stride,
-              n_edges_out + i, fp ? fp + (size_t)i * fp_bits : nullptr,
-              fp_bits, fp_radius, use_features);
-        }
-      }
-    } catch (...) {
-      failed.store(true, std::memory_order_relaxed);
-    }
-  };
-  std::vector<std::thread> threads;
-  try {
-    threads.reserve(n_workers - 1);
-    for (int w = 1; w < n_workers; ++w) threads.emplace_back(work);
-  } catch (...) {
-  }
-  work();
-  for (auto& t : threads) t.join();
-  return failed.load() ? -1 : 1 + (int)threads.size();
+  return featurize_batch(smiles_blob, offsets, n_mols, feat_dim, max_nodes,
+                         max_edges, nodes, edges, n_edges_out, fp, fp_bits,
+                         fp_radius, use_features, results, n_workers, 0,
+                         nullptr, nullptr, nullptr, nullptr);
+}
+
+// mgat_featurize_batch, and per molecule its structure: edge_types
+// [n_mols * max_edges], degree [n_mols * max_nodes], spd [n_mols *
+// max_nodes^2] and path [n_mols * max_nodes^2 * hops] int8, as
+// structure() above fills them (hops >= 1).
+int mgat_featurize_batch_structure(
+    const char* smiles_blob, const int32_t* offsets, int n_mols,
+    int feat_dim, int max_nodes, int max_edges, float* nodes,
+    int32_t* edges, int32_t* n_edges_out, float* fp, int fp_bits,
+    int fp_radius, int use_features, int32_t* results, int n_workers,
+    int hops, int8_t* edge_types, int8_t* degree, int8_t* spd,
+    int8_t* path) {
+  if (hops < 1) return -1;
+  return featurize_batch(smiles_blob, offsets, n_mols, feat_dim, max_nodes,
+                         max_edges, nodes, edges, n_edges_out, fp, fp_bits,
+                         fp_radius, use_features, results, n_workers, hops,
+                         edge_types, degree, spd, path);
 }
 
 }  // extern "C"

@@ -8,6 +8,12 @@ every molecule to one ``(max_nodes, max_edges)`` budget:
 ``edge_mask [n, E]``, ``fp [n, nbits]``.  Dense adjacency is built on the
 device from the edge lists (``ops/graph.py``).
 
+With ``structure=True`` (the graph transformer's presets,
+``TrainConfig.needs_structure``) it also holds, at the same budget,
+``degree [n, N]``, ``spd [n, N, N]`` and ``path_types [n, N, N, hops]``,
+int8 (``chem/featurize.py::graph_structure``; -1 in ``spd`` for padding
+and for atoms in different components).
+
 Featurisation goes through the native C++ library by default
 (``chem/native.py``; bit for bit the Python chemistry layer's output),
 through the Python layer with ``use_native=False`` or for a configuration
@@ -24,6 +30,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..chem import smiles_to_graph
+from ..chem.featurize import MAX_HOPS, smiles_to_structure
 from ..chem.fingerprints import FINGERPRINTS
 from ..utils import telemetry
 
@@ -88,9 +95,16 @@ class GraphBatch:
     y: np.ndarray            # [B] float32 (normalized target)
     y_orig: np.ndarray       # [B] float32 (original-scale target)
     sample_mask: np.ndarray  # [B] float32 (0 = padding row)
+    # the graph transformer's structure (None unless the dataset has it)
+    degree: Optional[np.ndarray] = None      # [B, N] int8
+    spd: Optional[np.ndarray] = None         # [B, N, N] int8
+    path_types: Optional[np.ndarray] = None  # [B, N, N, hops] int8
 
     def as_dict(self) -> Dict[str, np.ndarray]:
-        return dataclasses.asdict(self)
+        """The arrays by name; the structure's only where the batch has
+        it."""
+        return {k: v for k, v in dataclasses.asdict(self).items()
+                if v is not None}
 
     @property
     def batch_size(self) -> int:
@@ -148,6 +162,7 @@ class MolecularDataset:
         node_multiple: int = 8,
         verbose: bool = True,
         use_native: bool = True,
+        structure: bool = False,
     ):
         targets = np.asarray(targets, dtype=np.float32).reshape(-1)
         native = use_native and fingerprint in _NATIVE_FPS \
@@ -155,10 +170,13 @@ class MolecularDataset:
         featurize = self._featurize_native if native \
             else self._featurize_python
         graphs, fps, kept_targets, kept_smiles, kept_indices = featurize(
-            smiles, targets, fingerprint, featurizer, verbose)
+            smiles, targets, fingerprint, featurizer, verbose, structure)
 
         if not graphs:
             raise ValueError("No valid molecules in dataset")
+        if structure:
+            structs = [g[2:] for g in graphs]
+            graphs = [g[:2] for g in graphs]
 
         # drop molecules over an explicit (max_nodes, max_edges) budget
         # BEFORE allocating arrays, so indices stay consistent
@@ -174,6 +192,8 @@ class MolecularDataset:
                           f"budget")
                 graphs = [graphs[i] for i in keep]
                 fps = [fps[i] for i in keep]
+                if structure:
+                    structs = [structs[i] for i in keep]
                 kept_targets = [kept_targets[i] for i in keep]
                 kept_smiles = [kept_smiles[i] for i in keep]
                 kept_indices = [kept_indices[i] for i in keep]
@@ -213,25 +233,38 @@ class MolecularDataset:
             if fps[i] is not None:
                 self.fp[i] = fps[i]
         self.n = n
+        self.degree = self.spd = self.path_types = None
+        if structure:
+            mn = self.max_nodes
+            self.degree = np.zeros((n, mn), np.int8)
+            self.spd = np.full((n, mn, mn), -1, np.int8)
+            self.path_types = np.zeros((n, mn, mn, MAX_HOPS), np.int8)
+            for i, (deg, spd, path) in enumerate(structs):
+                k = deg.shape[0]
+                self.degree[i, :k] = deg
+                self.spd[i, :k, :k] = spd
+                self.path_types[i, :k, :k] = path
 
     @staticmethod
     def _featurize_python(smiles, targets, fingerprint, featurizer,
-                          verbose):
+                          verbose, structure=False):
         """(graphs, fps, targets, smiles, indices) of the molecules that
-        parse, through the Python chemistry layer."""
+        parse, through the Python chemistry layer; with ``structure`` a
+        graph is ``(features, edge_index, degree, spd, path_types)``."""
         graphs, fps, kept_targets, kept_smiles, kept_indices = \
             [], [], [], [], []
         fp_fn = FINGERPRINTS[fingerprint] if fingerprint else None
         for i, (smi, y) in enumerate(zip(smiles, targets)):
             try:
-                feats, edge_index = smiles_to_graph(str(smi),
-                                                    featurizer=featurizer)
+                graph = smiles_to_structure(str(smi), featurizer) \
+                    if structure else smiles_to_graph(str(smi),
+                                                      featurizer=featurizer)
                 fp = fp_fn(str(smi))[0] if fp_fn else None
             except ValueError as e:
                 if verbose:
                     print(e)
                 continue
-            graphs.append((feats, edge_index))
+            graphs.append(graph)
             fps.append(fp)
             kept_targets.append(y)
             kept_smiles.append(str(smi))
@@ -240,18 +273,28 @@ class MolecularDataset:
 
     @staticmethod
     def _featurize_native(smiles, targets, fingerprint, featurizer,
-                          verbose):
+                          verbose, structure=False):
         """The same lists as :meth:`_featurize_python`, through the C++
-        library (bit for bit the same graphs and fingerprints), for the
-        molecules that parse and fit :data:`NATIVE_BUDGET`; the library's
-        call is the ``featurize.native`` span (``utils/telemetry.py``)."""
-        from ..chem.native import featurize_batch_native
+        library (bit for bit the same graphs, fingerprints and structure),
+        for the molecules that parse and fit :data:`NATIVE_BUDGET`; the
+        library's call is the ``featurize.native`` span
+        (``utils/telemetry.py``)."""
+        from ..chem.native import (featurize_batch_native,
+                                   featurize_structure_native)
 
         fp_bits, use_features = _NATIVE_FPS[fingerprint]
+        args = ([str(s) for s in smiles], 35 if featurizer == "35" else 5,
+                *NATIVE_BUDGET)
         with telemetry.span("featurize.native"):
-            nodes, edges, _, edge_mask, fp, status = featurize_batch_native(
-                [str(s) for s in smiles], 35 if featurizer == "35" else 5,
-                *NATIVE_BUDGET, fp_bits=fp_bits, use_features=use_features)
+            if structure:
+                (nodes, edges, _, edge_mask, fp, status, _, degree, spd,
+                 path) = featurize_structure_native(
+                    *args, fp_bits=fp_bits, use_features=use_features,
+                    hops=MAX_HOPS)
+            else:
+                nodes, edges, _, edge_mask, fp, status = \
+                    featurize_batch_native(*args, fp_bits=fp_bits,
+                                           use_features=use_features)
         graphs, fps, kept_targets, kept_smiles, kept_indices = \
             [], [], [], [], []
         n_edges = edge_mask.sum(axis=1).astype(np.int64)
@@ -262,7 +305,10 @@ class MolecularDataset:
                           if status[i] == -1 else
                           f"[data] molecule exceeds native budget: {smi!r}")
                 continue
-            graphs.append((nodes[i, :status[i]], edges[i, :, :n_edges[i]]))
+            k = status[i]
+            graphs.append((nodes[i, :k], edges[i, :, :n_edges[i]]) + (
+                (degree[i, :k], spd[i, :k, :k], path[i, :k, :k])
+                if structure else ()))
             fps.append(fp[i] if fp is not None else None)
             kept_targets.append(targets[i])
             kept_smiles.append(str(smi))
@@ -296,7 +342,13 @@ class MolecularDataset:
                nodes: Optional[int] = None, edges: Optional[int] = None
                ) -> GraphBatch:
         """Rows ``sel``, trimmed to ``nodes`` and ``edges`` when given."""
+        st = {}
+        if self.spd is not None:
+            st = dict(degree=self.degree[sel, :nodes],
+                      spd=self.spd[sel, :nodes, :nodes],
+                      path_types=self.path_types[sel, :nodes, :nodes])
         return GraphBatch(
+            **st,
             nodes=self.nodes[sel, :nodes],
             edges=self.edges[sel, :, :edges],
             node_mask=self.node_mask[sel, :nodes],
@@ -366,6 +418,14 @@ class MolecularDataset:
         ds.edge_mask = np.ascontiguousarray(
             self.edge_mask[idx][:, :bucket_edges])
         ds.fp = self.fp[idx]
+        ds.degree = ds.spd = ds.path_types = None
+        if self.spd is not None:
+            ds.degree = np.ascontiguousarray(
+                self.degree[idx][:, :bucket_nodes])
+            ds.spd = np.ascontiguousarray(
+                self.spd[idx][:, :bucket_nodes, :bucket_nodes])
+            ds.path_types = np.ascontiguousarray(
+                self.path_types[idx][:, :bucket_nodes, :bucket_nodes])
         ds.n = int(idx.size)
         return ds
 

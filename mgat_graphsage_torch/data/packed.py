@@ -15,6 +15,8 @@ node_mask             ``[n, N]`` float32         ``n_atoms [n]`` int32
 edge_mask             ``[n, E]`` float32         ``n_edges [n]`` int32
 fp (binary)           ``[n, nbits]`` float32     ``[n, nbits/8]`` uint8
 y / y_orig            ``[n]`` float32            (unchanged)
+degree, spd,          int8                       (unchanged)
+path_types
 ====================  =========================  =====================
 
 (*) uint8 when ``max_nodes <= 256``, else uint16 (held on the device as
@@ -26,6 +28,8 @@ integers, the masks are leading ones (``data/dataset.py`` fills
 equals the plain one bit for bit and training follows the same
 trajectory (``tests/test_torch_packed.py``).  A non-binary fingerprint
 stays float32 under the plain ``"fp"`` key; the other streams still pack.
+The graph transformer's structure (``degree``, ``spd``, ``path_types``;
+``data/dataset.py``) is int8 already and goes as it is, in both layouts.
 """
 
 from __future__ import annotations
@@ -36,7 +40,10 @@ import numpy as np
 import torch
 
 __all__ = ["pack_dataset", "is_packed", "to_device", "gather_batch",
-           "packed_nbytes", "plain_nbytes"]
+           "packed_nbytes", "plain_nbytes", "STRUCTURE"]
+
+# the graph transformer's int8 streams, carried as they are
+STRUCTURE = ("degree", "spd", "path_types")
 
 
 def _check_integral(a: np.ndarray, lo: int, hi: int, what: str) -> None:
@@ -80,6 +87,8 @@ def pack_dataset(ds) -> Dict[str, np.ndarray]:
                                           bitorder="little")
     else:
         packed["fp"] = fp
+    if getattr(ds, "spd", None) is not None:
+        packed.update({k: getattr(ds, k) for k in STRUCTURE})
     return packed
 
 
@@ -124,9 +133,11 @@ def gather_batch(data: Dict[str, torch.Tensor], idx: torch.Tensor,
         fp = bits.reshape(packed.shape[0], -1)[:, :fp_dim].float()
     else:
         fp = data["fp"][idx]
-    return {"nodes": nodes, "edges": edges, "node_mask": node_mask,
-            "edge_mask": edge_mask, "fp": fp,
-            "y": data["y"][idx], "y_orig": data["y_orig"][idx]}
+    out = {"nodes": nodes, "edges": edges, "node_mask": node_mask,
+           "edge_mask": edge_mask, "fp": fp,
+           "y": data["y"][idx], "y_orig": data["y_orig"][idx]}
+    out.update({k: data[k][idx] for k in STRUCTURE if k in data})
+    return out
 
 
 def _nbytes(d: Dict[str, np.ndarray]) -> int:

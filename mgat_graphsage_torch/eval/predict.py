@@ -10,8 +10,10 @@ each through the adjacency kernel, the graph branch (with the attention
 kernel), the CNN branch and the head.  Results come back in one copy.
 Every model of ``models/zoo.py`` serves this way: a baseline or a
 ``gat_graphsage`` checkpoint has no fingerprint branch, so none is
-computed, and GIN's batch norms serve with their running statistics (the
-model is in eval mode).
+computed, GIN's batch norms serve with their running statistics (the
+model is in eval mode), and the graph transformer reads the molecules'
+structure, featurised with them, in place of the adjacency (its attention
+through ``scaled_dot_product_attention`` on CUDA).
 
 ``infer_dtype="bfloat16"`` serves in bf16 (reference ``make_scan_predict``):
 the parameters are cast to bf16 once (``Predictor``; the batch norms'
@@ -43,6 +45,7 @@ import torch
 from ..data import MolecularDataset, StandardScaler, load_csv
 from ..device import resolve_device
 from ..models import build_model, matmul_precision
+from ..models.zoo import structure_args
 from ..ops import dense_adjacency
 from ..train.checkpoint import load_checkpoint
 from ..train.config import TrainConfig
@@ -123,9 +126,11 @@ def predict_dataset(model, cfg: TrainConfig, scaler: StandardScaler,
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    keys = ("nodes", "node_mask", "degree", "spd", "path_types") \
+        if cfg.needs_structure else \
+        ("nodes", "edges", "node_mask", "edge_mask", "fp")
     with telemetry.span("predict.upload"):
-        data = {k: up(getattr(ds, k)) for k in
-                ("nodes", "edges", "node_mask", "edge_mask", "fp")}
+        data = {k: up(getattr(ds, k)) for k in keys}
         idx_d = up(idx).view(n_batches, batch_size)
         smask_d = up(smask).view(n_batches, batch_size)
     num_nodes = data["nodes"].shape[1]
@@ -135,13 +140,16 @@ def predict_dataset(model, cfg: TrainConfig, scaler: StandardScaler,
                                                   compute):
         for i in range(n_batches):
             sel = idx_d[i]
-            adj = dense_adjacency(data["edges"][sel], data["edge_mask"][sel],
-                                  num_nodes)
             node_mask = data["node_mask"][sel] * smask_d[i].unsqueeze(1)
-            args = (data["nodes"][sel], adj, node_mask) + (
-                (data["fp"][sel],) if cfg.is_hybrid else ())
-            if cdt is not None:
-                args = tuple(a.to(cdt) for a in args)
+            if cfg.needs_structure:
+                args = structure_args(data, node_mask, sel, cdt)
+            else:
+                adj = dense_adjacency(data["edges"][sel],
+                                      data["edge_mask"][sel], num_nodes)
+                args = (data["nodes"][sel], adj, node_mask) + (
+                    (data["fp"][sel],) if cfg.is_hybrid else ())
+                if cdt is not None:
+                    args = tuple(a.to(cdt) for a in args)
             out = model(*args)
             pred = out[0] if cfg.is_hybrid else out
             preds.append(pred.reshape(-1).float() * scale + mean)
@@ -161,7 +169,8 @@ def predict_csv(ckpt_path: str, csv_path: str,
     ds = MolecularDataset(smiles, targets, scaler=scaler,
                           fingerprint=cfg.fingerprint,
                           featurizer=cfg.featurizer,
-                          max_nodes=mn, max_edges=me, verbose=verbose)
+                          max_nodes=mn, max_edges=me, verbose=verbose,
+                          structure=cfg.needs_structure)
     preds = predict_dataset(model, cfg, scaler, ds, batch_size)
     metrics = regression_metrics(ds.y_orig, preds)
     if verbose:
@@ -225,7 +234,7 @@ class Predictor:
                         scaler=self.scaler, fingerprint=self.cfg.fingerprint,
                         featurizer=self.cfg.featurizer,
                         max_nodes=self.max_nodes, max_edges=self.max_edges,
-                        verbose=False)
+                        verbose=False, structure=self.cfg.needs_structure)
             except ValueError:
                 ds = None   # no valid molecules at all
             if ds is not None:

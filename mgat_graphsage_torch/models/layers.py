@@ -10,6 +10,13 @@ U(+-1/sqrt(fan_in)), or PyG's Glorot-uniform for the baselines' layers,
 drawn from an explicit ``torch.Generator``; so are the dropout masks in
 training (``generator=`` of each ``forward``).  The baselines' dense
 products are plain PyTorch, as they are plain ``einsum`` in the reference.
+
+The graph transformer's layers (:class:`Table`, :class:`StructuralBias`,
+:class:`GraphormerLayer`; ``models/zoo.py::GraphormerNet``) take the
+Graphormer's inputs instead: the layer works on ``x [B, N, D]`` with the
+graph token first, the structural bias ``[B, H, N, N]`` and the key mask.
+Their dropout masks are drawn on f32 tensors of the masked shape whatever
+the compute dtype, so a reference in f32 draws the same bits.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..chem.featurize import MAX_HOPS
 from ..ops import (
     add_self_loops,
     attention_plain,
@@ -31,6 +39,7 @@ from ..ops import (
     masked_softmax,
 )
 from ..ops.attention import kernels_support
+from ..ops.biased_attention import biased_attention
 from ..parallel.distributed import (
     batch_sum,
     copy_to_group,
@@ -60,6 +69,10 @@ __all__ = [
     "cnn_fc1_torch_to_pos_major",
     "cnn_fc1_pos_major_to_torch",
     "reset_parameters",
+    "Table",
+    "StructuralBias",
+    "GraphormerLayer",
+    "keep_mask",
 ]
 
 
@@ -599,6 +612,142 @@ class CNNNet(nn.Module):
         return self.fc2(x)
 
 
+def keep_mask(shape, p: float, generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """A bool dropout keep-mask of ``shape``, each element kept with
+    probability ``1 - p``: drawn as :class:`Dropout` draws its masks
+    (``bernoulli_`` on the ``generator``), on an f32 tensor.  Inside
+    ``parallel.batch_shard`` it is the global batch's mask, this rank's
+    rows."""
+    shard = current_batch_shard()
+    rows = shape[0] if shard is None else shard.rows
+    keep = torch.empty((rows,) + tuple(shape[1:]), dtype=torch.float32,
+                       device=device).bernoulli_(1.0 - p, generator=generator)
+    if shard is not None:
+        keep = keep[shard.offset:shard.offset + shape[0]]
+    return keep > 0
+
+
+class Table(nn.Module):
+    """A learned table ``weight [*shape]`` (an embedding, or the edge
+    encoder's per-hop matrices), drawn N(0, 0.02), the public Graphormer's
+    embedding init.  ``forward(idx)`` gathers rows in f32 (so the
+    backward sums each row's gradient in f32) and returns them in the
+    table's dtype."""
+
+    def __init__(self, *shape: int, std: float = 0.02):
+        super().__init__()
+        self.std = float(std)
+        self.weight = nn.Parameter(torch.empty(*shape))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.weight.normal_(0.0, self.std, generator=generator)
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return F.embedding(idx, self.weight.float()).to(self.weight.dtype)
+
+
+class StructuralBias(nn.Module):
+    """The Graphormer's attention bias (Ying et al. 2021, Eq. 6-7; the
+    public code's ``GraphAttnBias``), ``[B, H, n + 1, n + 1]`` in f32 from
+    ``spd [B, n, n]`` and ``path_types [B, n, n, hops]``:
+
+    - ``spatial[spd]``, one value per head for each distance (a table of
+      ``num_spatial``; -1, unreachable or padding, takes the last row);
+    - plus the edge encoding ``c = (1/L) sum_{m<L} edge_type[t_m] @
+      edge_hop[m]`` over the first ``L = min(spd, hops)`` bond types ``t_m``
+      of the pair's path (type 0 is padding and embeds to zero);
+    - the graph token's row and column take ``virtual_distance``.
+
+    ``edge_type[t] @ edge_hop[m]`` depends on ``(m, t)`` alone, so it is
+    formed once as a ``[hops, 5, H]`` table and gathered per hop."""
+
+    def __init__(self, heads: int, hops: int = MAX_HOPS,
+                 num_spatial: int = 512,
+                 bond_types: int = 4):
+        super().__init__()
+        self.heads, self.hops = heads, hops
+        self.spatial = Table(num_spatial, heads)
+        self.virtual_distance = Table(1, heads)
+        self.edge_type = Table(bond_types, heads)
+        self.edge_hop = Table(hops, heads, heads)
+
+    def forward(self, spd: torch.Tensor,
+                path_types: torch.Tensor) -> torch.Tensor:
+        b, n = spd.shape[0], spd.shape[1]
+        h = self.heads
+        spatial = self.spatial.weight.float()
+        d = spd.long()
+        idx = torch.where(d < 0, spatial.shape[0] - 1,
+                          d.clamp_max(spatial.shape[0] - 2))
+        inner = F.embedding(idx, spatial)                       # [B,n,n,H]
+        emb = torch.cat([spatial.new_zeros(1, h),
+                         self.edge_type.weight.float()])        # [5, H]
+        table = torch.einsum("th,mhk->mtk", emb,
+                             self.edge_hop.weight.float())      # [hops,5,H]
+        types = path_types.long()
+        edge = F.embedding(types[..., 0], table[0])
+        for m in range(1, self.hops):
+            edge = edge + F.embedding(types[..., m], table[m])
+        hops = d.clamp(1, self.hops).unsqueeze(-1).to(edge.dtype)
+        inner = inner + edge / hops
+        t = self.virtual_distance.weight.float().reshape(1, 1, 1, h)
+        body = torch.cat([t.expand(b, n, 1, h), inner], dim=2)
+        full = torch.cat([t.expand(b, 1, n + 1, h), body], dim=1)
+        return full.permute(0, 3, 1, 2).contiguous()
+
+
+class GraphormerLayer(nn.Module):
+    """One pre-LN Graphormer layer (Ying et al. 2021, Eq. 8-9)::
+
+        x' = MHA(LN(x), bias) + x
+        x  = fc2(dropout(GELU(fc1(LN(x'))))) + x'
+
+    ``MHA``: per-head ``q k^T / sqrt(d) + bias``, keys outside
+    ``key_mask`` at -inf, dropout ``attention_dropout`` on the
+    probabilities (``ops/biased_attention.py``), then ``out_proj``.  In
+    training the attention's keep-mask is drawn before the FFN's."""
+
+    def __init__(self, dim: int, heads: int, ffn_dim: int,
+                 attention_dropout: float = 0.1, dropout: float = 0.1):
+        super().__init__()
+        if dim % heads:
+            raise ValueError(f"width {dim} is not a multiple of {heads} "
+                             "heads")
+        self.heads = heads
+        self.attention_dropout = float(attention_dropout)
+        self.dropout = float(dropout)
+        self.attn_norm = nn.LayerNorm(dim)
+        self.q_proj = TorchLinear(dim, dim)
+        self.k_proj = TorchLinear(dim, dim)
+        self.v_proj = TorchLinear(dim, dim)
+        self.out_proj = TorchLinear(dim, dim)
+        self.ffn_norm = nn.LayerNorm(dim)
+        self.fc1 = TorchLinear(dim, ffn_dim)
+        self.fc2 = TorchLinear(ffn_dim, dim)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor,
+                key_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, n, d = x.shape
+        h = self.heads
+        y = self.attn_norm(x)
+        q, k, v = (proj(y).view(b, n, h, d // h).transpose(1, 2)
+                   for proj in (self.q_proj, self.k_proj, self.v_proj))
+        keep, p = None, self.attention_dropout
+        if self.training and p > 0.0:
+            keep = keep_mask((b, h, n, n), p, generator, x.device)
+        o = biased_attention(q, k, v, bias, key_mask, keep, p)
+        x = x + self.out_proj(o.transpose(1, 2).reshape(b, n, d))
+        y = F.gelu(self.fc1(self.ffn_norm(x)))
+        if self.training and self.dropout > 0.0:
+            keep = keep_mask(y.shape, self.dropout, generator, x.device)
+            y = y * keep.to(y.dtype) / (1.0 - self.dropout)
+        return x + self.fc2(y)
+
+
 class CombinedNet(nn.Module):
     """Fusion head (reference ``train.py:149-160``): FC -> ReLU ->
     dropout(0.3) -> FC."""
@@ -616,7 +765,7 @@ class CombinedNet(nn.Module):
 
 
 _OWN_PARAMETERS = (TorchLinear, TorchConv1d, CenterTapConv1d, GlorotLinear,
-                   GCNConv, GATConv, MaskedBatchNorm)
+                   GCNConv, GATConv, MaskedBatchNorm, Table)
 
 
 def reset_parameters(model: nn.Module,

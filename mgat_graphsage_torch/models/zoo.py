@@ -4,7 +4,10 @@ ChebNet (port of ``mgat_graphsage_tpu/models/zoo.py``).
 
 Input convention: ``(nodes [B, N, F], adj [B, N, N], node_mask [B, N])``,
 plus ``fp [B, nbits]`` for the hybrid, and ``generator`` (the dropout
-masks' source in training) last.  Every model returns ``[B, 1]``
+masks' source in training) last.  The graph transformer
+(:class:`GraphormerNet`) takes ``(nodes, node_mask, degree, spd,
+path_types)`` in their place (:func:`structure_args` gathers them from a
+batch).  Every model returns ``[B, 1]``
 predictions; the hybrid its latent too.  Module names mirror the flax
 parameter tree, so ``state_dict`` keys read like its paths
 (``gat_graphsage.conv1.query_transform.weight`` for
@@ -21,6 +24,7 @@ from torch import nn
 
 from ..ops import segment_max_pool, segment_mean_pool, segment_sum_pool
 from ..parallel.distributed import batch_sum, current_batch_shard
+from ..utils import telemetry
 from .layers import (
     CNNNet,
     ChebConvRef,
@@ -29,14 +33,18 @@ from .layers import (
     GATConv,
     GCNConv,
     GINConv,
+    GraphormerLayer,
     MaskedBatchNorm,
     ModifiedGATLayer,
     SAGEConv,
+    StructuralBias,
+    Table,
     TorchLinear,
 )
 
 __all__ = ["GATGraphSAGE", "HybridModel", "GCNNet", "SAGENet", "GATNet",
-           "GATGCN", "GINConvNet", "ChebNet", "kl_loss", "build_model"]
+           "GATGCN", "GINConvNet", "ChebNet", "GraphormerNet", "kl_loss",
+           "build_model", "structure_args"]
 
 
 def kl_loss(latent: torch.Tensor,
@@ -300,6 +308,73 @@ class ChebNet(nn.Module):
         return self.out(x)
 
 
+class GraphormerNet(nn.Module):
+    """Graphormer (Ying et al., NeurIPS 2021; github.com/microsoft/
+    Graphormer): ``layers`` pre-LN :class:`GraphormerLayer` over the atoms
+    and a graph token, with the structural bias of
+    :class:`StructuralBias` shared by every layer.
+
+    Input: ``h0_i = nodes_i @ atom_encoder + in_degree[deg_i] +
+    out_degree[deg_i]`` (the port's 35 one-hot features through a bias-free
+    linear map, which is the sum of per-group embeddings), with the learned
+    ``graph_token`` first.  Readout: the graph token's last state through
+    ``head_transform -> GELU -> head_norm -> head_out`` to ``[B, 1]``.  The
+    structural bias's build is the ``graphormer.bias`` device span
+    (``utils/telemetry.py``)."""
+
+    def __init__(self, in_features: int = 35, dim: int = 768,
+                 layers: int = 12, heads: int = 32, ffn_dim: int = 768,
+                 attention_dropout: float = 0.1, dropout: float = 0.1,
+                 num_degree: int = 512, num_spatial: int = 512):
+        super().__init__()
+        self.atom_encoder = TorchLinear(in_features, dim, bias=False)
+        self.in_degree = Table(num_degree, dim)
+        self.out_degree = Table(num_degree, dim)
+        self.graph_token = Table(1, dim)
+        self.bias = StructuralBias(heads, num_spatial=num_spatial)
+        self.layers = nn.ModuleList(
+            GraphormerLayer(dim, heads, ffn_dim, attention_dropout, dropout)
+            for _ in range(layers))
+        self.head_transform = TorchLinear(dim, dim)
+        self.head_norm = nn.LayerNorm(dim)
+        self.head_out = TorchLinear(dim, 1)
+
+    def forward(self, nodes: torch.Tensor, node_mask: torch.Tensor,
+                degree: torch.Tensor, spd: torch.Tensor,
+                path_types: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        b = nodes.shape[0]
+        deg = degree.long().clamp_max(self.in_degree.weight.shape[0] - 1)
+        x = self.atom_encoder(nodes) + self.in_degree(deg) \
+            + self.out_degree(deg)
+        token = self.graph_token.weight.to(x.dtype).expand(b, 1, -1)
+        x = torch.cat([token, x], dim=1)
+        key_mask = torch.cat([node_mask.new_ones(b, 1, dtype=torch.bool),
+                              node_mask > 0], dim=1)
+        with telemetry.device_span("graphormer.bias", nodes.device):
+            bias = self.bias(spd, path_types)
+        for layer in self.layers:
+            x = layer(x, bias, key_mask, generator)
+        h = self.head_norm(F.gelu(self.head_transform(x[:, 0])))
+        return self.head_out(h)
+
+
+def structure_args(data, node_mask: torch.Tensor, sel=None,
+                   dtype: Optional[torch.dtype] = None) -> tuple:
+    """:class:`GraphormerNet`'s positional inputs (``generator`` aside)
+    from a batch dict, or from a dataset's device dict and the rows
+    ``sel``.  ``node_mask`` is the batch's, padding rows zeroed.  The
+    features and the mask are cast to ``dtype`` when given; the structure
+    stays int8."""
+    def get(k):
+        return data[k] if sel is None else data[k][sel]
+
+    args = (get("nodes"), node_mask)
+    if dtype is not None:
+        args = tuple(a.to(dtype) for a in args)
+    return args + (get("degree"), get("spd"), get("path_types"))
+
+
 def build_model(cfg) -> nn.Module:
     """``TrainConfig`` -> module, for every ``cfg.model`` of the reference
     package's registry (``mgat_graphsage_tpu/train/trainer.py::
@@ -322,6 +397,12 @@ def build_model(cfg) -> nn.Module:
             sage_features=cfg.sage_features, dropout=cfg.graph_dropout)
     if cfg.model == "gcn":
         return GCNNet(num_features_xd=feat, dropout=cfg.graph_dropout)
+    if cfg.model == "graphormer":
+        return GraphormerNet(
+            feat, dim=cfg.hidden_dim, layers=cfg.n_layers,
+            heads=cfg.n_heads, ffn_dim=cfg.ffn_dim,
+            attention_dropout=cfg.attention_dropout,
+            dropout=cfg.graph_dropout)
     baselines = {"sage": SAGENet, "gat": GATNet, "gat_gcn": GATGCN,
                  "gin": GINConvNet, "cheb": ChebNet}
     if cfg.model not in baselines:

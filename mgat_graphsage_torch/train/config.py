@@ -2,7 +2,9 @@
 ``mgat_graphsage_tpu/train/config.py``).
 
 The fields and presets are the reference package's, unchanged, so that a
-checkpoint sidecar's ``config`` dict loads here as it is.  The comments
+checkpoint sidecar's ``config`` dict loads here as it is; the port adds
+the graph transformer (``model="graphormer"``): its widths, read by no
+other model, and the preset ``graphormer_base``.  The comments
 on each knob's measured effect live in the reference package; the
 port's own measurements are in ``PERF.md``.
 """
@@ -19,7 +21,7 @@ __all__ = ["TrainConfig", "PRESETS", "get_config"]
 class TrainConfig:
     name: str = "flagship"
     model: str = "hybrid"          # hybrid | gat_graphsage | gcn | sage |
-                                   # gat | gat_gcn | gin | cheb
+                                   # gat | gat_gcn | gin | cheb | graphormer
     # graph-branch knobs (GATGraphSAGE axes)
     attention: str = "modified"    # modified | gat10
     residual: bool = True
@@ -65,10 +67,23 @@ class TrainConfig:
     remat: bool = False
     cnn_pallas_bwd: bool = False
     dataset_storage: str = "float32"
+    # the graph transformer's widths (model="graphormer"; the port's own):
+    # graph_dropout is the FFN's dropout there
+    n_layers: int = 12
+    hidden_dim: int = 768
+    ffn_dim: int = 768
+    n_heads: int = 32
+    attention_dropout: float = 0.1
 
     @property
     def is_hybrid(self) -> bool:
         return self.model == "hybrid"
+
+    @property
+    def needs_structure(self) -> bool:
+        """The model reads the graph structure (``data/dataset.py``'s
+        ``structure=True``) in place of the adjacency."""
+        return self.model == "graphormer"
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
@@ -157,6 +172,18 @@ PRESETS: Dict[str, TrainConfig] = {
     "maccs": _p(name="maccs", fingerprint="maccs"),
     "smifp": _p(name="smifp", fingerprint="smifp"),
     "bci": _p(name="bci", fingerprint="bci"),
+    # --- graph transformer (Ying et al., NeurIPS 2021, arXiv:2106.05234;
+    # github.com/microsoft/Graphormer, arch graphormer_base): 12 pre-LN
+    # layers, width 768, FFN 768, 32 heads of 24, attention and FFN dropout
+    # 0.1; MSE on standardised targets, bf16 compute with f32 master
+    # weights and f32 Adam moments, lr 2e-4 after 60,000 warm-up steps ---
+    "graphormer_base": _p(name="graphormer_base", model="graphormer",
+                          fingerprint=None, graph_dropout=0.1,
+                          compute_dtype="bfloat16",
+                          adam_moment_dtype="float32", lr=2e-4,
+                          lr_schedule="warmup_cosine", warmup_steps=60000,
+                          weight_decay=0.0, kl_lambda=0.0, batch_size=1024,
+                          eval_batch_size=1024),
 }
 
 

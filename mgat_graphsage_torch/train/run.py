@@ -129,12 +129,14 @@ def main(argv=None):
 
     train = MolecularDataset(sm, y, fit_scaler=cfg.scale_targets,
                              fingerprint=cfg.fingerprint,
-                             featurizer=cfg.featurizer)
+                             featurizer=cfg.featurizer,
+                             structure=cfg.needs_structure)
     val = MolecularDataset(vs, vy, scaler=train.scaler,
                            fingerprint=cfg.fingerprint,
                            featurizer=cfg.featurizer,
                            max_nodes=train.max_nodes,
-                           max_edges=train.max_edges)
+                           max_edges=train.max_edges,
+                           structure=cfg.needs_structure)
 
     ckpt_dir = os.path.join(args.ckpt_dir, cfg.name)
     trainer = Trainer(cfg, train, val, ckpt_dir=ckpt_dir,

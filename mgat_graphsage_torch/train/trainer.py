@@ -11,7 +11,10 @@ one XLA program).
   batch's ``sample_mask``, so the rows padding the final batch are inert,
   in the batch norms' statistics too;
 - every model of ``models/zoo.py`` trains here: the hybrid, the
-  ``gat_graphsage`` ablations and the six baselines.  GIN's batch norms
+  ``gat_graphsage`` ablations, the six baselines and the graph
+  transformer, which reads the datasets' structure (``degree``, ``spd``,
+  ``path_types``; ``MolecularDataset(structure=True)``) in place of the
+  adjacency.  GIN's batch norms
   update their running statistics in the train step (the reference's
   ``batch_stats``) and :meth:`Trainer.evaluate` uses them; they are
   buffers, so checkpoints and the best state carry them;
@@ -90,7 +93,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..data import MolecularDataset
-from ..data.packed import gather_batch, pack_dataset, to_device
+from ..data.packed import STRUCTURE, gather_batch, pack_dataset, to_device
 from ..device import resolve_device
 from ..models import (
     adam_state_from_jax,
@@ -98,6 +101,7 @@ from ..models import (
     kl_loss,
     reset_parameters,
 )
+from ..models.zoo import structure_args
 from ..models.layers import frozen_running_stats, matmul_precision
 from ..ops import dense_adjacency
 from ..parallel import (
@@ -156,6 +160,11 @@ class Trainer:
                  ckpt_dir: Optional[str] = None,
                  log_path: Optional[str] = None, device=None):
         check_ported(cfg)
+        if cfg.needs_structure and not all(
+                d is None or getattr(d, "spd", None) is not None
+                for d in (train_ds, val_ds)):
+            raise ValueError(f"model {cfg.model!r} reads the graph structure: "
+                             "build its datasets with structure=True")
         self.mesh = mesh if mesh is not None else \
             (make_mesh() if use_mesh else None)
         if cfg.cnn_pallas_bwd and self._model_ways > 1:
@@ -258,7 +267,9 @@ class Trainer:
         to the same bits."""
         if id(ds) not in self._dev_cache:
             host = pack_dataset(ds) if self.cfg.dataset_storage == "compact" \
-                else {k: getattr(ds, k) for k in _FIELDS}
+                else {k: getattr(ds, k) for k in _FIELDS + (
+                    STRUCTURE if getattr(ds, "spd", None) is not None
+                    else ())}
             self._dev_cache[id(ds)] = to_device(host, self.device)
         return self._dev_cache[id(ds)]
 
@@ -302,15 +313,19 @@ class Trainer:
         as bf16 (the adjacency is built in f32 and cast after, as in the
         reference) and the model runs on ``params``, the working copy,
         when given."""
-        adj = dense_adjacency(batch["edges"], batch["edge_mask"],
-                              batch["nodes"].shape[1])
         node_mask = batch["node_mask"] * batch["sample_mask"].unsqueeze(1)
-        nodes, fp = batch["nodes"], batch["fp"]
-        if self._cdt is not None:
-            nodes, adj, node_mask, fp = (t.to(self._cdt) for t in
-                                         (nodes, adj, node_mask, fp))
-        args = (nodes, adj, node_mask, fp, generator) if self.cfg.is_hybrid \
-            else (nodes, adj, node_mask, generator)
+        if self.cfg.needs_structure:
+            args = structure_args(batch, node_mask, dtype=self._cdt) \
+                + (generator,)
+        else:
+            adj = dense_adjacency(batch["edges"], batch["edge_mask"],
+                                  batch["nodes"].shape[1])
+            nodes, fp = batch["nodes"], batch["fp"]
+            if self._cdt is not None:
+                nodes, adj, node_mask, fp = (t.to(self._cdt) for t in
+                                             (nodes, adj, node_mask, fp))
+            args = (nodes, adj, node_mask, fp, generator) \
+                if self.cfg.is_hybrid else (nodes, adj, node_mask, generator)
         out = model(*args) if params is None \
             else functional_call(model, params, args)
         pred, latent = out if self.cfg.is_hybrid else (out, None)

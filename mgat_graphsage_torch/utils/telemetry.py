@@ -8,6 +8,16 @@
   none.  It never synchronises the device: its seconds are what the host
   spent inside the block (launching, or waiting where the block itself
   waits, as a copy to the host does);
+- ``device_span(name, device)``: a span on the device's clock, for a
+  region of work on a CUDA device: a pair of CUDA events recorded on the
+  current stream around the block, kept on the open unit and resolved
+  into its ``device`` seconds when the unit closes (after the unit's own
+  host sync: it adds none; a pair whose end has not completed then is
+  counted in ``device_unresolved`` instead).  The seconds cover whatever
+  the stream did between the two events, host gaps included.  The unit
+  is the calling thread's open one, else the newest open in the process:
+  autograd runs a CUDA backward on a thread of its own, which opens no
+  unit.  On any other device it records nothing;
 - ``unit(kind, **counts)``: one record per unit of work
   (``train_epoch``, ``evaluate``, ``predict_call``) holding its spans'
   seconds, its counts, its wall seconds and ``profiled`` (a profiler ran
@@ -17,12 +27,13 @@
 - ``snapshot()``: the process totals of every span and unit kind, with
   the launch counters the kernel wrappers keep (``launches``,
   ``launches_bf16``) and the native featuriser's counters (``calls``,
-  ``parallel_calls``, ``molecules``, ``workers``), read from where they
-  are kept.
+  ``parallel_calls``, ``molecules``, ``workers``), the graph
+  transformer's attention calls by path (``attention``) and the device
+  spans' totals (``device_spans``), read from where they are kept.
 
 Request threads and the serving dispatch thread use it at once: the totals
 and the deques sit under one lock.  ``SPANS`` names every span the
-program opens.
+program opens, device spans included.
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["SPANS", "MAX_RECORDS", "Record", "Registry", "span",
-           "unit", "records", "unprofiled_tail", "snapshot"]
+           "device_span", "unit", "records", "unprofiled_tail", "snapshot"]
 
 SPANS = (
     "train.forward",        # Trainer.train_step: forward and loss terms
@@ -51,6 +62,9 @@ SPANS = (
     "predict.upload",       # predict_dataset: the dataset to the device
     "predict.readback",     # predict_dataset: the predictions to the host
     "serve.queue_wait",     # serve.py: enqueue to its group's dispatch
+    # device spans (device_span), models/zoo.py::GraphormerNet
+    "graphormer.bias",      # the structural attention bias's build
+    "graphormer.attention",  # each layer's attention, forward and backward
 )
 MAX_RECORDS = 4096
 
@@ -64,6 +78,11 @@ class Record:
     spans: Dict[str, float] = dataclasses.field(default_factory=dict)
     wall_s: float = 0.0
     profiled: bool = False
+    # device spans: seconds on the device's clock by name, and the pairs of
+    # events that had not completed when the unit closed
+    device: Dict[str, float] = dataclasses.field(default_factory=dict)
+    device_unresolved: int = 0
+    pending: List = dataclasses.field(default_factory=list, repr=False)
 
 
 class _Span:
@@ -95,6 +114,41 @@ class _Span:
         self._reg._add_span(self.name, ns)
 
 
+class _DeviceSpan:
+    __slots__ = ("_reg", "name", "_on", "_rec", "_start", "_rf")
+
+    def __init__(self, reg: "Registry", name: str, on: bool):
+        self._reg = reg
+        self.name = name
+        self._on = on
+        self._rec = self._start = self._rf = None
+
+    def __enter__(self) -> "_DeviceSpan":
+        if not self._on:
+            return self
+        self._rec = self._reg._open_unit()
+        if self._rec is None:
+            return self
+        if _autograd_profiler._is_profiler_enabled:
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        self._start = torch.cuda.Event(enable_timing=True)
+        self._start.record()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._start is None:
+            return
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
+        with self._reg._lock:
+            self._rec.pending.append((self.name, self._start, end))
+        self._start = None
+
+
 class _Unit:
     __slots__ = ("_reg", "record", "_prev", "_t0")
 
@@ -107,6 +161,8 @@ class _Unit:
         self._prev = getattr(local, "unit", None)
         local.unit = self.record
         self.record.profiled = _autograd_profiler._is_profiler_enabled
+        with self._reg._lock:
+            self._reg._open.append(self.record)
         self._t0 = time.perf_counter_ns()
         return self.record
 
@@ -131,12 +187,26 @@ class Registry:
         self._spans: Dict[str, List[int]] = {}     # name -> [ns, count]
         self._units: Dict[str, List[int]] = {}     # kind -> [ns, count]
         self._records: Dict[str, Deque[Record]] = {}
+        self._device: Dict[str, List[float]] = {}  # name -> [s, count]
+        self._open: List[Record] = []              # open units, any thread
 
     def span(self, name: str) -> _Span:
         return _Span(self, name)
 
     def unit(self, kind: str, **counts: int) -> _Unit:
         return _Unit(self, kind, counts)
+
+    def device_span(self, name: str, device) -> _DeviceSpan:
+        """A span on the device's clock (the module docstring); ``device``
+        is where the block's work runs, and only a CUDA one records."""
+        return _DeviceSpan(self, name, torch.device(device).type == "cuda")
+
+    def _open_unit(self) -> Optional[Record]:
+        rec = getattr(self._local, "unit", None)
+        if rec is not None:
+            return rec
+        with self._lock:
+            return self._open[-1] if self._open else None
 
     def _add_span(self, name: str, ns: int) -> None:
         rec: Optional[Record] = getattr(self._local, "unit", None)
@@ -151,6 +221,22 @@ class Registry:
                 tot[1] += 1
 
     def _close(self, rec: Record, ns: int) -> None:
+        with self._lock:
+            for i in range(len(self._open) - 1, -1, -1):
+                if self._open[i] is rec:
+                    del self._open[i]
+                    break
+            pending, rec.pending = rec.pending, []
+        for name, start, end in pending:
+            if not end.query():
+                rec.device_unresolved += 1
+                continue
+            sec = start.elapsed_time(end) * 1e-3
+            rec.device[name] = rec.device.get(name, 0.0) + sec
+            with self._lock:
+                tot = self._device.setdefault(name, [0.0, 0])
+                tot[0] += sec
+                tot[1] += 1
         with self._lock:
             q = self._records.get(rec.kind)
             if q is None:
@@ -178,16 +264,22 @@ class Registry:
     def snapshot(self) -> Dict:
         """``{"spans": {name: {"seconds", "count"}}, "units": {kind:
         {"seconds", "count"}}, "launches": {wrapper: count}, "featurize":
-        {counter: count}}``: the process totals, JSON-ready."""
+        {counter: count}, "attention": {path: calls}, "device_spans":
+        {name: {"seconds", "count"}}}``: the process totals, JSON-ready."""
         with self._lock:
             spans = {k: {"seconds": v[0] * 1e-9, "count": v[1]}
                      for k, v in self._spans.items()}
             units = {k: {"seconds": v[0] * 1e-9, "count": v[1]}
                      for k, v in self._units.items()}
+            device = {k: {"seconds": v[0], "count": v[1]}
+                      for k, v in self._device.items()}
         from ..chem import native
+        from ..ops import biased_attention
 
         return {"spans": spans, "units": units, "launches": _launches(),
-                "featurize": native.counts()}
+                "featurize": native.counts(),
+                "attention": biased_attention.counts(),
+                "device_spans": device}
 
 
 def _launches() -> Dict[str, int]:
@@ -210,6 +302,7 @@ def _launches() -> Dict[str, int]:
 
 _REGISTRY = Registry()
 span = _REGISTRY.span
+device_span = _REGISTRY.device_span
 unit = _REGISTRY.unit
 records = _REGISTRY.records
 unprofiled_tail = _REGISTRY.unprofiled_tail

@@ -28,7 +28,7 @@ from mgat_graphsage_tpu.train.trainer import build_model as jbuild
 from mgat_graphsage_torch.data import TEST_CSV, load_csv
 from mgat_graphsage_torch.eval import predict as tpredict
 from mgat_graphsage_torch.models import params_from_jax
-from mgat_graphsage_torch.train import get_config, load_checkpoint
+from mgat_graphsage_torch.train import TrainConfig, get_config, load_checkpoint
 from mgat_graphsage_torch.train import save_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -71,8 +71,13 @@ def test_port_checkpoint_sidecar_keeps_reference_schema(ckpts):
     sd, step, meta = load_checkpoint(tpath)
     ref = json.load(open(jpath + ".json"))
     assert meta == ref and meta["light"] is True and step == 0
-    assert meta["config"] == dataclasses.asdict(
-        get_config("flagship", cnn_fc_hidden=16))
+    # the reference's fields, each at the preset's value; the port's own
+    # fields (the graph transformer's widths) are absent and take their
+    # defaults when the sidecar loads
+    port = dataclasses.asdict(get_config("flagship", cnn_fc_hidden=16))
+    assert meta["config"] == {k: port[k] for k in meta["config"]}
+    assert TrainConfig(**meta["config"]) == get_config("flagship",
+                                                       cnn_fc_hidden=16)
     assert sd["cnn.fc1.weight"].shape == (16, 1024 * 128)
 
 

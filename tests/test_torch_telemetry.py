@@ -251,10 +251,97 @@ def test_spans_names_every_span_the_program_opens():
         for f in files:
             if f.endswith(".py"):
                 with open(os.path.join(root, f)) as fh:
-                    opened |= set(re.findall(r'telemetry\.span\("([^"]+)"\)',
-                                             fh.read()))
+                    opened |= set(re.findall(
+                        r'telemetry\.(?:device_)?span\("([^"]+)"[,)]',
+                        fh.read()))
     assert opened == set(telemetry.SPANS)
-    assert len(telemetry.SPANS) == len(set(telemetry.SPANS)) == 11
+    assert len(telemetry.SPANS) == len(set(telemetry.SPANS)) == 13
+    assert {"graphormer.bias", "graphormer.attention"} <= set(telemetry.SPANS)
+
+
+class _FakeEvent:
+    """A CUDA event's interface on the host's clock: ``record`` notes the
+    time; ``query`` is True unless the test says the device lags."""
+    lagging = False
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self):
+        self.t = len(_FakeEvent.log)
+        _FakeEvent.log.append(self)
+
+    def query(self):
+        return not _FakeEvent.lagging
+
+    def elapsed_time(self, end):
+        return 1000.0 * (end.t - self.t)     # ms: one second per record
+
+
+def test_device_span_records_nothing_on_the_cpu():
+    """On the CPU a device span makes no event and leaves the unit's
+    device seconds empty; the host spans are as before."""
+    reg = telemetry.Registry()
+    with reg.unit("epoch") as rec:
+        with reg.device_span("graphormer.attention", "cpu"), \
+                reg.span("train.forward"):
+            pass
+    assert rec.device == {} and rec.pending == [] \
+        and rec.device_unresolved == 0
+    assert set(rec.spans) == {"train.forward"}
+    assert reg.snapshot()["device_spans"] == {}
+
+
+def test_device_span_attaches_to_the_process_unit_from_another_thread(
+        monkeypatch):
+    """A device span opened on a thread with no unit of its own (as
+    autograd's backward thread is) lands on the unit open in the process,
+    resolved when that unit closes; a pair that has not completed by then
+    is counted, not waited for."""
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    _FakeEvent.log = []
+    reg = telemetry.Registry()
+    with reg.unit("train_epoch") as rec:
+        with reg.device_span("graphormer.bias", "cuda"):
+            pass
+        t = threading.Thread(target=lambda: [
+            reg.device_span("graphormer.attention", "cuda").__enter__()
+            .__exit__(None, None, None) for _ in range(2)])
+        t.start()
+        t.join()
+        assert len(rec.pending) == 3 and rec.device == {}
+    assert rec.device == {"graphormer.bias": 1.0,
+                          "graphormer.attention": 2.0}
+    assert rec.pending == [] and rec.device_unresolved == 0
+    assert reg.snapshot()["device_spans"]["graphormer.attention"] == {
+        "seconds": 2.0, "count": 2}
+    # no unit open anywhere: nothing is recorded
+    with reg.device_span("graphormer.bias", "cuda"):
+        pass
+    assert len(_FakeEvent.log) == 6
+    _FakeEvent.lagging = True
+    try:
+        with reg.unit("evaluate") as late:
+            with reg.device_span("graphormer.bias", "cuda"):
+                pass
+    finally:
+        _FakeEvent.lagging = False
+    assert late.device == {} and late.device_unresolved == 1
+
+
+def test_snapshot_counts_the_attention_calls():
+    """``/health``'s telemetry counts the graph transformer's attention
+    calls by path."""
+    from mgat_graphsage_torch.ops.biased_attention import biased_attention
+
+    before = telemetry.snapshot()["attention"]
+    x = torch.zeros(1, 1, 2, 4)
+    mask = torch.ones(1, 2, dtype=torch.bool)
+    biased_attention(x, x, x, torch.zeros(1, 1, 2, 2), mask, sdpa=False)
+    biased_attention(x, x, x, torch.zeros(1, 1, 2, 2), mask, sdpa=True)
+    after = telemetry.snapshot()["attention"]
+    assert {k: after[k] - before[k] for k in after} == {"explicit": 1,
+                                                        "sdpa": 1}
 
 
 def test_snapshot_reads_the_wrappers_launch_counters(monkeypatch):
