@@ -1,10 +1,10 @@
-"""Compact device-resident dataset storage (port of
-``mgat_graphsage_tpu/data/packed.py``).
+"""Device-resident datasets and their batches, plain or in compact
+storage (port of ``mgat_graphsage_tpu/data/packed.py``).
 
-The trainer keeps the whole featurised dataset on the device and gathers
-each batch there (``train/trainer.py``).  ``dataset_storage="compact"``
-packs it into the smallest exact representation and unpacks each batch
-on the device:
+The trainer and the predictor keep the featurised dataset on the device
+and gather each batch there (:func:`batches`).  ``dataset_storage=
+"compact"`` packs it into the smallest exact representation and unpacks
+each batch on the device:
 
 ====================  =========================  =====================
 stream                plain                      compact
@@ -34,13 +34,14 @@ The graph transformer's structure (``degree``, ``spd``, ``path_types``;
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
 __all__ = ["pack_dataset", "is_packed", "to_device", "gather_batch",
-           "packed_nbytes", "plain_nbytes", "STRUCTURE"]
+           "device_dataset", "batch_indices", "batches", "packed_nbytes",
+           "plain_nbytes", "STRUCTURE"]
 
 # the graph transformer's int8 streams, carried as they are
 STRUCTURE = ("degree", "spd", "path_types")
@@ -138,6 +139,42 @@ def gather_batch(data: Dict[str, torch.Tensor], idx: torch.Tensor,
            "y": data["y"][idx], "y_orig": data["y_orig"][idx]}
     out.update({k: data[k][idx] for k in STRUCTURE if k in data})
     return out
+
+
+def device_dataset(ds, fields: Sequence[str], device,
+                   compact: bool = False) -> Dict[str, torch.Tensor]:
+    """``ds``'s ``fields`` on ``device`` as they are, or with ``compact``
+    the whole dataset packed (:func:`pack_dataset`)."""
+    host = pack_dataset(ds) if compact else {k: getattr(ds, k)
+                                             for k in fields}
+    return to_device(host, device)
+
+
+def batch_indices(n: int, batch_size: int,
+                  rng: Optional[np.random.Generator] = None
+                  ) -> Dict[str, np.ndarray]:
+    """``idx`` and ``sample_mask``, ``[n_batches, batch_size]``: one pass
+    over ``n`` rows, in order or permuted by ``rng``, the final partial
+    batch padded with masked copies of row 0."""
+    idx = np.arange(n) if rng is None else rng.permutation(n)
+    n_batches = (n + batch_size - 1) // batch_size
+    pad = n_batches * batch_size - n
+    mask = np.ones(n_batches * batch_size, np.float32)
+    if pad:
+        idx = np.concatenate([idx, np.zeros(pad, idx.dtype)])
+        mask[-pad:] = 0.0
+    return {"idx": idx.reshape(n_batches, batch_size).astype(np.int64),
+            "sample_mask": mask.reshape(n_batches, batch_size)}
+
+
+def batches(data: Dict[str, torch.Tensor], index: Dict[str, torch.Tensor],
+            fp_dim: int) -> Iterator[Dict[str, torch.Tensor]]:
+    """The batches of ``data`` that the rows of ``index``
+    (:func:`batch_indices`, on the device) select, with their masks."""
+    for i in range(index["idx"].shape[0]):
+        batch = gather_batch(data, index["idx"][i], fp_dim)
+        batch["sample_mask"] = index["sample_mask"][i]
+        yield batch
 
 
 def _nbytes(d: Dict[str, np.ndarray]) -> int:

@@ -4,16 +4,18 @@ on PyTorch and CUDA).
 A checkpoint of the port (``train/checkpoint.py``) plus SMILES in,
 de-normalised pChEMBL out.  The SMILES are featurised on the host by the
 native library (``chem/native.py``, through ``MolecularDataset``), as in
-the reference package.  The dataset goes to the device once; batches
-of ``batch_size`` run in a Python loop under ``torch.inference_mode()``,
-each through the adjacency kernel, the graph branch (with the attention
-kernel), the CNN branch and the head.  Results come back in one copy.
-Every model of ``models/zoo.py`` serves this way: a baseline or a
-``gat_graphsage`` checkpoint has no fingerprint branch, so none is
-computed, GIN's batch norms serve with their running statistics (the
-model is in eval mode), and the graph transformer reads the molecules'
-structure, featurised with them, in place of the adjacency (its attention
-through ``scaled_dot_product_attention`` on CUDA).
+the reference package.  The fields the model reads go to the device
+once; batches of ``batch_size``, built as the trainer builds them
+(``data/packed.py``, ``models/zoo.py::model_inputs``), run in a Python
+loop under ``torch.inference_mode()``, each through the adjacency
+kernel, the graph branch (with the attention kernel), the CNN branch and
+the head.  Results come back in one copy.  Every model of
+``models/zoo.py`` serves this way: a baseline or a ``gat_graphsage``
+checkpoint has no fingerprint branch, so none is computed, GIN's batch
+norms serve with their running statistics (the model is in eval mode),
+and the graph transformer reads the molecules' structure in place of the
+adjacency (its attention through the biased-attention kernel in bf16 on
+CUDA, through the explicit path in f32 or on the CPU).
 
 ``infer_dtype="bfloat16"`` serves in bf16 (reference ``make_scan_predict``):
 the parameters are cast to bf16 once (``Predictor``; the batch norms'
@@ -43,10 +45,10 @@ import numpy as np
 import torch
 
 from ..data import MolecularDataset, StandardScaler, load_csv
+from ..data.packed import batch_indices, batches, device_dataset, to_device
 from ..device import resolve_device
 from ..models import build_model, matmul_precision
-from ..models.zoo import structure_args
-from ..ops import dense_adjacency
+from ..models.zoo import model_fields, model_inputs, model_outputs
 from ..train.checkpoint import load_checkpoint
 from ..train.config import TrainConfig
 from ..utils import telemetry
@@ -95,18 +97,20 @@ def predict_dataset(model, cfg: TrainConfig, scaler: StandardScaler,
     model's device.
 
     Padded rows of the last batch repeat molecule 0 with their node mask
-    zeroed, so they are inert; their outputs are dropped.  The batch count
-    is not rounded up to a power of two as the reference package's
-    ``bucket=True`` does to share one compiled program between request
-    sizes: eager PyTorch has no program to share, and the extra inert
-    batches only cost time (``PERF.md``).  The batches run at the train step's
+    zeroed, so they are inert; their outputs are dropped.  The batches are
+    ``Trainer.evaluate``'s: the same predictions, bit for bit, at
+    ``eval_batch_size == batch_size``.  The batch count is not rounded up
+    to a power of two as the reference package's ``bucket=True`` does to
+    share one compiled program between request sizes: eager PyTorch has
+    no program to share, and the extra inert batches only cost time
+    (``PERF.md``).  The batches run at the train step's
     numerics for ``cfg.matmul_precision`` and the compute dtype
     ``infer_dtype`` (``models/layers.py::matmul_precision``).
     ``"bfloat16"`` takes a model already cast to bf16, as ``Predictor``
-    casts it.  The spans ``predict.upload`` (the dataset and its index
-    arrays to the device) and ``predict.readback`` (the predictions to the
-    host, which waits there for the device) time the host's part of each
-    (``utils/telemetry.py``).
+    casts it.  The spans ``predict.upload`` (the fields the model reads
+    and the batches' index arrays to the device) and ``predict.readback``
+    (the predictions to the host, which waits there for the device) time
+    the host's part of each (``utils/telemetry.py``).
     """
     compute = _check_infer_dtype(infer_dtype)
     cdt = torch.bfloat16 if compute == "bfloat16" else None
@@ -115,47 +119,20 @@ def predict_dataset(model, cfg: TrainConfig, scaler: StandardScaler,
         raise ValueError("infer_dtype='bfloat16' takes a model cast to "
                          f"bf16, not one in {first.dtype}")
     dev = first.device
-    n = len(ds)
-    n_batches = (n + batch_size - 1) // batch_size
-    rows = n_batches * batch_size
-    idx = np.zeros(rows, np.int64)
-    idx[:n] = np.arange(n)
-    smask = np.zeros(rows, np.float32)
-    smask[:n] = 1.0
-
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    keys = ("nodes", "node_mask", "degree", "spd", "path_types") \
-        if cfg.needs_structure else \
-        ("nodes", "edges", "node_mask", "edge_mask", "fp")
     with telemetry.span("predict.upload"):
-        data = {k: up(getattr(ds, k)) for k in keys}
-        idx_d = up(idx).view(n_batches, batch_size)
-        smask_d = up(smask).view(n_batches, batch_size)
-    num_nodes = data["nodes"].shape[1]
+        data = device_dataset(ds, model_fields(cfg), dev)
+        index = to_device(batch_indices(len(ds), batch_size), dev)
     mean, scale = float(scaler.mean_), float(scaler.scale_)
     preds = []
     with torch.inference_mode(), matmul_precision(cfg.matmul_precision,
                                                   compute):
-        for i in range(n_batches):
-            sel = idx_d[i]
-            node_mask = data["node_mask"][sel] * smask_d[i].unsqueeze(1)
-            if cfg.needs_structure:
-                args = structure_args(data, node_mask, sel, cdt)
-            else:
-                adj = dense_adjacency(data["edges"][sel],
-                                      data["edge_mask"][sel], num_nodes)
-                args = (data["nodes"][sel], adj, node_mask) + (
-                    (data["fp"][sel],) if cfg.is_hybrid else ())
-                if cdt is not None:
-                    args = tuple(a.to(cdt) for a in args)
-            out = model(*args)
-            pred = out[0] if cfg.is_hybrid else out
-            preds.append(pred.reshape(-1).float() * scale + mean)
+        for batch in batches(data, index, ds.fp.shape[1]):
+            pred, _ = model_outputs(cfg, model(*model_inputs(cfg, batch, cdt)),
+                                    latent=False)
+            preds.append(pred.reshape(-1) * scale + mean)
         with telemetry.span("predict.readback"):
             out = torch.cat(preds).cpu().numpy()
-    return out[:n]
+    return out[:len(ds)]
 
 
 def predict_csv(ckpt_path: str, csv_path: str,

@@ -6,9 +6,10 @@ Input convention: ``(nodes [B, N, F], adj [B, N, N], node_mask [B, N])``,
 plus ``fp [B, nbits]`` for the hybrid, and ``generator`` (the dropout
 masks' source in training) last.  The graph transformer
 (:class:`GraphormerNet`) takes ``(nodes, node_mask, degree, spd,
-path_types)`` in their place (:func:`structure_args` gathers them from a
-batch).  Every model returns ``[B, 1]``
-predictions; the hybrid its latent too.  Module names mirror the flax
+path_types)`` in their place.  Every model returns ``[B, 1]``
+predictions; the hybrid its latent too.  :func:`model_fields`,
+:func:`model_inputs` and :func:`model_outputs` hold this convention for
+the trainer and the predictor alike.  Module names mirror the flax
 parameter tree, so ``state_dict`` keys read like its paths
 (``gat_graphsage.conv1.query_transform.weight`` for
 ``gat_graphsage/conv1/query_transform/kernel``).
@@ -22,7 +23,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import segment_max_pool, segment_mean_pool, segment_sum_pool
+from ..ops import (
+    dense_adjacency,
+    segment_max_pool,
+    segment_mean_pool,
+    segment_sum_pool,
+)
 from ..parallel.distributed import batch_sum, current_batch_shard
 from ..utils import telemetry
 from .layers import (
@@ -44,7 +50,7 @@ from .layers import (
 
 __all__ = ["GATGraphSAGE", "HybridModel", "GCNNet", "SAGENet", "GATNet",
            "GATGCN", "GINConvNet", "ChebNet", "GraphormerNet", "kl_loss",
-           "build_model", "structure_args"]
+           "build_model", "model_fields", "model_inputs", "model_outputs"]
 
 
 def kl_loss(latent: torch.Tensor,
@@ -359,20 +365,40 @@ class GraphormerNet(nn.Module):
         return self.head_out(h)
 
 
-def structure_args(data, node_mask: torch.Tensor, sel=None,
-                   dtype: Optional[torch.dtype] = None) -> tuple:
-    """:class:`GraphormerNet`'s positional inputs (``generator`` aside)
-    from a batch dict, or from a dataset's device dict and the rows
-    ``sel``.  ``node_mask`` is the batch's, padding rows zeroed.  The
-    features and the mask are cast to ``dtype`` when given; the structure
-    stays int8."""
-    def get(k):
-        return data[k] if sel is None else data[k][sel]
+def model_fields(cfg) -> Tuple[str, ...]:
+    """The dataset fields that ``cfg``'s model reads."""
+    if cfg.needs_structure:
+        return ("nodes", "node_mask", "degree", "spd", "path_types")
+    return ("nodes", "edges", "node_mask", "edge_mask") + (
+        ("fp",) if cfg.is_hybrid else ())
 
-    args = (get("nodes"), node_mask)
+
+def model_inputs(cfg, batch, dtype: Optional[torch.dtype] = None) -> tuple:
+    """``cfg``'s model's positional inputs (``generator`` aside) from a
+    batch with its ``sample_mask``, padding rows masked out.  The float
+    inputs are cast to ``dtype`` when given, the adjacency after its f32
+    build; the structure stays int8."""
+    node_mask = batch["node_mask"] * batch["sample_mask"].unsqueeze(1)
+    if cfg.needs_structure:
+        args = (batch["nodes"], node_mask)
+        rest = (batch["degree"], batch["spd"], batch["path_types"])
+    else:
+        adj = dense_adjacency(batch["edges"], batch["edge_mask"],
+                              batch["nodes"].shape[1])
+        args = (batch["nodes"], adj, node_mask) + (
+            (batch["fp"],) if cfg.is_hybrid else ())
+        rest = ()
     if dtype is not None:
         args = tuple(a.to(dtype) for a in args)
-    return args + (get("degree"), get("spd"), get("path_types"))
+    return args + rest
+
+
+def model_outputs(cfg, out, latent: bool = True
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(pred, latent)`` of a call of ``cfg``'s model, in f32; the latent
+    is the hybrid's (for the KL term), else or with ``latent=False`` None."""
+    pred, lat = out if cfg.is_hybrid else (out, None)
+    return pred.float(), lat.float() if latent and lat is not None else None
 
 
 def build_model(cfg) -> nn.Module:

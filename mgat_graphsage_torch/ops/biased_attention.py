@@ -31,11 +31,13 @@ are the kernel's own algorithm in plain torch (what the kernel rounds to
 bf16, they round too), for the tests and ``chip_smoke.py``; the kernel
 wrappers return them for CPU tensors.  :func:`biased_attention_sdpa`
 (``scaled_dot_product_attention`` with the float bias as its mask) is no
-path of the port: ``chip_smoke.py`` times it as the library's yardstick.
+path of the port: ``chip_smoke.py`` times it as the library's yardstick
+and a CPU test holds the explicit path against it; it is not counted.
 
 Each forward and backward is a ``graphormer.attention`` device span
-(``utils/telemetry.py``); the calls are counted by path (:func:`counts`,
-``/health``'s telemetry), the kernels' launches on their wrappers.
+(``utils/telemetry.py``); the calls of the two paths are counted
+(:func:`counts`, ``/health``'s telemetry), the kernels' launches on their
+wrappers.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ MAX_N = 128                 # keys (and rows) of a block: csrc KT <= 8
 HEAD_DIMS = (8, 16, 24, 32)  # csrc D8 = d / 8 in 1..4
 
 _count_lock = threading.Lock()
-_COUNTS = {"explicit": 0, "sdpa": 0, "kernel": 0}
+_COUNTS = {"explicit": 0, "kernel": 0}
 
 
 def _count(path: str) -> None:
@@ -68,8 +70,7 @@ def _count(path: str) -> None:
 
 
 def counts() -> Dict[str, int]:
-    """The process's attention calls by path (``explicit``, ``sdpa``,
-    ``kernel``)."""
+    """The process's attention calls by path (``explicit``, ``kernel``)."""
     with _count_lock:
         return dict(_COUNTS)
 
@@ -350,8 +351,8 @@ class BiasedAttentionKernel(torch.autograd.Function):
 def biased_attention_sdpa(q, k, v, bias, key_mask, scale: float):
     """``scaled_dot_product_attention`` with the masked bias as its float
     ``attn_mask``: no dropout, no gradient of the bias.  The library's
-    yardstick (``chip_smoke.py``) and a CPU cross-check, not a path."""
-    _count("sdpa")
+    yardstick (``chip_smoke.py``) and a CPU cross-check, not a path, and
+    not counted."""
     mask = bias.masked_fill(~key_mask[:, None, None, :], float("-inf"))
     with telemetry.device_span("graphormer.attention", q.device):
         return F.scaled_dot_product_attention(q, k, v,

@@ -2,28 +2,25 @@
 on PyTorch and CUDA).
 
 Same semantics as the reference's ``Trainer``, in PyTorch idiom: the
-dataset goes to the device once, and each epoch is a Python loop of train
-steps over batches gathered on the device (the reference scans them in
-one XLA program).
+fields the model reads go to the device once, and each epoch is a Python
+loop of train steps over batches gathered there (``data/packed.py``; the
+reference scans them in one XLA program), each turned into the model's
+call by ``models/zoo.py::model_inputs``, as ``eval/predict.py`` serves.
 
 - loss = masked MSE + ``kl_lambda`` * KL over the hybrid's latent
-  (reference ``train.py:244-246``); ``node_mask`` is multiplied by the
-  batch's ``sample_mask``, so the rows padding the final batch are inert,
-  in the batch norms' statistics too;
-- every model of ``models/zoo.py`` trains here: the hybrid, the
-  ``gat_graphsage`` ablations, the six baselines and the graph
-  transformer, which reads the datasets' structure (``degree``, ``spd``,
-  ``path_types``; ``MolecularDataset(structure=True)``) in place of the
-  adjacency.  GIN's batch norms
+  (reference ``train.py:244-246``); the rows padding the final batch are
+  masked out of ``node_mask``, so they are inert, in the batch norms'
+  statistics too;
+- every model of ``models/zoo.py`` trains here, the graph transformer on
+  datasets built with ``structure=True``.  GIN's batch norms
   update their running statistics in the train step (the reference's
   ``batch_stats``) and :meth:`Trainer.evaluate` uses them; they are
   buffers, so checkpoints and the best state carry them;
 - torch Adam with L2 coupled into the gradient (``train/optim.py``), the
   constant or warmup+cosine lr on the 1-based step count;
-- ``dataset_storage="compact"`` keeps the dataset on the device packed
-  (int8 nodes, uint8 edges, masks as counts, bit-packed fingerprints;
-  ``data/packed.py``) and unpacks each batch there to the same bits, so
-  the run is the float32 run's, bit for bit, in ~5x less device memory;
+- ``dataset_storage="compact"`` keeps the dataset packed on the device
+  (``data/packed.py``), in ~5x less memory, and the run is the float32
+  run's, bit for bit;
 - the epoch permutation comes from ``np.random.default_rng(seed +
   epoch)`` and the final batch is padded with masked copies of row 0, so
   the batch order is the reference's, bit for bit;
@@ -93,7 +90,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..data import MolecularDataset
-from ..data.packed import STRUCTURE, gather_batch, pack_dataset, to_device
+from ..data.packed import batch_indices, batches, device_dataset, to_device
 from ..device import resolve_device
 from ..models import (
     adam_state_from_jax,
@@ -101,9 +98,8 @@ from ..models import (
     kl_loss,
     reset_parameters,
 )
-from ..models.zoo import structure_args
 from ..models.layers import frozen_running_stats, matmul_precision
-from ..ops import dense_adjacency
+from ..models.zoo import model_fields, model_inputs, model_outputs
 from ..parallel import (
     all_reduce_gradients,
     batch_shard,
@@ -130,8 +126,6 @@ from .optim import (
 
 __all__ = ["TrainState", "Trainer"]
 
-_FIELDS = ("nodes", "edges", "node_mask", "edge_mask", "fp", "y", "y_orig")
-
 
 @dataclasses.dataclass
 class TrainState:
@@ -152,7 +146,8 @@ def _masked_mse(pred: torch.Tensor, target: torch.Tensor,
 
 
 class Trainer:
-    """End-to-end training loop for the presets the port can build."""
+    """End-to-end training loop for the presets the port can build; its
+    batches and model inputs are ``eval/predict.py``'s (module docstring)."""
 
     def __init__(self, cfg: TrainConfig, train_ds: MolecularDataset,
                  val_ds: Optional[MolecularDataset] = None,
@@ -261,50 +256,26 @@ class Trainer:
         return TrainState(step=0, model=model, optimizer=optimizer)
 
     def _device_dataset(self, ds: MolecularDataset) -> Dict[str, torch.Tensor]:
-        """A dataset's arrays on the device, uploaded once: the padded
-        float32 arrays, or with ``dataset_storage="compact"`` their packed
-        form (``data/packed.py``), unpacked per batch by :meth:`_batches`
-        to the same bits."""
+        """A dataset on the device, uploaded once: the fields the model
+        reads and the targets (``data/packed.py::device_dataset``), packed
+        with ``dataset_storage="compact"``."""
         if id(ds) not in self._dev_cache:
-            host = pack_dataset(ds) if self.cfg.dataset_storage == "compact" \
-                else {k: getattr(ds, k) for k in _FIELDS + (
-                    STRUCTURE if getattr(ds, "spd", None) is not None
-                    else ())}
-            self._dev_cache[id(ds)] = to_device(host, self.device)
+            self._dev_cache[id(ds)] = device_dataset(
+                ds, model_fields(self.cfg) + ("y", "y_orig"), self.device,
+                compact=self.cfg.dataset_storage == "compact")
         return self._dev_cache[id(ds)]
-
-    @staticmethod
-    def _epoch_indices(n: int, batch_size: int,
-                       rng: Optional[np.random.Generator] = None
-                       ) -> Tuple[np.ndarray, np.ndarray]:
-        """(perm [n_batches, B], sample_mask [n_batches, B]); the final
-        partial batch is padded with index 0 rows masked out."""
-        idx = np.arange(n) if rng is None else rng.permutation(n)
-        n_batches = (n + batch_size - 1) // batch_size
-        pad = n_batches * batch_size - n
-        mask = np.ones(n_batches * batch_size, np.float32)
-        if pad:
-            idx = np.concatenate([idx, np.zeros(pad, idx.dtype)])
-            mask[-pad:] = 0.0
-        return (idx.reshape(n_batches, batch_size).astype(np.int64),
-                mask.reshape(n_batches, batch_size))
 
     def _batches(self, ds: MolecularDataset, batch_size: int,
                  rng: Optional[np.random.Generator] = None,
                  shard: bool = False):
         """Yield batches gathered on the device, with ``sample_mask``; with
         ``shard``, this rank's data shard of each global batch."""
-        data = self._device_dataset(ds)
-        perm, smask = self._epoch_indices(len(ds), batch_size, rng)
+        index = batch_indices(len(ds), batch_size, rng)
         if shard and self.mesh is not None:
-            perm, smask = (shard_batch(a.T, self.mesh).T
-                           for a in (perm, smask))
-        perm = torch.from_numpy(np.ascontiguousarray(perm)).to(self.device)
-        smask = torch.from_numpy(np.ascontiguousarray(smask)).to(self.device)
-        for i in range(perm.shape[0]):
-            batch = gather_batch(data, perm[i], ds.fp.shape[1])
-            batch["sample_mask"] = smask[i]
-            yield batch
+            index = {k: shard_batch(a.T, self.mesh).T
+                     for k, a in index.items()}
+        yield from batches(self._device_dataset(ds),
+                           to_device(index, self.device), ds.fp.shape[1])
 
     def _forward(self, model: nn.Module, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None,
@@ -313,26 +284,10 @@ class Trainer:
         as bf16 (the adjacency is built in f32 and cast after, as in the
         reference) and the model runs on ``params``, the working copy,
         when given."""
-        node_mask = batch["node_mask"] * batch["sample_mask"].unsqueeze(1)
-        if self.cfg.needs_structure:
-            args = structure_args(batch, node_mask, dtype=self._cdt) \
-                + (generator,)
-        else:
-            adj = dense_adjacency(batch["edges"], batch["edge_mask"],
-                                  batch["nodes"].shape[1])
-            nodes, fp = batch["nodes"], batch["fp"]
-            if self._cdt is not None:
-                nodes, adj, node_mask, fp = (t.to(self._cdt) for t in
-                                             (nodes, adj, node_mask, fp))
-            args = (nodes, adj, node_mask, fp, generator) \
-                if self.cfg.is_hybrid else (nodes, adj, node_mask, generator)
+        args = model_inputs(self.cfg, batch, self._cdt) + (generator,)
         out = model(*args) if params is None \
             else functional_call(model, params, args)
-        pred, latent = out if self.cfg.is_hybrid else (out, None)
-        if self._cdt is not None:
-            pred = pred.float()
-            latent = None if latent is None else latent.float()
-        return pred, latent
+        return model_outputs(self.cfg, out)
 
     def compute_copy(self, model: nn.Module, grad: bool = True
                      ) -> Optional[Dict[str, torch.Tensor]]:
@@ -389,7 +344,7 @@ class Trainer:
                                                  params_c)
                 mse = _masked_mse(pred, batch["y"], smask, count)
                 loss, kl = mse, torch.zeros((), device=mse.device)
-                if cfg.is_hybrid and cfg.kl_lambda > 0:
+                if latent is not None and cfg.kl_lambda > 0:
                     kl = kl_loss(latent, smask)
                     loss = loss + self._kl_weight() * kl
             with telemetry.span("train.backward"):
@@ -403,7 +358,7 @@ class Trainer:
                                  self.mesh.data_group)
             mse = all_reduce_(mse.detach().clone(), self.mesh.data_group)
             loss = mse + cfg.kl_lambda * kl.detach() \
-                if cfg.is_hybrid and cfg.kl_lambda > 0 else mse
+                if latent is not None and cfg.kl_lambda > 0 else mse
         with telemetry.span("train.optimizer"):
             set_lr(state.optimizer, self._lr(state.step + 1)
                    if callable(self._lr) else self._lr)
@@ -479,9 +434,8 @@ class Trainer:
         ds = ds or self.val_ds
         model = state.model
         model.eval()
-        mean = float(self.scaler.mean_)
-        scale = float(self.scaler.scale_)
-        preds, mses, omses, keeps = [], [], [], []
+        mean, scale = float(self.scaler.mean_), float(self.scaler.scale_)
+        preds, mses, omses = [], [], []
         n_batches = -(-len(ds) // self.cfg.eval_batch_size)
         with telemetry.unit("evaluate", batches=n_batches), \
                 torch.inference_mode(), \
@@ -496,9 +450,7 @@ class Trainer:
                 denorm = pred * scale + mean
                 omses.append(_masked_mse(denorm, batch["y_orig"], smask))
                 preds.append(pred)
-                keeps.append(smask > 0)
-            keep = torch.cat(keeps)
-            pred = torch.cat(preds)[keep]
+            pred = torch.cat(preds)[:len(ds)]   # the padding rows go
             out = {"val_mse": torch.stack(mses).mean(),
                    "original_mse": torch.stack(omses).mean(),
                    "pred": pred, "pred_denorm": pred * scale + mean}

@@ -25,11 +25,16 @@ from mgat_graphsage_tpu.train.checkpoint import save_checkpoint as jsave
 from mgat_graphsage_tpu.train.config import get_config as jget_config
 from mgat_graphsage_tpu.train.trainer import build_model as jbuild
 
-from mgat_graphsage_torch.data import TEST_CSV, load_csv
+from mgat_graphsage_torch.data import (
+    TEST_CSV,
+    TRAIN_CSV,
+    MolecularDataset,
+    load_csv,
+)
 from mgat_graphsage_torch.eval import predict as tpredict
 from mgat_graphsage_torch.models import params_from_jax
-from mgat_graphsage_torch.train import TrainConfig, get_config, load_checkpoint
-from mgat_graphsage_torch.train import save_checkpoint
+from mgat_graphsage_torch.train import TrainConfig, Trainer, get_config
+from mgat_graphsage_torch.train import load_checkpoint, save_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUDGET = (80, 176)
@@ -150,3 +155,31 @@ def test_bf16_inference_serves_close_to_f32(ckpts, smiles24):
     with pytest.raises(ValueError, match="cast to bf16"):     # before ds
         tpredict.predict_dataset(f32.model, f32.cfg, f32.scaler, None,
                                  infer_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("preset, overrides", [
+    ("flagship", dict(cnn_fc_hidden=16)),
+    ("gcn", {}),
+    ("graphormer_base", dict(n_layers=2, hidden_dim=32, n_heads=4,
+                             ffn_dim=32, compute_dtype="float32")),
+    ("flagship", dict(cnn_fc_hidden=16, dataset_storage="compact")),
+], ids=["flagship", "gcn", "graphormer_base", "flagship_compact"])
+def test_predict_dataset_is_trainer_evaluate(preset, overrides):
+    """``predict_dataset`` and ``Trainer.evaluate`` build their batches and
+    model inputs through the same functions: at ``eval_batch_size == B``
+    the de-normalised predictions agree bit for bit, over 21 molecules at
+    B = 8, so the final batch is padded."""
+    b = 8
+    cfg = get_config(preset, eval_batch_size=b, **overrides)
+    smiles, y = load_csv(TRAIN_CSV)
+    ds = MolecularDataset(smiles[:21], y[:21], fit_scaler=cfg.scale_targets,
+                          fingerprint=cfg.fingerprint,
+                          featurizer=cfg.featurizer,
+                          structure=cfg.needs_structure, verbose=False)
+    trainer = Trainer(cfg, ds, device="cpu")
+    state = trainer.init_state()
+    want = trainer.evaluate(state, ds)["pred_denorm"]
+    got = tpredict.predict_dataset(state.model, cfg, ds.scaler, ds, b)
+    assert len(ds) % b and got.shape == want.shape == (len(ds),)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)

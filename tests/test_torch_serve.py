@@ -35,6 +35,7 @@ from mgat_graphsage_torch import serve as serve_mod
 from mgat_graphsage_torch.data import MolecularDataset
 from mgat_graphsage_torch.eval import predict as tpredict
 from mgat_graphsage_torch.models import params_from_jax
+from mgat_graphsage_torch.models import zoo
 from mgat_graphsage_torch.serve import (
     PredictionServer,
     make_server,
@@ -568,8 +569,8 @@ def test_batch_rounding_leaves_outputs_unchanged(ckpt, monkeypatch):
                           max_nodes=BUDGET[0], max_edges=BUDGET[1],
                           verbose=False)
     calls = []
-    adjacency = tpredict.dense_adjacency
-    monkeypatch.setattr(tpredict, "dense_adjacency",
+    adjacency = zoo.dense_adjacency
+    monkeypatch.setattr(zoo, "dense_adjacency",
                         lambda *a: calls.append(1) or adjacency(*a))
     plain = tpredict.predict_dataset(p.model, p.cfg, p.scaler, ds, 8)
     assert plain.shape == (41,) and len(calls) == 6

@@ -332,7 +332,7 @@ def test_device_span_attaches_to_the_process_unit_from_another_thread(
 def test_snapshot_counts_the_attention_calls():
     """``/health``'s telemetry counts the graph transformer's attention
     calls by path: on the CPU the explicit one (the kernel path runs only
-    on CUDA), and the SDPA yardstick when it is called."""
+    on CUDA); the SDPA yardstick is no path and is not counted."""
     from mgat_graphsage_torch.ops.biased_attention import (
         biased_attention, biased_attention_sdpa)
 
@@ -343,7 +343,7 @@ def test_snapshot_counts_the_attention_calls():
     biased_attention_sdpa(x, x, x, torch.zeros(1, 1, 2, 2), mask, 0.5)
     after = telemetry.snapshot()["attention"]
     assert {k: after[k] - before[k] for k in after} == {
-        "explicit": 1, "sdpa": 1, "kernel": 0}
+        "explicit": 1, "kernel": 0}
 
 
 def test_snapshot_reads_the_wrappers_launch_counters(monkeypatch):
