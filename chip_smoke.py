@@ -224,7 +224,14 @@ Phases (any failure raises and the script exits non-zero):
    versions, then their times beside their bounds, the plain versions',
    the explicit path's and the library's (alone: ``python3 -c "import
    torch, chip_smoke as c; c.graphormer_attention_phase(torch,
-   c.DeviceTimer(torch))"``).
+   c.DeviceTimer(torch))"``);
+20. the graph transformer's structural bias kernels
+   (``csrc/structural_bias.cu``) at the same cell's shape on 1024 of its
+   own molecules: the forward against the explicit path bit for bit, the
+   backward against an f64 sum and against itself, then both times beside
+   their byte bounds, the plain versions' and the explicit path's, which
+   is the library's column (alone: ``python3 -c "import torch, chip_smoke
+   as c; c.structural_bias_phase(torch, c.DeviceTimer(torch))"``).
 
 Kernel times come from CUDA events around back-to-back launches queued
 behind a device-side sleep, so the host's launch cost is not in them.
@@ -238,7 +245,8 @@ epochs, ``fingerprint_launches`` from phase 14's three epochs and
 has its times at gcn's B=32 as ``gcn_*``; the bf16 rows of kernels 4-5,
 ``"dtype": "bfloat16"``, with their launches from phase 16's epoch; each f32
 row's ``mesh_launches``, its launches on each rank of phase 18's (b); the
-three rows of phase 19, ``biased_attention_fwd``, ``_bwd`` and ``_eval``), then
+three rows of phase 19, ``biased_attention_fwd``, ``_bwd`` and ``_eval``,
+and the two of phase 20, ``structural_bias_fwd`` and ``_bwd``), then
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2639,6 +2647,111 @@ def graphormer_attention_phase(torch, timer, seed=0):
     return rows
 
 
+def structural_bias_bytes(b, h, n, hops, s, backward=False):
+    """Bytes the structural bias kernels must move: the int8 structure
+    read once, the f32 bias written once (or its gradient read once), and
+    the tables read (or their gradients written) once."""
+    n1 = n + 1
+    tables = (s + 1 + hops * 5) * h * 4
+    return b * n * n * (1 + hops) + b * h * n1 * n1 * 4 + tables
+
+
+def structural_bias_phase(torch, timer, seed=0):
+    """Phase 20: the graph transformer's structural bias kernels
+    (``csrc/structural_bias.cu``) at the ``graphormer_base.train`` cell's
+    shape on its own molecules: 1024 of the bundled training molecules
+    drawn with ``seed``, featurised with their structure at the cell's
+    budget (n = 80, paths of 5 bonds), H = 32, a 512-row distance table.
+    The forward against the explicit path (bit for bit) and the backward
+    against an f64 sum of the plain version (1e-5 of each table's norm;
+    a second run the same bits), then their times beside their bounds
+    (bytes at 3.35 TB/s), the plain versions' and the explicit path's
+    (``structural_bias_explicit``: its forward, and its backward through
+    autograd as the difference of forward and backward against the forward
+    alone).  Returns the two kernel rows."""
+    from mgat_graphsage_torch.data import TRAIN_CSV, MolecularDataset, load_csv
+    from mgat_graphsage_torch.models.layers import StructuralBias
+    from mgat_graphsage_torch.ops import structural_bias as sb
+
+    dev = torch.device("cuda")
+    b, h, s = 1024, 32, 512
+    smiles, y = load_csv(TRAIN_CSV)
+    pick = np.random.default_rng(seed).choice(len(smiles), b, replace=False)
+    ds = MolecularDataset([smiles[i] for i in pick], y[pick],
+                          fingerprint=None, max_nodes=BUDGET[0],
+                          max_edges=BUDGET[1], structure=True, verbose=False)
+    spd = torch.as_tensor(ds.spd, device=dev)
+    types = torch.as_tensor(ds.path_types, device=dev)
+    n, hops = spd.shape[1], types.shape[-1]
+    torch.manual_seed(seed)
+    module = StructuralBias(h, num_spatial=s).to(dev)
+    with torch.no_grad():
+        emb = torch.cat([module.spatial.weight.new_zeros(1, h),
+                         module.edge_type.weight])
+        tables = (module.spatial.weight.detach(),
+                  module.virtual_distance.weight.detach(),
+                  torch.einsum("th,mhk->mtk", emb, module.edge_hop.weight))
+    g = torch.randn(b, h, n + 1, n + 1, device=dev,
+                    generator=torch.Generator(dev).manual_seed(seed))
+
+    out = sb.structural_bias_cuda(spd, types, *tables)
+    want = sb.structural_bias_explicit(spd, types, *tables)
+    runs = [sb.structural_bias_bwd_cuda(g, spd, types, s) for _ in range(2)]
+    exact = sb.structural_bias_bwd_plain(g.double(), spd, types, s)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want), "forward kernel != explicit path"
+    for a, c in zip(*runs):
+        assert torch.equal(a, c), "backward kernel not repeatable"
+    errs = {nm: float((got.double() - w).norm() / w.norm())
+            for nm, got, w in zip(("d_spatial", "d_virtual", "d_table"),
+                                  runs[0], exact)}
+    for nm, e in errs.items():
+        assert e <= 1e-5, (nm, e)
+    del want, exact, runs
+
+    def explicit(backward):
+        leaves = [t.detach().requires_grad_(backward) for t in tables]
+        o = sb.structural_bias_explicit(spd, types, *leaves)
+        if backward:
+            o.backward(g)
+
+    fwd_ms = timer(lambda: sb.structural_bias_cuda(spd, types, *tables),
+                   iters=50)
+    bwd_ms = timer(lambda: sb.structural_bias_bwd_cuda(g, spd, types, s),
+                   iters=50)
+    plain_fwd_ms = timer(lambda: sb.structural_bias_fwd_plain(
+        spd, types, *tables), iters=10)
+    plain_bwd_ms = timer(lambda: sb.structural_bias_bwd_plain(
+        g, spd, types, s), iters=10)
+    with torch.no_grad():
+        exp_fwd_ms = timer(lambda: explicit(False), iters=10)
+    exp_both_ms = timer(lambda: explicit(True), iters=10)
+    rows = []
+    for name, ms, backward, plain_ms, exp_ms in (
+            ("structural_bias_fwd", fwd_ms, False, plain_fwd_ms,
+             exp_fwd_ms),
+            ("structural_bias_bwd", bwd_ms, True, plain_bwd_ms,
+             exp_both_ms - exp_fwd_ms)):
+        nbytes = structural_bias_bytes(b, h, n, hops, s, backward)
+        bnd = bound(nbytes, 0)
+        rows.append({"name": name, "route": "cuda", "dtype": "float32",
+                     "source": "mgat_graphsage_torch/csrc/structural_bias.cu",
+                     "replaces": None, "shape": [b, h, n + 1, hops],
+                     "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "bound_share": bnd[0] / ms,
+                     "bytes_per_s": nbytes / ms * 1e3,
+                     "plain_ms": plain_ms, "explicit_ms": exp_ms,
+                     "library_ms": exp_ms})
+        log(f"[20] {name}: {ms:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}, share {bnd[0] / ms:.3f}, "
+            f"{nbytes / ms / 1e6:.0f} GB/s); plain {plain_ms:.3f} ms, "
+            f"explicit {exp_ms:.3f} ms")
+    log("[20] the forward equals the explicit path bit for bit; backward "
+        "repeats bit for bit; against f64: "
+        + ", ".join(f"{nm} {e:.2e}" for nm, e in errs.items()))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3242,6 +3355,9 @@ def main(argv=None) -> int:
 
     # ---- 19. the graph transformer's attention kernels ---------------------
     graphormer_rows = graphormer_attention_phase(torch, timer, args.seed)
+
+    # ---- 20. the graph transformer's structural bias kernels ---------------
+    graphormer_rows += structural_bias_phase(torch, timer, args.seed)
 
     train_counts = runs[True]["counts"]
     kernels = [

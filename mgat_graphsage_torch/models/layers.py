@@ -40,6 +40,7 @@ from ..ops import (
 )
 from ..ops.attention import kernels_support
 from ..ops.biased_attention import biased_attention
+from ..ops.structural_bias import structural_bias
 from ..parallel.distributed import (
     batch_sum,
     copy_to_group,
@@ -662,7 +663,9 @@ class StructuralBias(nn.Module):
     - the graph token's row and column take ``virtual_distance``.
 
     ``edge_type[t] @ edge_hop[m]`` depends on ``(m, t)`` alone, so it is
-    formed once as a ``[hops, 5, H]`` table and gathered per hop."""
+    formed once as a ``[hops, 5, H]`` table (in torch, so autograd carries
+    its gradient to both factors) and gathered per hop: by the kernels of
+    ``ops/structural_bias.py`` on CUDA, else by its explicit path."""
 
     def __init__(self, heads: int, hops: int = MAX_HOPS,
                  num_spatial: int = 512,
@@ -676,27 +679,13 @@ class StructuralBias(nn.Module):
 
     def forward(self, spd: torch.Tensor,
                 path_types: torch.Tensor) -> torch.Tensor:
-        b, n = spd.shape[0], spd.shape[1]
-        h = self.heads
         spatial = self.spatial.weight.float()
-        d = spd.long()
-        idx = torch.where(d < 0, spatial.shape[0] - 1,
-                          d.clamp_max(spatial.shape[0] - 2))
-        inner = F.embedding(idx, spatial)                       # [B,n,n,H]
-        emb = torch.cat([spatial.new_zeros(1, h),
+        emb = torch.cat([spatial.new_zeros(1, self.heads),
                          self.edge_type.weight.float()])        # [5, H]
         table = torch.einsum("th,mhk->mtk", emb,
                              self.edge_hop.weight.float())      # [hops,5,H]
-        types = path_types.long()
-        edge = F.embedding(types[..., 0], table[0])
-        for m in range(1, self.hops):
-            edge = edge + F.embedding(types[..., m], table[m])
-        hops = d.clamp(1, self.hops).unsqueeze(-1).to(edge.dtype)
-        inner = inner + edge / hops
-        t = self.virtual_distance.weight.float().reshape(1, 1, 1, h)
-        body = torch.cat([t.expand(b, n, 1, h), inner], dim=2)
-        full = torch.cat([t.expand(b, 1, n + 1, h), body], dim=1)
-        return full.permute(0, 3, 1, 2).contiguous()
+        return structural_bias(spd, path_types, spatial,
+                               self.virtual_distance.weight.float(), table)
 
 
 class GraphormerLayer(nn.Module):

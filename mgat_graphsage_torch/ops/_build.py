@@ -12,8 +12,8 @@ The hash covers the source, every local header it includes (a quoted
 followed recursively) and the flags, so an edited source or header
 rebuilds.
 Nothing is built when a module is imported: the wrappers in
-``ops/adjacency.py``, ``ops/attention.py``, ``ops/cnn.py`` and
-``ops/biased_attention.py`` call
+``ops/adjacency.py``, ``ops/attention.py``, ``ops/cnn.py``,
+``ops/biased_attention.py`` and ``ops/structural_bias.py`` call
 :func:`load` when they first launch on a CUDA tensor.  :func:`build_all` starts one ``nvcc`` per
 source at once, for callers that want every kernel ready up front.
 ``nvcc`` is found through ``$CUDA_HOME``, then ``$PATH``, then the
@@ -64,6 +64,8 @@ KERNELS: Dict[str, tuple] = {
     "cnn_chain_bwd": ("cnn_chain_bwd_launch", [_P] * 8 + [_I, _I, _I, _P]),
     "biased_attention": ("biased_attention_fwd_launch",
                          [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _F, _P]),
+    "structural_bias": ("structural_bias_fwd_launch",
+                        [_P] * 6 + [_I] * 5 + [_P]),
 }
 # further entry points of a source (bf16 variants, a backward): symbol ->
 # argtypes
@@ -73,6 +75,9 @@ ENTRIES: Dict[str, list] = {
     # the backward of csrc/biased_attention.cu
     "biased_attention_bwd_launch": [_P] * 13 + [_I] * 4 + [_L] * 9
     + [_F, _F, _P],
+    # the backward of csrc/structural_bias.cu: its grid, then its launches
+    "structural_bias_bwd_blocks": [_I] * 5,
+    "structural_bias_bwd_launch": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _loaded: Dict[str, object] = {}

@@ -28,8 +28,9 @@
   the launch counters the kernel wrappers keep (``launches``,
   ``launches_bf16``) and the native featuriser's counters (``calls``,
   ``parallel_calls``, ``molecules``, ``workers``), the graph
-  transformer's attention calls by path (``attention``) and the device
-  spans' totals (``device_spans``), read from where they are kept.
+  transformer's attention calls and structural bias builds by path
+  (``attention``, ``structural_bias``) and the device spans' totals
+  (``device_spans``), read from where they are kept.
 
 Request threads and the serving dispatch thread use it at once: the totals
 and the deques sit under one lock.  ``SPANS`` names every span the
@@ -65,6 +66,7 @@ SPANS = (
     # device spans (device_span), models/zoo.py::GraphormerNet
     "graphormer.bias",      # the structural attention bias's build
     "graphormer.attention",  # each layer's attention, forward and backward
+    "graphormer.bias_grad",  # the bias kernels' backward: the tables' sums
 )
 MAX_RECORDS = 4096
 
@@ -264,8 +266,9 @@ class Registry:
     def snapshot(self) -> Dict:
         """``{"spans": {name: {"seconds", "count"}}, "units": {kind:
         {"seconds", "count"}}, "launches": {wrapper: count}, "featurize":
-        {counter: count}, "attention": {path: calls}, "device_spans":
-        {name: {"seconds", "count"}}}``: the process totals, JSON-ready."""
+        {counter: count}, "attention": {path: calls}, "structural_bias":
+        {path: calls}, "device_spans": {name: {"seconds", "count"}}}``:
+        the process totals, JSON-ready."""
         with self._lock:
             spans = {k: {"seconds": v[0] * 1e-9, "count": v[1]}
                      for k, v in self._spans.items()}
@@ -274,18 +277,20 @@ class Registry:
             device = {k: {"seconds": v[0], "count": v[1]}
                       for k, v in self._device.items()}
         from ..chem import native
-        from ..ops import biased_attention
+        from ..ops import biased_attention, structural_bias
 
         return {"spans": spans, "units": units, "launches": _launches(),
                 "featurize": native.counts(),
                 "attention": biased_attention.counts(),
+                "structural_bias": structural_bias.counts(),
                 "device_spans": device}
 
 
 def _launches() -> Dict[str, int]:
     """The kernel wrappers' own launch counters, by wrapper name (bf16
     launches as ``<name>_bf16``)."""
-    from ..ops import adjacency, attention, biased_attention, cnn
+    from ..ops import (adjacency, attention, biased_attention, cnn,
+                       structural_bias)
 
     out = {}
     for mod, name in ((adjacency, "dense_adjacency_cuda"),
@@ -293,7 +298,9 @@ def _launches() -> Dict[str, int]:
                       (attention, "attention_bwd_cuda"),
                       (cnn, "dy3_cuda"), (cnn, "cnn_chain_bwd_cuda"),
                       (biased_attention, "biased_attention_cuda"),
-                      (biased_attention, "biased_attention_bwd_cuda")):
+                      (biased_attention, "biased_attention_bwd_cuda"),
+                      (structural_bias, "structural_bias_cuda"),
+                      (structural_bias, "structural_bias_bwd_cuda")):
         # the name the wrapper is looked up by, in its defining module
         fn = getattr(mod, name)
         for attr in ("launches", "launches_bf16"):

@@ -255,8 +255,9 @@ def test_spans_names_every_span_the_program_opens():
                         r'telemetry\.(?:device_)?span\("([^"]+)"[,)]',
                         fh.read()))
     assert opened == set(telemetry.SPANS)
-    assert len(telemetry.SPANS) == len(set(telemetry.SPANS)) == 13
-    assert {"graphormer.bias", "graphormer.attention"} <= set(telemetry.SPANS)
+    assert len(telemetry.SPANS) == len(set(telemetry.SPANS)) == 14
+    assert {"graphormer.bias", "graphormer.attention",
+            "graphormer.bias_grad"} <= set(telemetry.SPANS)
 
 
 class _FakeEvent:
@@ -352,8 +353,9 @@ def test_snapshot_reads_the_wrappers_launch_counters(monkeypatch):
     assert launches["dense_adjacency_cuda"] == 7
     assert {"dy3_cuda", "dy3_cuda_bf16", "cnn_chain_bwd_cuda_bf16",
             "fused_masked_attention_cuda", "attention_bwd_cuda",
-            "biased_attention_cuda",
-            "biased_attention_bwd_cuda"} <= set(launches)
+            "biased_attention_cuda", "biased_attention_bwd_cuda",
+            "structural_bias_cuda",
+            "structural_bias_bwd_cuda"} <= set(launches)
 
 
 @pytest.mark.parametrize("cpus", [1, 4])
