@@ -231,7 +231,15 @@ Phases (any failure raises and the script exits non-zero):
    backward against an f64 sum and against itself, then both times beside
    their byte bounds, the plain versions' and the explicit path's, which
    is the library's column (alone: ``python3 -c "import torch, chip_smoke
-   as c; c.structural_bias_phase(torch, c.DeviceTimer(torch))"``).
+   as c; c.structural_bias_phase(torch, c.DeviceTimer(torch))"``);
+21. GraphGPS's attention: phase 19's kernels without a bias at the
+   ``graphgps_medium.train`` cell's shape (B=1024, H=16, N=80, d=24,
+   dropout 0.1) with one padded molecule, against their plain versions
+   at phase 19's tolerances, no bias gradient, the launches of one
+   training and one grad-free call, and the times beside their bounds
+   (alone: ``python3 -c "import torch, chip_smoke as c;
+   c.graphormer_attention_phase(torch, c.DeviceTimer(torch),
+   biased=False)"``).
 
 Kernel times come from CUDA events around back-to-back launches queued
 behind a device-side sleep, so the host's launch cost is not in them.
@@ -246,7 +254,9 @@ has its times at gcn's B=32 as ``gcn_*``; the bf16 rows of kernels 4-5,
 ``"dtype": "bfloat16"``, with their launches from phase 16's epoch; each f32
 row's ``mesh_launches``, its launches on each rank of phase 18's (b); the
 three rows of phase 19, ``biased_attention_fwd``, ``_bwd`` and ``_eval``,
-and the two of phase 20, ``structural_bias_fwd`` and ``_bwd``), then
+the two of phase 20, ``structural_bias_fwd`` and ``_bwd``, and the three
+of phase 21, ``biased_attention_fwd_unbiased``, ``_bwd_unbiased`` and
+``_eval_unbiased``, with their ``launches``), then
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2521,23 +2531,24 @@ def explain_phase(torch, ckpt, tmpdir, card):
 
 
 def biased_attention_bytes(b, h, n, d, keep=True, stats=True,
-                           backward=False):
+                           backward=False, bias=True):
     """Bytes the biased attention kernels must move: each input read once
     and each output written once (bf16 q, k, v, out and their gradients,
-    the f32 bias and its gradient, the bool keep-mask and key mask, the
-    f32 row statistics)."""
+    the f32 bias and its gradient where there is a bias, the bool
+    keep-mask and key mask, the f32 row statistics)."""
     rows = n * h * d * 2                    # one bf16 [N, H, d]
     square = h * n * n                      # one [H, N, N]
-    per = (8 * rows if backward else 4 * rows) + square * 4 + n
-    per += square * 4 if backward else 0    # the bias gradient
+    per = (8 * rows if backward else 4 * rows) + n
+    per += square * 4 if bias else 0        # the bias
+    per += square * 4 if backward and bias else 0   # the bias gradient
     per += square if keep else 0
     per += h * n * 4 if stats or backward else 0
     return b * per
 
 
-def graphormer_attention_phase(torch, timer, seed=0):
-    """Phase 19: the graph transformer's attention kernels at the
-    ``graphormer_base.train`` cell's shape (B=1024, H=32, N=81, d=24,
+def graphormer_attention_phase(torch, timer, seed=0, biased=True):
+    """Phase 19 (``biased``): the graph transformer's attention kernels at
+    the ``graphormer_base.train`` cell's shape (B=1024, H=32, N=81, d=24,
     dropout 0.1; q, k, v the transposed ``[B, N, H, d]`` views the layer
     passes), molecules of 1 to 80 atoms plus the graph token: forward
     (with the keep-mask and the statistics), backward and the grad-free
@@ -2546,21 +2557,36 @@ def graphormer_attention_phase(torch, timer, seed=0):
     then their times beside their bounds (bytes at 3.35 TB/s against
     operations at 989 TFLOP/s), the plain versions', the explicit path's
     (``BiasedAttention``) and, for the grad-free forward, the library's
-    (``scaled_dot_product_attention`` with the float bias).  Returns the
-    three kernel rows."""
+    (``scaled_dot_product_attention`` with the float bias).
+
+    Phase 21 (not ``biased``): the same kernels without a bias at the
+    ``graphgps_medium.train`` cell's shape (B=1024, H=16, N=80, d=24,
+    dropout 0.1), the last molecule a padded row with no atom (its lse
+    left out of the comparison, its output and gradients 0); no bias
+    gradient from the kernel or the plain version, no library column; the
+    launches of one training call and one grad-free call through
+    ``biased_attention`` (two forward, one backward, all counted under
+    ``kernel`` and ``unbiased``).  Returns the three kernel rows."""
     from mgat_graphsage_torch.ops import biased_attention as ba
 
+    tag = "[19]" if biased else "[21]"
+    suffix = "" if biased else "_unbiased"
     dev = torch.device("cuda")
-    b, h, n, d, p = 1024, 32, 81, 24, 0.1
+    b, h, n, d, p = (1024, 32, 81, 24, 0.1) if biased else \
+        (1024, 16, 80, 24, 0.1)
     gen = torch.Generator(dev).manual_seed(seed)
     q, k, v = (torch.randn(b, n, h, d, device=dev, generator=gen)
                .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
-    bias = torch.randn(b, h, n, n, device=dev, generator=gen)
+    bias = torch.randn(b, h, n, n, device=dev, generator=gen) if biased \
+        else None
     sizes = torch.randint(2, n + 1, (b,), device=dev, generator=gen)
+    if not biased:
+        sizes[-1] = 0
     key_mask = torch.arange(n, device=dev)[None, :] < sizes[:, None]
     keep = torch.rand(b, h, n, n, device=dev, generator=gen) >= p
     g = torch.randn(b, h, n, d, device=dev, generator=gen).to(torch.bfloat16)
     scale = d ** -0.5
+    real = sizes > 0
 
     def err(got, want):
         got, want = got.double(), want.double()
@@ -2580,21 +2606,48 @@ def graphormer_attention_phase(torch, timer, seed=0):
     want_ev = ba.biased_attention_fwd_plain(q, k, v, bias, key_mask, None,
                                             0.0, scale)[0]
     torch.cuda.synchronize()
-    errs = {"out": err(out, want_out), "lse": err(lse, want_lse),
+    errs = {"out": err(out, want_out), "lse": err(lse[real], want_lse[real]),
             "eval_out": err(ev, want_ev)}
     errs.update((nm, err(a, w)) for nm, a, w in
-                zip(("dq", "dk", "dv", "dbias"), grads, want))
+                zip(("dq", "dk", "dv", "dbias"), grads, want)
+                if w is not None)
     for nm, e in errs.items():
         limit = 1e-5 if nm in ("lse", "dbias") else 1e-2
         assert e <= limit, (nm, e, limit)
+    if not biased:
+        assert grads[3] is None and want[3] is None
+        for nm, t in zip(("out", "eval_out", "dq", "dk", "dv"),
+                         (out, ev) + tuple(grads[:3])):
+            assert torch.isfinite(t).all() and (t[~real] == 0).all(), nm
     del want, want_out, want_lse, want_ev
 
     def explicit(backward):
-        leaves = [t.detach().requires_grad_(backward) for t in (q, k, v,
-                                                                bias)]
+        leaves = [t.detach().requires_grad_(backward) for t in (q, k, v)]
+        leaves.append(None if bias is None
+                      else bias.detach().requires_grad_(backward))
         o = ba.BiasedAttention.apply(*leaves, key_mask, keep, p, scale)
         if backward:
             o.backward(g)
+
+    launches = None
+    if not biased:
+        # one training call and one grad-free call on the main path
+        before = ba.counts()
+        fwd0, bwd0 = (ba.biased_attention_cuda.launches,
+                      ba.biased_attention_bwd_cuda.launches)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        ba.biased_attention(*leaves, None, key_mask, keep, p,
+                            scale).backward(g)
+        with torch.no_grad():
+            ba.biased_attention(q, k, v, None, key_mask, None, 0.0, scale)
+        torch.cuda.synchronize()
+        after = ba.counts()
+        launches = {"fwd": ba.biased_attention_cuda.launches - fwd0,
+                    "bwd": ba.biased_attention_bwd_cuda.launches - bwd0,
+                    **{c: after[c] - before[c] for c in after}}
+        assert launches == {"fwd": 2, "bwd": 1, "explicit": 0, "kernel": 2,
+                            "unbiased": 2}, launches
+        del leaves
 
     fwd_ms = timer(lambda: ba.biased_attention_cuda(
         q, k, v, bias, key_mask, keep, p, scale, stats=True), iters=50)
@@ -2614,36 +2667,41 @@ def graphormer_attention_phase(torch, timer, seed=0):
     with torch.no_grad():
         exp_ev_ms = timer(lambda: ba.BiasedAttention.apply(
             q, k, v, bias, key_mask, None, 0.0, scale), iters=10)
-    lib_ms = timer(lambda: ba.biased_attention_sdpa(q, k, v, bias, key_mask,
-                                                    scale), iters=20)
+    lib_ms = timer(lambda: ba.biased_attention_sdpa(
+        q, k, v, bias, key_mask, scale), iters=20) if biased else None
     flops = 4 * n * n * h * d * b
     rows = []
     for name, ms, nbytes, ops, plain_ms, exp_ms, lib in (
             ("biased_attention_fwd", fwd_ms,
-             biased_attention_bytes(b, h, n, d), flops, plain_fwd_ms,
-             exp_fwd_ms, None),
+             biased_attention_bytes(b, h, n, d, bias=biased), flops,
+             plain_fwd_ms, exp_fwd_ms, None),
             ("biased_attention_bwd", bwd_ms,
-             biased_attention_bytes(b, h, n, d, backward=True), 2 * flops,
-             plain_bwd_ms, exp_both_ms - exp_fwd_ms, None),
+             biased_attention_bytes(b, h, n, d, backward=True, bias=biased),
+             2 * flops, plain_bwd_ms, exp_both_ms - exp_fwd_ms, None),
             ("biased_attention_eval", ev_ms,
-             biased_attention_bytes(b, h, n, d, keep=False, stats=False),
+             biased_attention_bytes(b, h, n, d, keep=False, stats=False,
+                                    bias=biased),
              flops, plain_ev_ms, exp_ev_ms, lib_ms)):
         bnd = bound(nbytes, ops, BF16_FLOPS_PER_S)
-        rows.append({"name": name, "route": "cuda", "dtype": "bfloat16",
+        rows.append({"name": name + suffix, "route": "cuda",
+                     "dtype": "bfloat16",
                      "source": "mgat_graphsage_torch/csrc/biased_attention.cu",
                      "replaces": None, "shape": [b, h, n, d],
                      "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                      "bound_share": bnd[0] / ms,
                      "bytes_per_s": nbytes / ms * 1e3,
                      "plain_ms": plain_ms, "explicit_ms": exp_ms,
-                     "library_ms": lib})
-        log(f"[19] {name}: {ms:.4f} ms, bound {bnd[0]:.4f} ms "
+                     "library_ms": lib,
+                     **({"launches": launches} if launches else {})})
+        log(f"{tag} {name + suffix}: {ms:.4f} ms, bound {bnd[0]:.4f} ms "
             f"({bnd[1]}, share {bnd[0] / ms:.3f}, "
             f"{nbytes / ms / 1e6:.0f} GB/s); plain {plain_ms:.3f} ms, "
             f"explicit {exp_ms:.3f} ms"
             + (f", library {lib:.3f} ms" if lib is not None else ""))
-    log(f"[19] errors against the plain version: "
-        + ", ".join(f"{nm} {e:.2e}" for nm, e in errs.items()))
+    log(f"{tag} errors against the plain version: "
+        + ", ".join(f"{nm} {e:.2e}" for nm, e in errs.items())
+        + (f"; launches of one training and one grad-free call {launches}"
+           if launches else ""))
     return rows
 
 
@@ -3358,6 +3416,10 @@ def main(argv=None) -> int:
 
     # ---- 20. the graph transformer's structural bias kernels ---------------
     graphormer_rows += structural_bias_phase(torch, timer, args.seed)
+
+    # ---- 21. GraphGPS's attention: the same kernels without a bias --------
+    graphormer_rows += graphormer_attention_phase(torch, timer, args.seed,
+                                                  biased=False)
 
     train_counts = runs[True]["counts"]
     kernels = [

@@ -15,7 +15,10 @@ reads beside the features (``models/zoo.py::GraphormerNet``): a bond type
 per directed edge, and per molecule the atoms' degrees, the all-pairs
 shortest-path distances in bonds and the first ``hops`` bond types along
 one fixed shortest path, by the breadth-first rule that
-``csrc/featurizer.cpp`` follows too, bit for bit.
+``csrc/featurizer.cpp`` follows too, bit for bit.  ``random_walk_se`` gives
+what GraphGPS reads beside the bond types (``models/zoo.py::GPSNet``): each
+atom's return probabilities of a random walk, from the molecule's edge
+list, whichever featuriser made it.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ __all__ = [
     "bond_types",
     "graph_structure",
     "smiles_to_structure",
+    "RWSE_STEPS",
+    "random_walk_se",
 ]
 
 # bond type codes per directed edge; 0 is padding and "no bond"
@@ -55,6 +60,9 @@ BOND_TYPES = {"single": 1, "double": 2, "triple": 3, "aromatic": 4}
 MAX_HOPS = 5
 # the distance of a pair in different components, and of a padded pair
 UNREACHABLE = -1
+# walk lengths of the random-walk structural encoding (GraphGPS's RWSE,
+# ksteps 1..16)
+RWSE_STEPS = 16
 
 # Vocabularies — byte-for-byte the lists from reference train.py:34-42.
 ATOM_SYMBOLS = ["C", "N", "O", "S", "F", "P", "Cl", "Br", "I", "Unknown"]
@@ -232,3 +240,21 @@ def smiles_to_structure(smiles: str, featurizer: str = "35",
     types = bond_types(mol, edge_index)
     return (feats, edge_index) + graph_structure(
         feats.shape[0], edge_index, types, hops)
+
+
+def random_walk_se(n: int, edge_index: np.ndarray,
+                   steps: int = RWSE_STEPS) -> np.ndarray:
+    """``[n, steps]`` float32: for ``k = 1..steps`` the probability that a
+    random walk of ``k`` steps from an atom returns to it, the diagonal of
+    ``(D^-1 A)^k`` (GraphGPS's RWSE), computed in float64 from the
+    directed edge list ``edge_index [2, E]``; 0 for an isolated atom."""
+    adj = np.zeros((n, n), np.float64)
+    adj[edge_index[0], edge_index[1]] = 1.0
+    deg = adj.sum(axis=1, keepdims=True)
+    walk = np.divide(adj, deg, out=np.zeros_like(adj), where=deg > 0)
+    out = np.zeros((n, steps), np.float64)
+    power = walk
+    for k in range(steps):
+        out[:, k] = np.diagonal(power)
+        power = power @ walk
+    return out.astype(np.float32)

@@ -7,9 +7,9 @@
 // models/layers.py::GraphormerLayer.
 //
 // For q, k, v [B, H, N, d] bf16 (read through their strides: the layer's
-// are views of the projections' [B, N, H, d]), bias [B, H, N, N] f32,
-// key_mask [B, N] bool and an optional keep-mask [B, H, N, N] bool of drop
-// rate p (r = 1 / (1 - p)):
+// are views of the projections' [B, N, H, d]), an optional bias [B, H, N,
+// N] f32, key_mask [B, N] bool and an optional keep-mask [B, H, N, N] bool
+// of drop rate p (r = 1 / (1 - p)):
 //     s   = scale * q k^T + bias, keys outside key_mask at -inf     (f32)
 //     P   = softmax(s) over the keys                                (f32)
 //     out = bf16(P * keep * r) v          (bf16 operands, f32 sums)
@@ -22,6 +22,14 @@
 // out, dq, dk and dv are written [B, N, H, d] (the caller sees their
 // [B, H, N, d] transposes).  A row with no valid key gives out = 0, lse =
 // +inf and zero gradients.
+//
+// Without a bias (NULL: GraphGPS's attention, models/layers.py::GPSLayer)
+// nothing [B, H, N, N] is read but the keep-mask, and the bias gradient is
+// neither formed for output nor written: each block stages a row of KP
+// zeros in the bias's place and reads every row's bias from it (a bias row
+// stride of 0), so the arithmetic is the biased one's with a bias of 0.
+// With a bias given, the staging, the layout and the arithmetic are as they
+// were, to the bit.
 //
 // Bound on the H100: bytes.  At N = 81, H = 32, d = 24 a molecule's layer
 // moves ~1.56 MB forward (the f32 bias 0.84, the keep-mask 0.21, q, k, v,
@@ -91,16 +99,18 @@ struct Tile {
   static constexpr int NT = 2 * KT;         // n8 tiles over the keys (rows)
   static constexpr int THREADS = 32 * KT;
 
+  // bn is the bias's row stride: n, or 0 without a bias (its tail of KP
+  // zeros is then every row)
   // forward: q, k, v; the bias (offset, N^2, a tail of KP); the keep-mask
   // (offset, N^2, KP); the key mask as 0 / -inf
-  static __host__ __device__ int fbias_bytes(int n) {
-    return r16((n * n + KP + 4) * 4);
+  static __host__ __device__ int fbias_bytes(int bn) {
+    return r16((bn * bn + KP + 4) * 4);
   }
   static __host__ __device__ int fkeep_bytes(int n) {
     return r16(n * n + KP + 16);
   }
-  static __host__ __device__ int fwd_smem(int n) {
-    return 3 * ROWS + fbias_bytes(n) + fkeep_bytes(n) + KP * 4;
+  static __host__ __device__ int fwd_smem(int n, int bn) {
+    return 3 * ROWS + fbias_bytes(bn) + fkeep_bytes(n) + KP * 4;
   }
   // backward: q, v, dO and the keep-mask (KP rows of N), which bf16 dS^T
   // overwrites in the end; k; out; the bias (KP rows of N); lse and D per
@@ -112,11 +122,11 @@ struct Tile {
     const int a = 3 * ROWS + bkeep_bytes(n), b = r16(KP * LDS * 2);
     return a > b ? a : b;
   }
-  static __host__ __device__ int bbias_bytes(int n) {
-    return r16((KP * n + 4) * 4);
+  static __host__ __device__ int bbias_bytes(int bn) {
+    return r16((KP * (bn > 0 ? bn : 1) + 4) * 4);
   }
-  static __host__ __device__ int bwd_smem(int n) {
-    return union_bytes(n) + 2 * ROWS + bbias_bytes(n) + 2 * KP * 4;
+  static __host__ __device__ int bwd_smem(int n, int bn) {
+    return union_bytes(n) + 2 * ROWS + bbias_bytes(bn) + 2 * KP * 4;
   }
 };
 
@@ -310,12 +320,12 @@ __global__ void __launch_bounds__(32 * KT, KT <= 6 ? 4 : 1)
 biased_attention_fwd_kernel(const Args a) {
   using T = Tile<KT, D8>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int n = a.n, tid = threadIdx.x;
+  const int n = a.n, tid = threadIdx.x, bn = a.bias ? n : 0;
   bf16* sq = reinterpret_cast<bf16*>(smem);
   bf16* sk = reinterpret_cast<bf16*>(smem + T::ROWS);
   bf16* sv = reinterpret_cast<bf16*>(smem + 2 * T::ROWS);
   float* sbias = reinterpret_cast<float*>(smem + 3 * T::ROWS);
-  uint8_t* skeep = smem + 3 * T::ROWS + T::fbias_bytes(n);
+  uint8_t* skeep = smem + 3 * T::ROWS + T::fbias_bytes(bn);
   float* smask = reinterpret_cast<float*>(skeep + T::fkeep_bytes(n));
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3, r0 = 16 * warp;
@@ -326,8 +336,8 @@ biased_attention_fwd_kernel(const Args a) {
   stage_rows<KT, D8>(sq, a.q + in, n, a.sn, tid);
   stage_rows<KT, D8>(sk, a.k + in, n, a.sn, tid);
   stage_rows<KT, D8>(sv, a.v + in, n, a.sn, tid);
-  const int ob =
-      stage_f32<T::THREADS>(sbias, a.bias + bh * nn, n * n, T::KP, tid);
+  const int ob = stage_f32<T::THREADS>(sbias, a.bias ? a.bias + bh * nn : a.bias,
+                                       bn * bn, T::KP, tid);
   const int ok =
       a.keep ? stage_u8<T::THREADS>(skeep, a.keep + bh * nn, n * n, tid) : 0;
   if (tid < T::KP)
@@ -359,7 +369,7 @@ biased_attention_fwd_kernel(const Args a) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = min(r0 + g + 8 * i, n - 1);
-    brow[i] = sbias + ob + row * n + 2 * c;
+    brow[i] = sbias + ob + row * bn + 2 * c;
     krow[i] = skeep + ok + row * n + 2 * c;
   }
   float mx[2] = {-INFINITY, -INFINITY};
@@ -441,7 +451,7 @@ __global__ void __launch_bounds__(32 * KT)
 biased_attention_bwd_kernel(const Args a) {
   using T = Tile<KT, D8>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int n = a.n, tid = threadIdx.x;
+  const int n = a.n, tid = threadIdx.x, bn = a.bias ? n : 0;
   const int ub = T::union_bytes(n);
   bf16* sq = reinterpret_cast<bf16*>(smem);
   bf16* sv = reinterpret_cast<bf16*>(smem + T::ROWS);
@@ -452,7 +462,7 @@ biased_attention_bwd_kernel(const Args a) {
   bf16* so = reinterpret_cast<bf16*>(smem + ub + T::ROWS);
   float* sbias = reinterpret_cast<float*>(smem + ub + 2 * T::ROWS);
   float* slse = reinterpret_cast<float*>(smem + ub + 2 * T::ROWS +
-                                         T::bbias_bytes(n));
+                                         T::bbias_bytes(bn));
   float* sD = slse + T::KP;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3, k0 = 16 * warp;
@@ -467,8 +477,9 @@ biased_attention_bwd_kernel(const Args a) {
   stage_rows<KT, D8>(sdo, a.dout + b * a.gb + h * a.gh, n, a.gn, tid);
   stage_rows<KT, D8>(so, a.o + b * a.ob + h * a.oh, n, a.on, tid);
   // rows past n read zeros from the bias's tail
-  const int ob = stage_f32<T::THREADS>(sbias, a.bias + bh * nn, n * n,
-                                       (T::KP - n) * n, tid);
+  const int ob = stage_f32<T::THREADS>(
+      sbias, a.bias ? a.bias + bh * nn : a.bias, bn * n,
+      a.bias ? (T::KP - n) * n : T::KP, tid);
   const int ok =
       a.keep ? stage_u8<T::THREADS>(skeep, a.keep + bh * nn, n * n, tid) : 0;
   if (tid < T::KP) {
@@ -483,7 +494,7 @@ biased_attention_bwd_kernel(const Args a) {
     if (a.key_mask[static_cast<long long>(b) * n + t]) kv = t + 1;
   const int kmax = __reduce_max_sync(0xffffffffu, kv);
   const bool live = k0 < kmax;
-  float* dbias = a.dbias + bh * nn;
+  float* dbias = a.dbias ? a.dbias + bh * nn : a.dbias;
   // this thread's keys (clamped to n - 1 for the bias and the mask)
   float madd[2];
   int kk[2];
@@ -550,12 +561,12 @@ biased_attention_bwd_kernel(const Args a) {
       for (int e = 0; e < 4; ++e) {
         const int row = 8 * j + 2 * c + (e & 1), i = e >> 1;
         const float x = st[j][e] * a.scale + madd[i] +
-                        sbias[ob + row * n + kk[i]];
+                        sbias[ob + row * bn + kk[i]];
         const float p = expf(x - slse[row]);
         float kp = 1.0f;
         if (a.keep) kp = skeep[ok + row * n + kk[i]] ? a.rscale : 0.0f;
         const float ds = p * (dp[j][e] * kp - sD[row]);
-        if (kok[i] && row < n) dbias[row * n + kk[i]] = ds;
+        if (dbias && kok[i] && row < n) dbias[row * n + kk[i]] = ds;
         st[j][e] = ds;
         dp[j][e] = p * kp;
       }
@@ -573,7 +584,7 @@ biased_attention_bwd_kernel(const Args a) {
       mma_rows_t<KT, D8>(gk, da[kc], sq + 16 * kc * T::LD, lane);
       mma_rows_t<KT, D8>(gv, pa[kc], sdo + 16 * kc * T::LD, lane);
     }
-  } else {
+  } else if (dbias) {
     // masked keys: a bias gradient of 0
 #pragma unroll
     for (int j = 0; j < T::NT; ++j)
@@ -623,7 +634,8 @@ biased_attention_bwd_kernel(const Args a) {
 template <int KT, int D8, bool kBwd>
 int launch(const Args& a, int batch, cudaStream_t stream) {
   using T = Tile<KT, D8>;
-  const int smem = kBwd ? T::bwd_smem(a.n) : T::fwd_smem(a.n);
+  const int bn = a.bias ? a.n : 0;
+  const int smem = kBwd ? T::bwd_smem(a.n, bn) : T::fwd_smem(a.n, bn);
   void (*kernel)(const Args) = kBwd ? biased_attention_bwd_kernel<KT, D8>
                                     : biased_attention_fwd_kernel<KT, D8>;
   if (smem > 48 * 1024) {
@@ -662,8 +674,8 @@ int dispatch(const Args& a, int batch, int d, void* stream) {
 }  // namespace
 
 // q, k, v [B, H, N, d] bf16 with strides (sb, sh, sn, 1) in elements, each a
-// multiple of 8, 16-byte aligned; bias [B, H, N, N] f32 and keep (or NULL)
-// [B, H, N, N] bool, contiguous; key_mask [B, N] bool; out [B, N, H, d]
+// multiple of 8, 16-byte aligned; bias (or NULL) [B, H, N, N] f32 and keep
+// (or NULL) [B, H, N, N] bool, contiguous; key_mask [B, N] bool; out [B, N, H, d]
 // bf16 and lse (or NULL) [B, H, N] f32, contiguous.  1 <= N <= 128, d in
 // {8, 16, 24, 32} (checked by the caller: ops/biased_attention.py::
 // kernels_support).  Returns cudaGetLastError() after the launch.
@@ -693,7 +705,8 @@ extern "C" int biased_attention_fwd_launch(
 
 // The forward's inputs, out [B, H, N, d] (strides ob, oh, on), its gradient
 // dout (gb, gh, gn), both under the forward's rules for q, and its lse ->
-// dq, dk, dv [B, N, H, d] bf16 and dbias [B, H, N, N] f32, contiguous.
+// dq, dk, dv [B, N, H, d] bf16 and dbias [B, H, N, N] f32, contiguous (both
+// bias and dbias NULL without a bias).
 extern "C" int biased_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* bias, const void* key_mask,

@@ -8,11 +8,18 @@ every molecule to one ``(max_nodes, max_edges)`` budget:
 ``edge_mask [n, E]``, ``fp [n, nbits]``.  Dense adjacency is built on the
 device from the edge lists (``ops/graph.py``).
 
-With ``structure=True`` (the graph transformer's presets,
-``TrainConfig.needs_structure``) it also holds, at the same budget,
-``degree [n, N]``, ``spd [n, N, N]`` and ``path_types [n, N, N, hops]``,
-int8 (``chem/featurize.py::graph_structure``; -1 in ``spd`` for padding
-and for atoms in different components).
+``structure`` adds what a graph transformer reads beside the atom
+features, at the same budget (``TrainConfig.structure`` names it for a
+preset):
+
+- ``"paths"`` (or ``True``; Graphormer): ``degree [n, N]``, ``spd [n, N,
+  N]`` and ``path_types [n, N, N, hops]``, int8
+  (``chem/featurize.py::graph_structure``; -1 in ``spd`` for padding and
+  for atoms in different components);
+- ``"edges"`` (GraphGPS): ``edge_types [n, E]`` int8, a bond type per
+  directed edge (0 for padding), and ``rwse [n, N, 16]`` float32, each
+  atom's random-walk return probabilities (``chem/featurize.py::
+  random_walk_se``; 0 for padding).
 
 Featurisation goes through the native C++ library by default
 (``chem/native.py``; bit for bit the Python chemistry layer's output),
@@ -25,13 +32,21 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
 from ..chem import smiles_to_graph
-from ..chem.featurize import MAX_HOPS, smiles_to_structure
+from ..chem.featurize import (
+    MAX_HOPS,
+    RWSE_STEPS,
+    bond_types,
+    mol_to_graph,
+    random_walk_se,
+    smiles_to_structure,
+)
 from ..chem.fingerprints import FINGERPRINTS
+from ..chem.smiles import parse_smiles
 from ..utils import telemetry
 
 __all__ = [
@@ -50,6 +65,18 @@ NATIVE_BUDGET = (128, 288)
 _NATIVE_FPS = {None: (0, False), "ecfp1024": (1024, False),
                "ecfp2048": (2048, False), "morgan1024": (1024, False),
                "morgan2048": (2048, False), "fcfp1024": (1024, True)}
+
+
+def _structure_kind(structure) -> Optional[str]:
+    """``structure`` as ``"paths"``, ``"edges"`` or None."""
+    if structure is True:
+        return "paths"
+    if not structure:
+        return None
+    if structure not in ("paths", "edges"):
+        raise ValueError(f"unknown structure {structure!r}: 'paths' or "
+                         "'edges'")
+    return structure
 
 
 class StandardScaler:
@@ -95,10 +122,12 @@ class GraphBatch:
     y: np.ndarray            # [B] float32 (normalized target)
     y_orig: np.ndarray       # [B] float32 (original-scale target)
     sample_mask: np.ndarray  # [B] float32 (0 = padding row)
-    # the graph transformer's structure (None unless the dataset has it)
+    # a graph transformer's structure (None unless the dataset has it)
     degree: Optional[np.ndarray] = None      # [B, N] int8
     spd: Optional[np.ndarray] = None         # [B, N, N] int8
     path_types: Optional[np.ndarray] = None  # [B, N, N, hops] int8
+    edge_types: Optional[np.ndarray] = None  # [B, E] int8
+    rwse: Optional[np.ndarray] = None        # [B, N, 16] float32
 
     def as_dict(self) -> Dict[str, np.ndarray]:
         """The arrays by name; the structure's only where the batch has
@@ -162,8 +191,9 @@ class MolecularDataset:
         node_multiple: int = 8,
         verbose: bool = True,
         use_native: bool = True,
-        structure: bool = False,
+        structure: Union[bool, str] = False,
     ):
+        structure = _structure_kind(structure)
         targets = np.asarray(targets, dtype=np.float32).reshape(-1)
         native = use_native and fingerprint in _NATIVE_FPS \
             and featurizer in ("35", "5")
@@ -234,7 +264,16 @@ class MolecularDataset:
                 self.fp[i] = fps[i]
         self.n = n
         self.degree = self.spd = self.path_types = None
-        if structure:
+        self.edge_types = self.rwse = None
+        if structure == "edges":
+            self.edge_types = np.zeros((n, self.max_edges), np.int8)
+            self.rwse = np.zeros((n, self.max_nodes, RWSE_STEPS), np.float32)
+            for i, ((feats, edge_index), (types,)) in enumerate(
+                    zip(graphs, structs)):
+                self.edge_types[i, :types.shape[0]] = types
+                self.rwse[i, :feats.shape[0]] = random_walk_se(
+                    feats.shape[0], edge_index)
+        elif structure == "paths":
             mn = self.max_nodes
             self.degree = np.zeros((n, mn), np.int8)
             self.spd = np.full((n, mn, mn), -1, np.int8)
@@ -247,18 +286,25 @@ class MolecularDataset:
 
     @staticmethod
     def _featurize_python(smiles, targets, fingerprint, featurizer,
-                          verbose, structure=False):
+                          verbose, structure=None):
         """(graphs, fps, targets, smiles, indices) of the molecules that
         parse, through the Python chemistry layer; with ``structure`` a
-        graph is ``(features, edge_index, degree, spd, path_types)``."""
+        graph is ``(features, edge_index, degree, spd, path_types)``
+        (``"paths"``) or ``(features, edge_index, edge_types)``
+        (``"edges"``)."""
         graphs, fps, kept_targets, kept_smiles, kept_indices = \
             [], [], [], [], []
         fp_fn = FINGERPRINTS[fingerprint] if fingerprint else None
         for i, (smi, y) in enumerate(zip(smiles, targets)):
             try:
-                graph = smiles_to_structure(str(smi), featurizer) \
-                    if structure else smiles_to_graph(str(smi),
-                                                      featurizer=featurizer)
+                if structure == "paths":
+                    graph = smiles_to_structure(str(smi), featurizer)
+                elif structure == "edges":
+                    mol = parse_smiles(str(smi))
+                    graph = mol_to_graph(mol, featurizer)
+                    graph += (bond_types(mol, graph[1]),)
+                else:
+                    graph = smiles_to_graph(str(smi), featurizer=featurizer)
                 fp = fp_fn(str(smi))[0] if fp_fn else None
             except ValueError as e:
                 if verbose:
@@ -273,7 +319,7 @@ class MolecularDataset:
 
     @staticmethod
     def _featurize_native(smiles, targets, fingerprint, featurizer,
-                          verbose, structure=False):
+                          verbose, structure=None):
         """The same lists as :meth:`_featurize_python`, through the C++
         library (bit for bit the same graphs, fingerprints and structure),
         for the molecules that parse and fit :data:`NATIVE_BUDGET`; the
@@ -287,10 +333,12 @@ class MolecularDataset:
                 *NATIVE_BUDGET)
         with telemetry.span("featurize.native"):
             if structure:
-                (nodes, edges, _, edge_mask, fp, status, _, degree, spd,
+                # the bond types come with the paths' call (one hop is the
+                # least it computes)
+                (nodes, edges, _, edge_mask, fp, status, types, degree, spd,
                  path) = featurize_structure_native(
                     *args, fp_bits=fp_bits, use_features=use_features,
-                    hops=MAX_HOPS)
+                    hops=MAX_HOPS if structure == "paths" else 1)
             else:
                 nodes, edges, _, edge_mask, fp, status = \
                     featurize_batch_native(*args, fp_bits=fp_bits,
@@ -305,10 +353,13 @@ class MolecularDataset:
                           if status[i] == -1 else
                           f"[data] molecule exceeds native budget: {smi!r}")
                 continue
-            k = status[i]
-            graphs.append((nodes[i, :k], edges[i, :, :n_edges[i]]) + (
-                (degree[i, :k], spd[i, :k, :k], path[i, :k, :k])
-                if structure else ()))
+            k, e = status[i], n_edges[i]
+            extra = ()
+            if structure == "paths":
+                extra = (degree[i, :k], spd[i, :k, :k], path[i, :k, :k])
+            elif structure == "edges":
+                extra = (types[i, :e],)
+            graphs.append((nodes[i, :k], edges[i, :, :e]) + extra)
             fps.append(fp[i] if fp is not None else None)
             kept_targets.append(targets[i])
             kept_smiles.append(str(smi))
@@ -347,6 +398,9 @@ class MolecularDataset:
             st = dict(degree=self.degree[sel, :nodes],
                       spd=self.spd[sel, :nodes, :nodes],
                       path_types=self.path_types[sel, :nodes, :nodes])
+        if self.rwse is not None:
+            st = dict(edge_types=self.edge_types[sel, :edges],
+                      rwse=self.rwse[sel, :nodes])
         return GraphBatch(
             **st,
             nodes=self.nodes[sel, :nodes],
@@ -426,6 +480,11 @@ class MolecularDataset:
                 self.spd[idx][:, :bucket_nodes, :bucket_nodes])
             ds.path_types = np.ascontiguousarray(
                 self.path_types[idx][:, :bucket_nodes, :bucket_nodes])
+        ds.edge_types = ds.rwse = None
+        if self.rwse is not None:
+            ds.edge_types = np.ascontiguousarray(
+                self.edge_types[idx][:, :bucket_edges])
+            ds.rwse = np.ascontiguousarray(self.rwse[idx][:, :bucket_nodes])
         ds.n = int(idx.size)
         return ds
 

@@ -16,7 +16,9 @@ edge_mask             ``[n, E]`` float32         ``n_edges [n]`` int32
 fp (binary)           ``[n, nbits]`` float32     ``[n, nbits/8]`` uint8
 y / y_orig            ``[n]`` float32            (unchanged)
 degree, spd,          int8                       (unchanged)
-path_types
+path_types,
+edge_types
+rwse                  ``[n, N, 16]`` float32     (unchanged)
 ====================  =========================  =====================
 
 (*) uint8 when ``max_nodes <= 256``, else uint16 (held on the device as
@@ -28,8 +30,9 @@ integers, the masks are leading ones (``data/dataset.py`` fills
 equals the plain one bit for bit and training follows the same
 trajectory (``tests/test_torch_packed.py``).  A non-binary fingerprint
 stays float32 under the plain ``"fp"`` key; the other streams still pack.
-The graph transformer's structure (``degree``, ``spd``, ``path_types``;
-``data/dataset.py``) is int8 already and goes as it is, in both layouts.
+The graph transformers' structure (Graphormer's ``degree``, ``spd``,
+``path_types``, GraphGPS's ``edge_types`` and ``rwse``; ``data/
+dataset.py``) goes as it is, in both layouts.
 """
 
 from __future__ import annotations
@@ -43,8 +46,8 @@ __all__ = ["pack_dataset", "is_packed", "to_device", "gather_batch",
            "device_dataset", "batch_indices", "batches", "packed_nbytes",
            "plain_nbytes", "STRUCTURE"]
 
-# the graph transformer's int8 streams, carried as they are
-STRUCTURE = ("degree", "spd", "path_types")
+# the graph transformers' streams, carried as they are
+STRUCTURE = ("degree", "spd", "path_types", "edge_types", "rwse")
 
 
 def _check_integral(a: np.ndarray, lo: int, hi: int, what: str) -> None:
@@ -88,8 +91,8 @@ def pack_dataset(ds) -> Dict[str, np.ndarray]:
                                           bitorder="little")
     else:
         packed["fp"] = fp
-    if getattr(ds, "spd", None) is not None:
-        packed.update({k: getattr(ds, k) for k in STRUCTURE})
+    packed.update({k: getattr(ds, k) for k in STRUCTURE
+                   if getattr(ds, k, None) is not None})
     return packed
 
 

@@ -147,7 +147,7 @@ def predict_csv(ckpt_path: str, csv_path: str,
                           fingerprint=cfg.fingerprint,
                           featurizer=cfg.featurizer,
                           max_nodes=mn, max_edges=me, verbose=verbose,
-                          structure=cfg.needs_structure)
+                          structure=cfg.structure)
     preds = predict_dataset(model, cfg, scaler, ds, batch_size)
     metrics = regression_metrics(ds.y_orig, preds)
     if verbose:
@@ -211,7 +211,7 @@ class Predictor:
                         scaler=self.scaler, fingerprint=self.cfg.fingerprint,
                         featurizer=self.cfg.featurizer,
                         max_nodes=self.max_nodes, max_edges=self.max_edges,
-                        verbose=False, structure=self.cfg.needs_structure)
+                        verbose=False, structure=self.cfg.structure)
             except ValueError:
                 ds = None   # no valid molecules at all
             if ds is not None:

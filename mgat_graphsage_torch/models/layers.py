@@ -16,7 +16,12 @@ The graph transformer's layers (:class:`Table`, :class:`StructuralBias`,
 Graphormer's inputs instead: the layer works on ``x [B, N, D]`` with the
 graph token first, the structural bias ``[B, H, N, N]`` and the key mask.
 Their dropout masks are drawn on f32 tensors of the masked shape whatever
-the compute dtype, so a reference in f32 draws the same bits.
+the compute dtype, so a reference in f32 draws the same bits.  GraphGPS's
+layers (:class:`GatedGCNLayer`, :class:`GPSLayer`; ``models/zoo.py::
+GPSNet``) work on node states ``h [B, N, D]`` and edge states ``e [B, E,
+D]`` of the padded edge lists, with ``node_mask`` and ``edge_mask``; their
+batch norms are :class:`MaskedBatchNorm` over the real nodes or edges, and
+their dropout masks are drawn the same way.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from ..ops import (
 )
 from ..ops.attention import kernels_support
 from ..ops.biased_attention import biased_attention
+from ..ops.gated_message import gated_message
 from ..ops.structural_bias import structural_bias
 from ..parallel.distributed import (
     batch_sum,
@@ -73,6 +79,8 @@ __all__ = [
     "Table",
     "StructuralBias",
     "GraphormerLayer",
+    "GatedGCNLayer",
+    "GPSLayer",
     "keep_mask",
 ]
 
@@ -629,6 +637,15 @@ def keep_mask(shape, p: float, generator: Optional[torch.Generator],
     return keep > 0
 
 
+def _dropout(x: torch.Tensor, p: float, training: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout of ``x`` with a :func:`keep_mask` of its shape."""
+    if not training or p == 0.0:
+        return x
+    keep = keep_mask(x.shape, p, generator, x.device)
+    return x * keep.to(x.dtype) / (1.0 - p)
+
+
 class Table(nn.Module):
     """A learned table ``weight [*shape]`` (an embedding, or the edge
     encoder's per-hop matrices), drawn N(0, 0.02), the public Graphormer's
@@ -731,10 +748,100 @@ class GraphormerLayer(nn.Module):
         o = biased_attention(q, k, v, bias, key_mask, keep, p)
         x = x + self.out_proj(o.transpose(1, 2).reshape(b, n, d))
         y = F.gelu(self.fc1(self.ffn_norm(x)))
-        if self.training and self.dropout > 0.0:
-            keep = keep_mask(y.shape, self.dropout, generator, x.device)
-            y = y * keep.to(y.dtype) / (1.0 - self.dropout)
-        return x + self.fc2(y)
+        return x + self.fc2(_dropout(y, self.dropout, self.training,
+                                     generator))
+
+
+class GatedGCNLayer(nn.Module):
+    """The residual gated graph convnet layer with an edge stream, as the
+    public GraphGPS code runs it (``GatedGCNLayer``, residual on, batch
+    norms on)::
+
+        e'_ji = D h_i + E h_j + C e_ji ;  s_ji = sigmoid(e'_ji)
+        x_i   = A h_i + (sum_{j->i} s_ji B h_j) / (sum_{j->i} s_ji + 1e-6)
+        h <- h + dropout(ReLU(BN_x(x))) ;  e <- e + dropout(ReLU(BN_e(e')))
+
+    over the real edges (``ops/gated_message.py``), ``j`` an edge's source
+    and ``i`` its target.  In training the node state's keep-mask is drawn
+    before the edge state's."""
+
+    def __init__(self, dim: int, dropout: float = 0.1):
+        super().__init__()
+        self.dropout = float(dropout)
+        self.A, self.B, self.C, self.D, self.E = (TorchLinear(dim, dim)
+                                                  for _ in range(5))
+        self.bn_node_x = MaskedBatchNorm(dim)
+        self.bn_edge_e = MaskedBatchNorm(dim)
+
+    def forward(self, h: torch.Tensor, e: torch.Tensor, edges: torch.Tensor,
+                node_mask: torch.Tensor, edge_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        agg, e_new = gated_message(self.D(h), self.E(h), self.C(e), self.B(h),
+                                   edges, edge_mask)
+        x = F.relu(self.bn_node_x(self.A(h) + agg, node_mask))
+        e_new = F.relu(self.bn_edge_e(e_new, edge_mask))
+        x = _dropout(x, self.dropout, self.training, generator)
+        e_new = _dropout(e_new, self.dropout, self.training, generator)
+        return h + x, e + e_new
+
+
+class GPSLayer(nn.Module):
+    """One GraphGPS layer (Rampasek et al. 2022, Eq. 2-4; the public
+    ``GPSLayer`` with a GatedGCN and multi-head attention, batch norms)::
+
+        h_M = BN_1loc(GatedGCN(h, e))              (its own residual)
+        h_T = BN_1attn(h + dropout(MHA(h, h, h)))   (no bias, padded keys off)
+        h   = BN_2(h' + dropout(W2 dropout(ReLU(W1 h')))),  h' = h_M + h_T
+
+    ``MHA``: per-head ``q k^T / sqrt(d)``, keys outside ``node_mask`` at
+    -inf, dropout ``attention_dropout`` on the probabilities
+    (``ops/biased_attention.py`` with ``bias=None``), then ``out_proj``.
+    In training the keep-masks are drawn in this order: the GatedGCN's
+    node and edge states, the attention's probabilities, its output, the
+    FFN's hidden state, its output.  Returns ``(h, e)``."""
+
+    def __init__(self, dim: int, heads: int, ffn_dim: int,
+                 dropout: float = 0.1, attention_dropout: float = 0.1):
+        super().__init__()
+        if dim % heads:
+            raise ValueError(f"width {dim} is not a multiple of {heads} "
+                             "heads")
+        self.heads = heads
+        self.dropout = float(dropout)
+        self.attention_dropout = float(attention_dropout)
+        self.local_model = GatedGCNLayer(dim, dropout)
+        self.q_proj = TorchLinear(dim, dim)
+        self.k_proj = TorchLinear(dim, dim)
+        self.v_proj = TorchLinear(dim, dim)
+        self.out_proj = TorchLinear(dim, dim)
+        self.norm1_local = MaskedBatchNorm(dim)
+        self.norm1_attn = MaskedBatchNorm(dim)
+        self.ff_linear1 = TorchLinear(dim, ffn_dim)
+        self.ff_linear2 = TorchLinear(ffn_dim, dim)
+        self.norm2 = MaskedBatchNorm(dim)
+
+    def forward(self, h: torch.Tensor, e: torch.Tensor, edges: torch.Tensor,
+                node_mask: torch.Tensor, edge_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        b, n, d = h.shape
+        heads, train = self.heads, self.training
+        h_local, e = self.local_model(h, e, edges, node_mask, edge_mask,
+                                      generator)
+        h_local = self.norm1_local(h_local, node_mask)
+        q, k, v = (proj(h).view(b, n, heads, d // heads).transpose(1, 2)
+                   for proj in (self.q_proj, self.k_proj, self.v_proj))
+        keep, p = None, self.attention_dropout
+        if train and p > 0.0:
+            keep = keep_mask((b, heads, n, n), p, generator, h.device)
+        o = biased_attention(q, k, v, None, node_mask > 0, keep, p)
+        o = self.out_proj(o.transpose(1, 2).reshape(b, n, d))
+        h_attn = self.norm1_attn(
+            h + _dropout(o, self.dropout, train, generator), node_mask)
+        h = h_local + h_attn
+        y = _dropout(F.relu(self.ff_linear1(h)), self.dropout, train,
+                     generator)
+        y = _dropout(self.ff_linear2(y), self.dropout, train, generator)
+        return self.norm2(h + y, node_mask), e
 
 
 class CombinedNet(nn.Module):

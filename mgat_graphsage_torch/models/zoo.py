@@ -4,10 +4,11 @@ ChebNet (port of ``mgat_graphsage_tpu/models/zoo.py``).
 
 Input convention: ``(nodes [B, N, F], adj [B, N, N], node_mask [B, N])``,
 plus ``fp [B, nbits]`` for the hybrid, and ``generator`` (the dropout
-masks' source in training) last.  The graph transformer
-(:class:`GraphormerNet`) takes ``(nodes, node_mask, degree, spd,
-path_types)`` in their place.  Every model returns ``[B, 1]``
-predictions; the hybrid its latent too.  :func:`model_fields`,
+masks' source in training) last.  The graph transformers take others in
+their place: :class:`GraphormerNet` ``(nodes, node_mask, degree, spd,
+path_types)``, :class:`GPSNet` ``(nodes, node_mask, edges, edge_mask,
+edge_types, rwse)``.  Every model returns ``[B, 1]`` predictions; the
+hybrid its latent too.  :func:`model_fields`,
 :func:`model_inputs` and :func:`model_outputs` hold this convention for
 the trainer and the predictor alike.  Module names mirror the flax
 parameter tree, so ``state_dict`` keys read like its paths
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..chem.featurize import RWSE_STEPS
 from ..ops import (
     dense_adjacency,
     segment_max_pool,
@@ -39,6 +41,7 @@ from .layers import (
     GATConv,
     GCNConv,
     GINConv,
+    GPSLayer,
     GraphormerLayer,
     MaskedBatchNorm,
     ModifiedGATLayer,
@@ -49,7 +52,8 @@ from .layers import (
 )
 
 __all__ = ["GATGraphSAGE", "HybridModel", "GCNNet", "SAGENet", "GATNet",
-           "GATGCN", "GINConvNet", "ChebNet", "GraphormerNet", "kl_loss",
+           "GATGCN", "GINConvNet", "ChebNet", "GraphormerNet", "GPSNet",
+           "kl_loss",
            "build_model", "model_fields", "model_inputs", "model_outputs"]
 
 
@@ -365,21 +369,87 @@ class GraphormerNet(nn.Module):
         return self.head_out(h)
 
 
+class GPSNet(nn.Module):
+    """GraphGPS (Rampasek et al., NeurIPS 2022, arXiv:2205.12454;
+    github.com/rampasek/GraphGPS), its PCQM4Mv2 GPS-medium: ``layers``
+    :class:`GPSLayer`, each a GatedGCN with an edge stream beside
+    attention without a bias.
+
+    Input: ``h0 = cat(nodes @ atom_encoder, rwse_encoder(BN(rwse)))``, the
+    port's 35 one-hot features through a bias-free linear map to ``dim -
+    20``, and the atoms' 16 random-walk return probabilities
+    (``data/dataset.py``) through a batch norm over the real atoms and
+    ``Linear(16, 20)``; ``e0 = bond_encoder[edge_types]`` (type 0, the
+    padding, embeds to zero).  Readout: the mean of the last node states
+    over the real atoms, then ``dim -> dim/2 -> dim/4 -> 1`` with ReLU
+    between (the public ``san_graph`` head of two hidden layers).  The
+    walk's length and the encoding's width are the published ones."""
+
+    PE_DIM = 20
+
+    def __init__(self, in_features: int = 35, dim: int = 384,
+                 layers: int = 10, heads: int = 16, ffn_dim: int = 768,
+                 dropout: float = 0.1, attention_dropout: float = 0.1,
+                 bond_types: int = 4):
+        super().__init__()
+        self.atom_encoder = TorchLinear(in_features, dim - self.PE_DIM,
+                                        bias=False)
+        self.rwse_norm = MaskedBatchNorm(RWSE_STEPS)
+        self.rwse_encoder = TorchLinear(RWSE_STEPS, self.PE_DIM)
+        self.bond_encoder = Table(bond_types, dim)
+        self.layers = nn.ModuleList(
+            GPSLayer(dim, heads, ffn_dim, dropout, attention_dropout)
+            for _ in range(layers))
+        self.head_fc1 = TorchLinear(dim, dim // 2)
+        self.head_fc2 = TorchLinear(dim // 2, dim // 4)
+        self.head_out = TorchLinear(dim // 4, 1)
+
+    def forward(self, nodes: torch.Tensor, node_mask: torch.Tensor,
+                edges: torch.Tensor, edge_mask: torch.Tensor,
+                edge_types: torch.Tensor, rwse: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.atom_encoder(nodes)
+        # the walk's probabilities reach their norm in f32 (a bf16 input
+        # would round them by more than their spread)
+        pe = self.rwse_encoder(self.rwse_norm(rwse.float(), node_mask)
+                               .to(x.dtype))
+        h = torch.cat([x, pe], dim=-1)
+        table = self.bond_encoder.weight.float()
+        table = torch.cat([table.new_zeros(1, table.shape[1]), table])
+        e = F.embedding(edge_types.long(), table).to(h.dtype)
+        for layer in self.layers:
+            h, e = layer(h, e, edges, node_mask, edge_mask, generator)
+        m = node_mask.float().unsqueeze(-1)
+        pooled = (h.float() * m).sum(1) / torch.clamp_min(m.sum(1), 1.0)
+        x = F.relu(self.head_fc1(pooled.to(h.dtype)))
+        return self.head_out(F.relu(self.head_fc2(x)))
+
+
 def model_fields(cfg) -> Tuple[str, ...]:
     """The dataset fields that ``cfg``'s model reads."""
-    if cfg.needs_structure:
+    if cfg.model == "graphormer":
         return ("nodes", "node_mask", "degree", "spd", "path_types")
+    if cfg.model == "gps":
+        return ("nodes", "node_mask", "edges", "edge_mask", "edge_types",
+                "rwse")
     return ("nodes", "edges", "node_mask", "edge_mask") + (
         ("fp",) if cfg.is_hybrid else ())
 
 
 def model_inputs(cfg, batch, dtype: Optional[torch.dtype] = None) -> tuple:
     """``cfg``'s model's positional inputs (``generator`` aside) from a
-    batch with its ``sample_mask``, padding rows masked out.  The float
-    inputs are cast to ``dtype`` when given, the adjacency after its f32
-    build; the structure stays int8."""
-    node_mask = batch["node_mask"] * batch["sample_mask"].unsqueeze(1)
-    if cfg.needs_structure:
+    batch with its ``sample_mask``, padding rows masked out (GraphGPS's
+    edges too).  The float inputs are cast to ``dtype`` when given, the
+    adjacency after its f32 build; the structure and the edge lists stay
+    integers, and GraphGPS's random-walk encoding f32."""
+    cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
+    smask = batch["sample_mask"].unsqueeze(1)
+    node_mask = batch["node_mask"] * smask
+    if cfg.model == "gps":
+        return (cast(batch["nodes"]), cast(node_mask), batch["edges"],
+                cast(batch["edge_mask"] * smask), batch["edge_types"],
+                batch["rwse"])
+    if cfg.model == "graphormer":
         args = (batch["nodes"], node_mask)
         rest = (batch["degree"], batch["spd"], batch["path_types"])
     else:
@@ -388,9 +458,7 @@ def model_inputs(cfg, batch, dtype: Optional[torch.dtype] = None) -> tuple:
         args = (batch["nodes"], adj, node_mask) + (
             (batch["fp"],) if cfg.is_hybrid else ())
         rest = ()
-    if dtype is not None:
-        args = tuple(a.to(dtype) for a in args)
-    return args + rest
+    return tuple(cast(a) for a in args) + rest
 
 
 def model_outputs(cfg, out, latent: bool = True
@@ -429,6 +497,11 @@ def build_model(cfg) -> nn.Module:
             heads=cfg.n_heads, ffn_dim=cfg.ffn_dim,
             attention_dropout=cfg.attention_dropout,
             dropout=cfg.graph_dropout)
+    if cfg.model == "gps":
+        return GPSNet(feat, dim=cfg.hidden_dim, layers=cfg.n_layers,
+                      heads=cfg.n_heads, ffn_dim=cfg.ffn_dim,
+                      dropout=cfg.graph_dropout,
+                      attention_dropout=cfg.attention_dropout)
     baselines = {"sage": SAGENet, "gat": GATNet, "gat_gcn": GATGCN,
                  "gin": GINConvNet, "cheb": ChebNet}
     if cfg.model not in baselines:

@@ -1,11 +1,17 @@
 """Multi-head attention with an additive per-head bias and a key mask: the
-graph transformer's attention (``models/layers.py::GraphormerLayer``).
+graph transformers' attention (``models/layers.py::GraphormerLayer``, and
+``GPSLayer`` without a bias).
 
-For ``q, k, v [B, H, N, d]``, ``bias [B, H, N, N]`` (f32) and ``key_mask
-[B, N]`` (True where a key may be attended to)::
+For ``q, k, v [B, H, N, d]``, ``bias [B, H, N, N]`` (f32, or None for no
+bias) and ``key_mask [B, N]`` (True where a key may be attended to)::
 
     A = softmax(scale * q k^T + bias, masked keys at -inf)
     out = dropout(A) v
+
+A row with no valid key reads 0 on every path (a padded molecule of
+GraphGPS's batch has none).  With ``bias=None`` no path reads a bias or
+forms its gradient: the kernels read and write nothing ``[B, H, N, N]``
+but the keep-mask, and the bias's gradient is None.
 
 The dropout is a keep-mask given by the caller (drawn from the trainer's
 dropout generator, so a reference can draw the same), kept probabilities
@@ -35,9 +41,9 @@ path of the port: ``chip_smoke.py`` times it as the library's yardstick
 and a CPU test holds the explicit path against it; it is not counted.
 
 Each forward and backward is a ``graphormer.attention`` device span
-(``utils/telemetry.py``); the calls of the two paths are counted
-(:func:`counts`, ``/health``'s telemetry), the kernels' launches on their
-wrappers.
+(``utils/telemetry.py``); the calls of the two paths are counted, and
+those made without a bias apart as ``unbiased`` (:func:`counts`,
+``/health``'s telemetry), the kernels' launches on their wrappers.
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ MAX_N = 128                 # keys (and rows) of a block: csrc KT <= 8
 HEAD_DIMS = (8, 16, 24, 32)  # csrc D8 = d / 8 in 1..4
 
 _count_lock = threading.Lock()
-_COUNTS = {"explicit": 0, "kernel": 0}
+_COUNTS = {"explicit": 0, "kernel": 0, "unbiased": 0}
 
 
 def _count(path: str) -> None:
@@ -70,7 +76,8 @@ def _count(path: str) -> None:
 
 
 def counts() -> Dict[str, int]:
-    """The process's attention calls by path (``explicit``, ``kernel``)."""
+    """The process's attention calls by path (``explicit``, ``kernel``),
+    and those of either path made without a bias (``unbiased``)."""
     with _count_lock:
         return dict(_COUNTS)
 
@@ -83,24 +90,35 @@ def kernels_support(n: int, d: int, dtype: torch.dtype) -> bool:
 
 
 def _logits(q, k, bias, key_mask, scale):
-    s = torch.matmul(q, k.transpose(-1, -2)).float() * scale + bias
+    s = torch.matmul(q, k.transpose(-1, -2)).float() * scale
+    if bias is not None:
+        s = s + bias
     return s.masked_fill(~key_mask[:, None, None, :], float("-inf"))
 
 
+def _softmax(s, key_mask):
+    """The probabilities of logits ``s``; 0 in a row with no valid key
+    (where the softmax of -inf alone is NaN)."""
+    a = torch.softmax(s, dim=-1)
+    return torch.where(key_mask.any(-1)[:, None, None, None], a,
+                       a.new_zeros(()))
+
+
 class BiasedAttention(torch.autograd.Function):
-    """The explicit path (module docstring).  ``keep`` is a bool keep-mask
-    ``[B, H, N, N]`` or None, and ``p`` its drop rate; kept
-    probabilities are scaled by ``1 / (1 - p)``."""
+    """The explicit path (module docstring).  ``bias`` is f32 ``[B, H, N,
+    N]`` or None; ``keep`` is a bool keep-mask ``[B, H, N, N]`` or None,
+    and ``p`` its drop rate; kept probabilities are scaled by ``1 / (1 -
+    p)``."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, key_mask, keep: Optional[torch.Tensor],
                 p: float, scale: float):
         with telemetry.device_span("graphormer.attention", q.device):
-            a = torch.softmax(_logits(q, k, bias, key_mask, scale), dim=-1)
+            a = _softmax(_logits(q, k, bias, key_mask, scale), key_mask)
             ad = a if keep is None else a * keep / (1.0 - p)
             out = torch.matmul(ad.to(v.dtype), v)
         ctx.save_for_backward(q, k, v, a, keep)
-        ctx.p, ctx.scale = p, scale
+        ctx.p, ctx.scale, ctx.biased = p, scale, bias is not None
         return out
 
     @staticmethod
@@ -118,7 +136,8 @@ class BiasedAttention(torch.autograd.Function):
             dsq = ds.to(q.dtype)
             dq = torch.matmul(dsq, k) * scale
             dk = torch.matmul(dsq.transpose(-1, -2), q) * scale
-        return dq, dk, dv, ds, None, None, None, None
+        return dq, dk, dv, ds if ctx.biased else None, None, None, None, \
+            None
 
 
 # ---- the kernel's algorithm in plain torch ---------------------------------
@@ -129,8 +148,9 @@ def _rscale(p: float) -> float:
 
 
 def _plain_logits(q, k, bias, key_mask, scale, ct):
-    s = torch.matmul(q.to(ct), k.to(ct).transpose(-1, -2)) * scale \
-        + bias.to(ct)
+    s = torch.matmul(q.to(ct), k.to(ct).transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.to(ct)
     return s.masked_fill(~key_mask[:, None, None, :], float("-inf"))
 
 
@@ -171,7 +191,7 @@ def biased_attention_bwd_plain(q, k, v, out, g, bias, key_mask, lse,
     ``g``: the probabilities recomputed from ``lse``, ``D = rowsum(g *
     out)``, ``dS = P * (dP - D)`` the bias gradient (in the bias's dtype),
     and ``dS`` and the dropped probabilities rounded to the inputs' dtype
-    before their products."""
+    before their products; ``dbias`` is None without a bias."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     ct, dt = torch.promote_types(q.dtype, torch.float32), q.dtype
     s = _plain_logits(q, k, bias, key_mask, scale, ct)
@@ -185,7 +205,7 @@ def biased_attention_bwd_plain(q, k, v, out, g, bias, key_mask, lse,
     dk = (torch.matmul(dsq.transpose(-1, -2), q.to(ct)) * scale).to(dt)
     dv = torch.matmul((prob * kp).to(dt).to(ct).transpose(-1, -2),
                       gc).to(dt)
-    return dq, dk, dv, ds.to(bias.dtype)
+    return dq, dk, dv, None if bias is None else ds.to(bias.dtype)
 
 
 # ---- the kernels ------------------------------------------------------------
@@ -215,9 +235,10 @@ def _check(name: str, q, k, v, bias, key_mask, keep) -> None:
                          f"d in {HEAD_DIMS}, got N={n}, d={d}, "
                          f"{[t.dtype for t in (q, k, v)]}; gate with "
                          "kernels_support")
-    if bias.dtype != torch.float32 or tuple(bias.shape) != (b, h, n, n):
-        raise ValueError(f"{name}: bias must be f32 [B, H, N, N], got "
-                         f"{bias.dtype} {tuple(bias.shape)}")
+    if bias is not None and (bias.dtype != torch.float32
+                             or tuple(bias.shape) != (b, h, n, n)):
+        raise ValueError(f"{name}: bias must be f32 [B, H, N, N] or None, "
+                         f"got {bias.dtype} {tuple(bias.shape)}")
     if key_mask.dtype != torch.bool or tuple(key_mask.shape) != (b, n):
         raise ValueError(f"{name}: key_mask must be bool [B, N], got "
                          f"{key_mask.dtype} {tuple(key_mask.shape)}")
@@ -256,14 +277,15 @@ def biased_attention_cuda(q, k, v, bias, key_mask,
     q, k, v = _rows(q), _rows(k), _rows(v)
     if not (q.stride() == k.stride() == v.stride()):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    bias, key_mask = bias.contiguous(), key_mask.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    key_mask = key_mask.contiguous()
     keep = None if keep is None else keep.contiguous()
     out = torch.empty(b, n, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, n, dtype=torch.float32, device=q.device) \
         if stats else None
     with torch.cuda.device(q.device):
         err = load("biased_attention")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
             key_mask.data_ptr(), _ptr(keep), out.data_ptr(), _ptr(lse), b, h,
             n, d, *q.stride()[:3], scale, _rscale(p), _stream(q))
     if err:
@@ -281,7 +303,8 @@ def biased_attention_bwd_cuda(q, k, v, out, g, bias, key_mask, lse,
                               p: float = 0.0, scale: Optional[float] = None):
     """Backward kernel: ``(dq, dk, dv, dbias)`` for the output gradient
     ``g``, the first three bf16 ``[B, H, N, d]`` (transposes of ``[B, N,
-    H, d]`` buffers), ``dbias [B, H, N, N]`` f32.  On a CUDA tensor it
+    H, d]`` buffers), ``dbias [B, H, N, N]`` f32, or None (neither
+    allocated nor written) without a bias.  On a CUDA tensor it
     launches the kernel (or raises); on a CPU tensor it returns
     :func:`biased_attention_bwd_plain`."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
@@ -300,18 +323,19 @@ def biased_attention_bwd_cuda(q, k, v, out, g, bias, key_mask, lse,
     if not (q.stride() == k.stride() == v.stride()):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out, g = _rows(out), _rows(g)
-    bias, key_mask = bias.contiguous(), key_mask.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    key_mask = key_mask.contiguous()
     keep = None if keep is None else keep.contiguous()
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty(b, n, h, d, dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    dbias = torch.empty_like(bias)
+    dbias = None if bias is None else torch.empty_like(bias)
     with torch.cuda.device(q.device):
         err = load("biased_attention", "biased_attention_bwd_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            g.data_ptr(), bias.data_ptr(), key_mask.data_ptr(), _ptr(keep),
+            g.data_ptr(), _ptr(bias), key_mask.data_ptr(), _ptr(keep),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dbias.data_ptr(), b, h, n, d, *q.stride()[:3], *out.stride()[:3],
+            _ptr(dbias), b, h, n, d, *q.stride()[:3], *out.stride()[:3],
             *g.stride()[:3], scale, _rscale(p), _stream(q))
     if err:
         raise RuntimeError(f"biased_attention_bwd kernel launch failed: "
@@ -325,8 +349,8 @@ biased_attention_bwd_cuda.launches = 0
 
 class BiasedAttentionKernel(torch.autograd.Function):
     """The kernel path with its gradient: saves ``q``, ``k``, ``v``,
-    ``out``, ``lse``, ``keep`` (and the bias and key mask it recomputes
-    from), no ``[B, H, N, N]`` probabilities."""
+    ``out``, ``lse``, ``keep`` (and the bias, if any, and the key mask it
+    recomputes from), no ``[B, H, N, N]`` probabilities."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, key_mask, keep: Optional[torch.Tensor],
@@ -363,16 +387,18 @@ def biased_attention_sdpa(q, k, v, bias, key_mask, scale: float):
 def biased_attention(q, k, v, bias, key_mask,
                      keep: Optional[torch.Tensor] = None, p: float = 0.0,
                      scale: Optional[float] = None) -> torch.Tensor:
-    """``[B, H, N, d]``: the attention of the module docstring.  On CUDA,
-    where :func:`kernels_support` takes the shape, the kernel (with its
-    backward where a gradient is needed, the forward alone where none
-    is); else the explicit path."""
+    """``[B, H, N, d]``: the attention of the module docstring (``bias``
+    None for none).  On CUDA, where :func:`kernels_support` takes the
+    shape, the kernel (with its backward where a gradient is needed, the
+    forward alone where none is); else the explicit path."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     n, d = q.shape[-2:]
+    if bias is None:
+        _count("unbiased")
     if q.is_cuda and kernels_support(n, d, q.dtype):
         _count("kernel")
         if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v, bias)):
+                t is not None and t.requires_grad for t in (q, k, v, bias)):
             return BiasedAttentionKernel.apply(q, k, v, bias, key_mask, keep,
                                                p, scale)
         with telemetry.device_span("graphormer.attention", q.device):

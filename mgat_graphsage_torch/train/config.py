@@ -3,8 +3,9 @@
 
 The fields and presets are the reference package's, unchanged, so that a
 checkpoint sidecar's ``config`` dict loads here as it is; the port adds
-the graph transformer (``model="graphormer"``): its widths, read by no
-other model, and the preset ``graphormer_base``.  The comments
+the graph transformers (``model="graphormer"``, ``model="gps"``): their
+widths, read by no other model, and the presets ``graphormer_base`` and
+``graphgps_medium``.  The comments
 on each knob's measured effect live in the reference package; the
 port's own measurements are in ``PERF.md``.
 """
@@ -22,6 +23,7 @@ class TrainConfig:
     name: str = "flagship"
     model: str = "hybrid"          # hybrid | gat_graphsage | gcn | sage |
                                    # gat | gat_gcn | gin | cheb | graphormer
+                                   # | gps
     # graph-branch knobs (GATGraphSAGE axes)
     attention: str = "modified"    # modified | gat10
     residual: bool = True
@@ -67,8 +69,9 @@ class TrainConfig:
     remat: bool = False
     cnn_pallas_bwd: bool = False
     dataset_storage: str = "float32"
-    # the graph transformer's widths (model="graphormer"; the port's own):
-    # graph_dropout is the FFN's dropout there
+    # the graph transformers' widths (model="graphormer" or "gps"; the
+    # port's own): graph_dropout is the FFN's dropout in Graphormer, and
+    # every dropout but the attention's in GraphGPS
     n_layers: int = 12
     hidden_dim: int = 768
     ffn_dim: int = 768
@@ -80,10 +83,11 @@ class TrainConfig:
         return self.model == "hybrid"
 
     @property
-    def needs_structure(self) -> bool:
-        """The model reads the graph structure (``data/dataset.py``'s
-        ``structure=True``) in place of the adjacency."""
-        return self.model == "graphormer"
+    def structure(self) -> Optional[str]:
+        """The structure the model reads beside the atom features
+        (``data/dataset.py``'s ``structure``): ``"paths"`` for Graphormer,
+        ``"edges"`` for GraphGPS, else None (the dense adjacency)."""
+        return {"graphormer": "paths", "gps": "edges"}.get(self.model)
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
@@ -182,6 +186,21 @@ PRESETS: Dict[str, TrainConfig] = {
                           compute_dtype="bfloat16",
                           adam_moment_dtype="float32", lr=2e-4,
                           lr_schedule="warmup_cosine", warmup_steps=60000,
+                          weight_decay=0.0, kl_lambda=0.0, batch_size=1024,
+                          eval_batch_size=1024),
+    # --- GraphGPS GPS-medium (Rampasek et al., NeurIPS 2022,
+    # arXiv:2205.12454; github.com/rampasek/GraphGPS, configs/GPS/
+    # pcqm4m-GPSmedium+RWSE.yaml): 10 layers of width 384, each a GatedGCN
+    # with an edge stream beside 16-head attention without a bias, FFN 768,
+    # batch norms, dropout 0.1 and attention dropout 0.1; RWSE of 16 steps
+    # to 20 of the width; MSE on standardised targets, bf16 compute with f32
+    # master weights and f32 Adam moments ---
+    "graphgps_medium": _p(name="graphgps_medium", model="gps",
+                          fingerprint=None, n_layers=10, hidden_dim=384,
+                          ffn_dim=768, n_heads=16, graph_dropout=0.1,
+                          attention_dropout=0.1, compute_dtype="bfloat16",
+                          adam_moment_dtype="float32", lr=2e-4,
+                          lr_schedule="warmup_cosine", warmup_steps=33000,
                           weight_decay=0.0, kl_lambda=0.0, batch_size=1024,
                           eval_batch_size=1024),
 }

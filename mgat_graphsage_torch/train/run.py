@@ -130,13 +130,13 @@ def main(argv=None):
     train = MolecularDataset(sm, y, fit_scaler=cfg.scale_targets,
                              fingerprint=cfg.fingerprint,
                              featurizer=cfg.featurizer,
-                             structure=cfg.needs_structure)
+                             structure=cfg.structure)
     val = MolecularDataset(vs, vy, scaler=train.scaler,
                            fingerprint=cfg.fingerprint,
                            featurizer=cfg.featurizer,
                            max_nodes=train.max_nodes,
                            max_edges=train.max_edges,
-                           structure=cfg.needs_structure)
+                           structure=cfg.structure)
 
     ckpt_dir = os.path.join(args.ckpt_dir, cfg.name)
     trainer = Trainer(cfg, train, val, ckpt_dir=ckpt_dir,

@@ -11,11 +11,11 @@ call by ``models/zoo.py::model_inputs``, as ``eval/predict.py`` serves.
   (reference ``train.py:244-246``); the rows padding the final batch are
   masked out of ``node_mask``, so they are inert, in the batch norms'
   statistics too;
-- every model of ``models/zoo.py`` trains here, the graph transformer on
-  datasets built with ``structure=True``.  GIN's batch norms
-  update their running statistics in the train step (the reference's
-  ``batch_stats``) and :meth:`Trainer.evaluate` uses them; they are
-  buffers, so checkpoints and the best state carry them;
+- every model of ``models/zoo.py`` trains here, the graph transformers on
+  datasets built with their ``structure`` (``TrainConfig.structure``).
+  GIN's batch norms update their running statistics in the train step
+  (the reference's ``batch_stats``) and :meth:`Trainer.evaluate` uses
+  them; they are buffers, so checkpoints and the best state carry them;
 - torch Adam with L2 coupled into the gradient (``train/optim.py``), the
   constant or warmup+cosine lr on the 1-based step count;
 - ``dataset_storage="compact"`` keeps the dataset packed on the device
@@ -155,11 +155,12 @@ class Trainer:
                  ckpt_dir: Optional[str] = None,
                  log_path: Optional[str] = None, device=None):
         check_ported(cfg)
-        if cfg.needs_structure and not all(
-                d is None or getattr(d, "spd", None) is not None
-                for d in (train_ds, val_ds)):
+        if cfg.structure and not all(
+                d is None or getattr(d, f, None) is not None
+                for d in (train_ds, val_ds) for f in model_fields(cfg)):
             raise ValueError(f"model {cfg.model!r} reads the graph structure: "
-                             "build its datasets with structure=True")
+                             f"build its datasets with "
+                             f"structure={cfg.structure!r}")
         self.mesh = mesh if mesh is not None else \
             (make_mesh() if use_mesh else None)
         if cfg.cnn_pallas_bwd and self._model_ways > 1:

@@ -28,9 +28,11 @@
   the launch counters the kernel wrappers keep (``launches``,
   ``launches_bf16``) and the native featuriser's counters (``calls``,
   ``parallel_calls``, ``molecules``, ``workers``), the graph
-  transformer's attention calls and structural bias builds by path
-  (``attention``, ``structural_bias``) and the device spans' totals
-  (``device_spans``), read from where they are kept.
+  transformers' attention calls by path (and those without a bias),
+  structural bias builds by path and gated message calls with their real
+  edges and edge slots (``attention``, ``structural_bias``,
+  ``gated_message``) and the device spans' totals (``device_spans``), read
+  from where they are kept.
 
 Request threads and the serving dispatch thread use it at once: the totals
 and the deques sit under one lock.  ``SPANS`` names every span the
@@ -67,6 +69,8 @@ SPANS = (
     "graphormer.bias",      # the structural attention bias's build
     "graphormer.attention",  # each layer's attention, forward and backward
     "graphormer.bias_grad",  # the bias kernels' backward: the tables' sums
+    # device span, ops/gated_message.py (models/zoo.py::GPSNet)
+    "gps.message",          # each layer's gated message passing, fwd and bwd
 )
 MAX_RECORDS = 4096
 
@@ -267,8 +271,8 @@ class Registry:
         """``{"spans": {name: {"seconds", "count"}}, "units": {kind:
         {"seconds", "count"}}, "launches": {wrapper: count}, "featurize":
         {counter: count}, "attention": {path: calls}, "structural_bias":
-        {path: calls}, "device_spans": {name: {"seconds", "count"}}}``:
-        the process totals, JSON-ready."""
+        {path: calls}, "gated_message": {counter: count}, "device_spans":
+        {name: {"seconds", "count"}}}``: the process totals, JSON-ready."""
         with self._lock:
             spans = {k: {"seconds": v[0] * 1e-9, "count": v[1]}
                      for k, v in self._spans.items()}
@@ -277,12 +281,13 @@ class Registry:
             device = {k: {"seconds": v[0], "count": v[1]}
                       for k, v in self._device.items()}
         from ..chem import native
-        from ..ops import biased_attention, structural_bias
+        from ..ops import biased_attention, gated_message, structural_bias
 
         return {"spans": spans, "units": units, "launches": _launches(),
                 "featurize": native.counts(),
                 "attention": biased_attention.counts(),
                 "structural_bias": structural_bias.counts(),
+                "gated_message": gated_message.counts(),
                 "device_spans": device}
 
 

@@ -11,7 +11,15 @@ f64; the support check's limits; and the CPU taking the explicit path.
 On the card (marked ``card``; they skip without CUDA): the kernels against
 the plain version in bf16 at the training cell's shape (B = 1024, H = 32,
 N = 81, d = 24) and at small ones, bit-for-bit repeats, and a training
-layer whose attention goes through the kernels.  This file imports no JAX,
+layer whose attention goes through the kernels; without a bias
+(``bias=None``, GraphGPS's attention), the kernels against the plain
+version at GraphGPS's cell shape (B = 1024, H = 16, N = 80, d = 24) and at
+small ones, and a ``GPSLayer`` in training on the kernels.
+
+Without a bias, on the CPU: the plain twins and the explicit path with
+``bias=None`` against the same with a zero bias, the two paths against
+each other, and ``None`` for the bias's gradient; a molecule with no valid
+key reads zeros on the explicit path too.  This file imports no JAX,
 so on the card it runs without the suite's ``conftest.py``::
 
     python3 -m pytest --noconftest -q tests/test_torch_biased_attention.py
@@ -93,6 +101,57 @@ def test_row_without_a_valid_key_gives_zeros():
         assert (t[1] == 0).all() and torch.isfinite(t).all()
 
 
+@pytest.mark.parametrize("dropout", [0.0, 0.3])
+def test_no_bias_is_a_zero_bias(dropout):
+    """``bias=None`` on the plain twins and on the explicit path gives a
+    zero bias's outputs to the bit, and no bias gradient (None); the
+    kernel path's ``autograd.Function`` on the CPU agrees with the
+    explicit path within 1e-5 of each norm, as with a bias."""
+    q, k, v, _, key_mask, keep = _inputs(3, 4, 21, 8, dropout=dropout,
+                                         lonely=True)
+    zero = torch.zeros(3, 4, 21, 21)
+    out, lse = ba.biased_attention_fwd_plain(q, k, v, None, key_mask, keep,
+                                             dropout)
+    want = ba.biased_attention_fwd_plain(q, k, v, zero, key_mask, keep,
+                                         dropout)
+    assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+    g = torch.randn(3, 4, 21, 8, generator=torch.Generator().manual_seed(4))
+    got = ba.biased_attention_bwd_plain(q, k, v, out, g, None, key_mask, lse,
+                                        keep, dropout)
+    want = ba.biased_attention_bwd_plain(q, k, v, out, g, zero, key_mask,
+                                         lse, keep, dropout)
+    assert got[3] is None
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    grads = []
+    for fn, bias in ((ba.BiasedAttention, None), (ba.BiasedAttention, zero),
+                     (ba.BiasedAttentionKernel, None)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fn.apply(*leaves, bias, key_mask, keep, dropout, 8 ** -0.5)
+        (o * g).sum().backward()
+        grads.append([o.detach()] + [t.grad for t in leaves])
+    for a, b in zip(grads[0], grads[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(grads[2], grads[0]):
+        assert _rel(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_explicit_path_reads_zeros_without_a_valid_key(bias):
+    """A molecule with no valid key (a padded molecule of GraphGPS's batch)
+    reads 0 and passes zero gradients on the explicit path, as on the
+    kernels, and leaves the other molecules' results finite."""
+    q, k, v, b, key_mask, _ = _inputs(2, 2, 5, 4)
+    key_mask[1] = False
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ba.BiasedAttention.apply(*leaves, b if bias else None, key_mask,
+                                   None, 0.0, 0.5)
+    out.square().sum().backward()
+    assert (out[1] == 0).all() and torch.isfinite(out).all()
+    for t in leaves:
+        assert (t.grad[1] == 0).all() and torch.isfinite(t.grad).all()
+
+
 @pytest.mark.parametrize("dropout", [0.0, 0.25])
 def test_kernel_path_gradcheck_f64(dropout):
     """``gradcheck`` of the kernel path's ``autograd.Function`` in f64 on
@@ -134,11 +193,12 @@ def test_cpu_takes_the_explicit_path(grad):
     launches = (ba.biased_attention_cuda.launches,
                 ba.biased_attention_bwd_cuda.launches)
     out = ba.biased_attention(q, k, v, bias, key_mask)
+    ba.biased_attention(q, k, v, None, key_mask)
     if grad:
         out.float().sum().backward()
     after = ba.counts()
     assert {p: after[p] - before[p] for p in after} == {
-        "explicit": 1, "kernel": 0}
+        "explicit": 2, "kernel": 0, "unbiased": 1}
     assert launches == (ba.biased_attention_cuda.launches,
                         ba.biased_attention_bwd_cuda.launches)
 
@@ -159,6 +219,12 @@ def test_cpu_wrappers_return_the_plain_version():
                                          lse, keep, 0.2)
     for got, w in zip(grads, want):
         assert torch.equal(got, w)
+    out, lse = ba.biased_attention_cuda(q, k, v, None, key_mask, keep, 0.2,
+                                        stats=True)
+    assert torch.equal(out, ba.biased_attention_fwd_plain(
+        q, k, v, None, key_mask, keep, 0.2)[0])
+    assert ba.biased_attention_bwd_cuda(q, k, v, out, g, None, key_mask, lse,
+                                        keep, 0.2)[3] is None
 
 
 def test_plain_bf16_rounds_where_the_kernel_does():
@@ -278,7 +344,81 @@ def test_training_layer_runs_the_kernels(cuda):
     torch.cuda.synchronize()
     after = ba.counts()
     assert {p: after[p] - before[p] for p in after} == {
-        "explicit": 0, "kernel": 2}
+        "explicit": 0, "kernel": 2, "unbiased": 0}
     assert ba.biased_attention_cuda.launches - fwd == 2
     assert ba.biased_attention_bwd_cuda.launches - bwd == 1
     assert torch.isfinite(bias.grad).all() and torch.isfinite(x.grad).all()
+
+
+GPS_CARD = [pytest.param(1024, 16, 80, 24, 0.1, id="gps-b1024-h16-n80-d24"),
+            pytest.param(3, 4, 21, 24, 0.0, id="n21-d24-no-dropout"),
+            pytest.param(2, 3, 1, 8, 0.0, id="n1-d8"),
+            pytest.param(2, 5, 64, 32, 0.1, id="n64-d32"),
+            pytest.param(2, 2, 128, 24, 0.1, id="n128-d24")]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("b,h,n,d,p", GPS_CARD)
+def test_kernels_without_a_bias_match_plain_on_the_card(cuda, b, h, n, d, p):
+    """The kernels with ``bias=None`` against the plain version with
+    ``bias=None`` on the card, forward with and without the statistics
+    and backward, with a molecule that has no valid key (a padded row of
+    GraphGPS's batch): the tolerances of
+    :func:`test_kernels_match_plain_on_the_card`, no bias gradient, and
+    the grad-free forward the same bits as the one with statistics."""
+    q, k, v, _, key_mask, keep = _inputs(
+        b, h, n, d, seed=n + d + 1, dtype=torch.bfloat16, device=cuda,
+        dropout=p)
+    key_mask[-1] = False
+    out, lse = ba.biased_attention_cuda(q, k, v, None, key_mask, keep, p,
+                                        stats=True)
+    free = ba.biased_attention_cuda(q, k, v, None, key_mask, keep, p)[0]
+    want_out, want_lse = ba.biased_attention_fwd_plain(q, k, v, None,
+                                                       key_mask, keep, p)
+    g = torch.randn(b, h, n, d, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2)
+                    ).to(torch.bfloat16)
+    grads = ba.biased_attention_bwd_cuda(q, k, v, out, g, None, key_mask,
+                                         lse, keep, p)
+    want = ba.biased_attention_bwd_plain(q, k, v, out, g, None, key_mask,
+                                         lse, keep, p)
+    torch.cuda.synchronize()
+    assert torch.equal(free, out)
+    assert _max_err(out, want_out) <= 1e-2
+    assert _max_err(lse[:-1], want_lse[:-1]) <= 1e-5
+    assert (out[-1] == 0).all() and torch.isinf(lse[-1]).all()
+    assert grads[3] is None and want[3] is None
+    for name, got, w in zip(("dq", "dk", "dv"), grads[:3], want[:3]):
+        assert torch.isfinite(got).all(), name
+        assert _max_err(got, w) <= 1e-2, name
+        assert (got[-1] == 0).all(), name
+
+
+@pytest.mark.card
+def test_gps_layer_runs_the_kernels_without_a_bias(cuda):
+    """A bf16 ``GPSLayer`` in training on the card: its attention is one
+    forward and one backward launch with no bias, counted under
+    ``kernel`` and ``unbiased``, with no explicit call."""
+    from mgat_graphsage_torch.models.layers import GPSLayer
+
+    layer = GPSLayer(48, 2, 96).to(cuda, torch.bfloat16).train()
+    b, n, e = 4, 9, 16
+    x = torch.randn(b, n, 48, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    ea = torch.randn(b, e, 48, device=cuda, dtype=torch.bfloat16)
+    edges = torch.randint(0, n, (b, 2, e), device=cuda)
+    node_mask = torch.ones(b, n, device=cuda, dtype=torch.bfloat16)
+    edge_mask = torch.ones(b, e, device=cuda, dtype=torch.bfloat16)
+    before = ba.counts()
+    fwd, bwd = (ba.biased_attention_cuda.launches,
+                ba.biased_attention_bwd_cuda.launches)
+    h, ea2 = layer(x, ea, edges, node_mask, edge_mask,
+                   torch.Generator(cuda).manual_seed(0))
+    (h.float().square().sum() + ea2.float().sum()).backward()
+    torch.cuda.synchronize()
+    after = ba.counts()
+    assert {p: after[p] - before[p] for p in after} == {
+        "explicit": 0, "kernel": 1, "unbiased": 1}
+    assert ba.biased_attention_cuda.launches - fwd == 1
+    assert ba.biased_attention_bwd_cuda.launches - bwd == 1
+    assert torch.isfinite(x.grad).all()

@@ -175,7 +175,7 @@ def test_predict_dataset_is_trainer_evaluate(preset, overrides):
     ds = MolecularDataset(smiles[:21], y[:21], fit_scaler=cfg.scale_targets,
                           fingerprint=cfg.fingerprint,
                           featurizer=cfg.featurizer,
-                          structure=cfg.needs_structure, verbose=False)
+                          structure=cfg.structure, verbose=False)
     trainer = Trainer(cfg, ds, device="cpu")
     state = trainer.init_state()
     want = trainer.evaluate(state, ds)["pred_denorm"]

@@ -255,9 +255,9 @@ def test_spans_names_every_span_the_program_opens():
                         r'telemetry\.(?:device_)?span\("([^"]+)"[,)]',
                         fh.read()))
     assert opened == set(telemetry.SPANS)
-    assert len(telemetry.SPANS) == len(set(telemetry.SPANS)) == 14
+    assert len(telemetry.SPANS) == len(set(telemetry.SPANS)) == 15
     assert {"graphormer.bias", "graphormer.attention",
-            "graphormer.bias_grad"} <= set(telemetry.SPANS)
+            "graphormer.bias_grad", "gps.message"} <= set(telemetry.SPANS)
 
 
 class _FakeEvent:
@@ -344,7 +344,7 @@ def test_snapshot_counts_the_attention_calls():
     biased_attention_sdpa(x, x, x, torch.zeros(1, 1, 2, 2), mask, 0.5)
     after = telemetry.snapshot()["attention"]
     assert {k: after[k] - before[k] for k in after} == {
-        "explicit": 1, "kernel": 0}
+        "explicit": 1, "kernel": 0, "unbiased": 0}
 
 
 def test_snapshot_reads_the_wrappers_launch_counters(monkeypatch):
