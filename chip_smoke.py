@@ -239,7 +239,16 @@ Phases (any failure raises and the script exits non-zero):
    training and one grad-free call, and the times beside their bounds
    (alone: ``python3 -c "import torch, chip_smoke as c;
    c.graphormer_attention_phase(torch, c.DeviceTimer(torch),
-   biased=False)"``).
+   biased=False)"``);
+22. GraphGPS's gated message passing kernels (``csrc/gated_message.cu``)
+   at the ``graphgps_medium.train`` cell's shape (B=1024, N=80, E=176,
+   D=384, bf16) on 1024 of its own molecules: the forward's ``e`` against
+   the explicit path bit for bit, ``agg`` and the four input gradients
+   against an f64 sum and against themselves on a second run, the
+   launches of one training and one grad-free call, then both times
+   beside their byte bounds, the plain versions' and the explicit path's,
+   which is the library's column (alone: ``python3 -c "import torch,
+   chip_smoke as c; c.gated_message_phase(torch, c.DeviceTimer(torch))"``).
 
 Kernel times come from CUDA events around back-to-back launches queued
 behind a device-side sleep, so the host's launch cost is not in them.
@@ -256,7 +265,8 @@ row's ``mesh_launches``, its launches on each rank of phase 18's (b); the
 three rows of phase 19, ``biased_attention_fwd``, ``_bwd`` and ``_eval``,
 the two of phase 20, ``structural_bias_fwd`` and ``_bwd``, and the three
 of phase 21, ``biased_attention_fwd_unbiased``, ``_bwd_unbiased`` and
-``_eval_unbiased``, with their ``launches``), then
+``_eval_unbiased``, with their ``launches``, and the two of phase 22,
+``gated_message_fwd`` and ``_bwd``), then
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2810,6 +2820,139 @@ def structural_bias_phase(torch, timer, seed=0):
     return rows
 
 
+def gated_message_bytes(b, n, e, d, width=2, backward=False):
+    """Bytes the gated message kernels must move, each row once: forward,
+    dh, eh, bh and ce read, agg and e written (4 node and 2 edge tensors);
+    backward, the two gradients, dh, eh, bh and ce read, ddh, deh, dbh and
+    dce written (7 node and 3 edge tensors)."""
+    node, edge = b * n * d * width, b * e * d * width
+    return 7 * node + 3 * edge if backward else 4 * node + 2 * edge
+
+
+def gated_message_phase(torch, timer, seed=0):
+    """Phase 22: GraphGPS's gated message passing kernels
+    (``csrc/gated_message.cu``) at the ``graphgps_medium.train`` cell's
+    shape on its own molecules: 1024 of the bundled training molecules
+    drawn with ``seed``, featurised with their edge lists at the cell's
+    budget (N = 80, E = 176), D = 384, bf16 rows drawn from ``seed``.  The
+    forward's ``e`` against the explicit path (bit for bit), ``agg`` and
+    the backward's four gradients against an f64 sum of the plain version
+    (within 2^-7 of each value plus 1e-5 of the output's largest: twice
+    bf16's rounding, and the f32 sums) and against a second run (the same bits);
+    the launches of one training and one grad-free call through
+    ``gated_message`` (two forward, one backward, counted under
+    ``kernel``); then their times beside their bounds (bytes at 3.35
+    TB/s), the plain versions' and the explicit path's (``GatedMessage``:
+    its forward, and its backward through autograd as the difference of
+    forward and backward against the forward alone).  Returns the two
+    kernel rows."""
+    from mgat_graphsage_torch.data import TRAIN_CSV, MolecularDataset, load_csv
+    from mgat_graphsage_torch.ops import gated_message as gm
+
+    dev = torch.device("cuda")
+    b, d, bf = 1024, 384, torch.bfloat16
+    smiles, y = load_csv(TRAIN_CSV)
+    pick = np.random.default_rng(seed).choice(len(smiles), b, replace=False)
+    ds = MolecularDataset([smiles[i] for i in pick], y[pick],
+                          fingerprint=None, max_nodes=BUDGET[0],
+                          max_edges=BUDGET[1], structure="edges",
+                          verbose=False)
+    edges = torch.as_tensor(ds.edges, device=dev).to(torch.int32)
+    mask = torch.as_tensor(ds.edge_mask, device=dev).to(bf)
+    n, e = ds.nodes.shape[1], edges.shape[2]
+    gen = torch.Generator(dev).manual_seed(seed)
+    dh, eh, bh = (torch.randn(b, n, d, device=dev, generator=gen).to(bf)
+                  for _ in range(3))
+    ce = torch.randn(b, e, d, device=dev, generator=gen).to(bf)
+    g_agg = torch.randn(b, n, d, device=dev, generator=gen).to(bf)
+    g_e = torch.randn(b, e, d, device=dev, generator=gen).to(bf)
+    x = (dh, eh, ce, bh)
+    src, dst = gm._flat(edges, n)
+    flat_mask = mask.reshape(-1)
+
+    fwd = [gm.gated_message_cuda(*x, edges, mask) for _ in range(2)]
+    bwd = [gm.gated_message_bwd_cuda(g_agg, g_e, *x, edges, mask)
+           for _ in range(2)]
+    want_e = gm.GatedMessage.apply(*x, src, dst, flat_mask)[1]
+    x64 = [t.double() for t in x]
+    exact = gm.gated_message_fwd_plain(*x64, edges, mask.double())[:1] \
+        + gm.gated_message_bwd_plain(g_agg.double(), g_e.double(), *x64,
+                                     edges, mask.double())
+    torch.cuda.synchronize()
+    assert torch.equal(fwd[0][1], want_e), "forward e != explicit path"
+    for a, c in zip(fwd[0] + bwd[0], fwd[1] + bwd[1]):
+        assert torch.equal(a, c), "gated message kernels not repeatable"
+    errs = {}
+    for nm, got, w in zip(("agg", "ddh", "deh", "dce", "dbh"),
+                          fwd[0][:1] + bwd[0], exact):
+        diff = (got.double() - w).abs()
+        tol = 2.0 ** -7 * w.abs() + 1e-5 * w.abs().max()
+        assert bool((diff <= tol).all()), nm
+        errs[nm] = float(diff.max() / w.abs().max())
+    del exact, x64, want_e, bwd
+
+    before = gm.counts()
+    launches = (gm.gated_message_cuda.launches_bf16,
+                gm.gated_message_bwd_cuda.launches_bf16)
+    leaves = [t.detach().requires_grad_(True) for t in x]
+    agg, e_out = gm.gated_message(*leaves, edges, mask)
+    torch.autograd.backward((agg, e_out), (g_agg, g_e))
+    with torch.no_grad():
+        gm.gated_message(*x, edges, mask)
+    torch.cuda.synchronize()
+    after = gm.counts()
+    calls = {p: after[p] - before[p] for p in ("kernel", "explicit")}
+    got_launches = (gm.gated_message_cuda.launches_bf16 - launches[0],
+                    gm.gated_message_bwd_cuda.launches_bf16 - launches[1])
+    assert calls == {"kernel": 2, "explicit": 0}, calls
+    assert got_launches == (2, 1), got_launches
+    del leaves, agg, e_out
+
+    def explicit(backward):
+        leaves = [t.detach().requires_grad_(backward) for t in x]
+        out = gm.GatedMessage.apply(*leaves, src, dst, flat_mask)
+        if backward:
+            torch.autograd.backward(out, (g_agg, g_e))
+
+    fwd_ms = timer(lambda: gm.gated_message_cuda(*x, edges, mask), iters=50)
+    bwd_ms = timer(lambda: gm.gated_message_bwd_cuda(
+        g_agg, g_e, *x, edges, mask), iters=50)
+    plain_fwd_ms = timer(lambda: gm.gated_message_fwd_plain(
+        *x, edges, mask), iters=10)
+    plain_bwd_ms = timer(lambda: gm.gated_message_bwd_plain(
+        g_agg, g_e, *x, edges, mask), iters=10)
+    with torch.no_grad():
+        exp_fwd_ms = timer(lambda: explicit(False), iters=10)
+    exp_both_ms = timer(lambda: explicit(True), iters=10)
+    real = float(mask.float().mean())
+    rows = []
+    for name, ms, backward, plain_ms, exp_ms in (
+            ("gated_message_fwd", fwd_ms, False, plain_fwd_ms, exp_fwd_ms),
+            ("gated_message_bwd", bwd_ms, True, plain_bwd_ms,
+             exp_both_ms - exp_fwd_ms)):
+        nbytes = gated_message_bytes(b, n, e, d, 2, backward)
+        bnd = bound(nbytes, 0)
+        rows.append({"name": name, "route": "cuda", "dtype": "bfloat16",
+                     "source": "mgat_graphsage_torch/csrc/gated_message.cu",
+                     "replaces": None, "shape": [b, n, e, d],
+                     "real_slots": real, "ms": ms, "bound_ms": bnd[0],
+                     "bound_by": bnd[1], "bound_share": bnd[0] / ms,
+                     "bytes_per_s": nbytes / ms * 1e3,
+                     "plain_ms": plain_ms, "explicit_ms": exp_ms,
+                     "library_ms": exp_ms,
+                     "launches": got_launches[1 if backward else 0]})
+        log(f"[22] {name}: {ms:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}, share {bnd[0] / ms:.3f}, "
+            f"{nbytes / ms / 1e6:.0f} GB/s); plain {plain_ms:.3f} ms, "
+            f"explicit {exp_ms:.3f} ms")
+    log(f"[22] {real:.4f} of the slots real; e equals the explicit path's "
+        "bit for bit; both kernels repeat bit for bit; against f64 (of the "
+        "largest): " + ", ".join(f"{nm} {v:.2e}" for nm, v in errs.items())
+        + f"; one training and one grad-free call: {calls}, launches "
+        f"{got_launches}")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3420,6 +3563,9 @@ def main(argv=None) -> int:
     # ---- 21. GraphGPS's attention: the same kernels without a bias --------
     graphormer_rows += graphormer_attention_phase(torch, timer, args.seed,
                                                   biased=False)
+
+    # ---- 22. GraphGPS's gated message passing kernels ----------------------
+    graphormer_rows += gated_message_phase(torch, timer, args.seed)
 
     train_counts = runs[True]["counts"]
     kernels = [

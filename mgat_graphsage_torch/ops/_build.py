@@ -13,8 +13,9 @@ followed recursively) and the flags, so an edited source or header
 rebuilds.
 Nothing is built when a module is imported: the wrappers in
 ``ops/adjacency.py``, ``ops/attention.py``, ``ops/cnn.py``,
-``ops/biased_attention.py`` and ``ops/structural_bias.py`` call
-:func:`load` when they first launch on a CUDA tensor.  :func:`build_all` starts one ``nvcc`` per
+``ops/biased_attention.py``, ``ops/structural_bias.py`` and
+``ops/gated_message.py`` call :func:`load` when they first launch on a
+CUDA tensor.  :func:`build_all` starts one ``nvcc`` per
 source at once, for callers that want every kernel ready up front.
 ``nvcc`` is found through ``$CUDA_HOME``, then ``$PATH``, then the
 toolkit's standard location.  A failed build raises with nvcc's output;
@@ -66,6 +67,8 @@ KERNELS: Dict[str, tuple] = {
                          [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _F, _P]),
     "structural_bias": ("structural_bias_fwd_launch",
                         [_P] * 6 + [_I] * 5 + [_P]),
+    "gated_message": ("gated_message_fwd_launch",
+                      [_P] * 8 + [_I] * 5 + [_P]),
 }
 # further entry points of a source (bf16 variants, a backward): symbol ->
 # argtypes
@@ -78,6 +81,8 @@ ENTRIES: Dict[str, list] = {
     # the backward of csrc/structural_bias.cu: its grid, then its launches
     "structural_bias_bwd_blocks": [_I] * 5,
     "structural_bias_bwd_launch": [_P] * 7 + [_I] * 6 + [_P],
+    # the backward of csrc/gated_message.cu
+    "gated_message_bwd_launch": [_P] * 12 + [_I] * 5 + [_P],
 }
 
 _loaded: Dict[str, object] = {}

@@ -29,8 +29,8 @@
   ``launches_bf16``) and the native featuriser's counters (``calls``,
   ``parallel_calls``, ``molecules``, ``workers``), the graph
   transformers' attention calls by path (and those without a bias),
-  structural bias builds by path and gated message calls with their real
-  edges and edge slots (``attention``, ``structural_bias``,
+  structural bias builds by path and gated message calls by path with
+  their real edges and edge slots (``attention``, ``structural_bias``,
   ``gated_message``) and the device spans' totals (``device_spans``), read
   from where they are kept.
 
@@ -295,7 +295,7 @@ def _launches() -> Dict[str, int]:
     """The kernel wrappers' own launch counters, by wrapper name (bf16
     launches as ``<name>_bf16``)."""
     from ..ops import (adjacency, attention, biased_attention, cnn,
-                       structural_bias)
+                       gated_message, structural_bias)
 
     out = {}
     for mod, name in ((adjacency, "dense_adjacency_cuda"),
@@ -305,7 +305,9 @@ def _launches() -> Dict[str, int]:
                       (biased_attention, "biased_attention_cuda"),
                       (biased_attention, "biased_attention_bwd_cuda"),
                       (structural_bias, "structural_bias_cuda"),
-                      (structural_bias, "structural_bias_bwd_cuda")):
+                      (structural_bias, "structural_bias_bwd_cuda"),
+                      (gated_message, "gated_message_cuda"),
+                      (gated_message, "gated_message_bwd_cuda")):
         # the name the wrapper is looked up by, in its defining module
         fn = getattr(mod, name)
         for attr in ("launches", "launches_bf16"):

@@ -150,7 +150,8 @@ def test_each_copy_finds_the_headers_it_includes(name, kernel):
 
 
 _KERNELS = ("attention", "attention_bwd", "cnn_dy3", "cnn_chain_bwd",
-            "adjacency", "biased_attention", "structural_bias")
+            "adjacency", "biased_attention", "structural_bias",
+            "gated_message")
 # each shared header, the kernels that include it, its cases' id prefix
 _HEADERS = [("attention_common.cuh", ("attention", "attention_bwd"), ""),
             ("mma_bf16.cuh", ("cnn_dy3", "cnn_chain_bwd", "biased_attention"),

@@ -354,8 +354,10 @@ def test_snapshot_reads_the_wrappers_launch_counters(monkeypatch):
     assert {"dy3_cuda", "dy3_cuda_bf16", "cnn_chain_bwd_cuda_bf16",
             "fused_masked_attention_cuda", "attention_bwd_cuda",
             "biased_attention_cuda", "biased_attention_bwd_cuda",
-            "structural_bias_cuda",
-            "structural_bias_bwd_cuda"} <= set(launches)
+            "structural_bias_cuda", "structural_bias_bwd_cuda",
+            "gated_message_cuda", "gated_message_bwd_cuda",
+            "gated_message_cuda_bf16",
+            "gated_message_bwd_cuda_bf16"} <= set(launches)
 
 
 @pytest.mark.parametrize("cpus", [1, 4])
