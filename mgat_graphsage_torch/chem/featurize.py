@@ -18,7 +18,9 @@ one fixed shortest path, by the breadth-first rule that
 ``csrc/featurizer.cpp`` follows too, bit for bit.  ``random_walk_se`` gives
 what GraphGPS reads beside the bond types (``models/zoo.py::GPSNet``): each
 atom's return probabilities of a random walk, from the molecule's edge
-list, whichever featuriser made it.
+list, whichever featuriser made it.  ``svd_encoding`` gives what EGT reads
+beside the paths (``models/zoo.py::EGTNet``): each atom's rows of the
+adjacency's top singular vectors, from the same edge list.
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ __all__ = [
     "smiles_to_structure",
     "RWSE_STEPS",
     "random_walk_se",
+    "SVD_RANK",
+    "svd_encoding",
 ]
 
 # bond type codes per directed edge; 0 is padding and "no bond"
@@ -63,6 +67,9 @@ UNREACHABLE = -1
 # walk lengths of the random-walk structural encoding (GraphGPS's RWSE,
 # ksteps 1..16)
 RWSE_STEPS = 16
+# singular triplets of the adjacency kept by the SVD encoding (EGT's
+# svd_encodings of the public PCQM4Mv2 models)
+SVD_RANK = 8
 
 # Vocabularies — byte-for-byte the lists from reference train.py:34-42.
 ATOM_SYMBOLS = ["C", "N", "O", "S", "F", "P", "Cl", "Br", "I", "Unknown"]
@@ -257,4 +264,25 @@ def random_walk_se(n: int, edge_index: np.ndarray,
     for k in range(steps):
         out[:, k] = np.diagonal(power)
         power = power @ walk
+    return out.astype(np.float32)
+
+
+def svd_encoding(n: int, edge_index: np.ndarray,
+                 rank: int = SVD_RANK) -> np.ndarray:
+    """``[n, 2 rank]`` float32: ``[U sqrt(S), V sqrt(S)]`` of the top
+    ``rank`` singular triplets of the adjacency ``A[i, j] = 1`` of the
+    directed edge list ``edge_index [2, E]`` (EGT's SVD encoding), by
+    NumPy's SVD in float64; the columns past ``n`` singular triplets (a
+    molecule of fewer atoms than ``rank``) are 0.  The singular vectors of
+    a repeated singular value are fixed only by the routine, so a
+    reference that is to read the same encoding calls the same one on the
+    same matrix."""
+    adj = np.zeros((n, n), np.float64)
+    adj[edge_index[0], edge_index[1]] = 1.0
+    u, s, vh = np.linalg.svd(adj)
+    k = min(rank, n)
+    root = np.sqrt(s[:k])
+    out = np.zeros((n, 2 * rank), np.float64)
+    out[:, :k] = u[:, :k] * root
+    out[:, rank:rank + k] = vh[:k].T * root
     return out.astype(np.float32)

@@ -19,7 +19,11 @@ preset):
 - ``"edges"`` (GraphGPS): ``edge_types [n, E]`` int8, a bond type per
   directed edge (0 for padding), and ``rwse [n, N, 16]`` float32, each
   atom's random-walk return probabilities (``chem/featurize.py::
-  random_walk_se``; 0 for padding).
+  random_walk_se``; 0 for padding);
+- ``"paths_svd"`` (EGT): the ``"paths"`` arrays and ``svd [n, N, 16]``
+  float32, each atom's rows of the adjacency's top 8 singular vectors
+  scaled by the singular values' roots (``chem/featurize.py::
+  svd_encoding``; 0 for padding).
 
 Featurisation goes through the native C++ library by default
 (``chem/native.py``; bit for bit the Python chemistry layer's output),
@@ -40,10 +44,12 @@ from ..chem import smiles_to_graph
 from ..chem.featurize import (
     MAX_HOPS,
     RWSE_STEPS,
+    SVD_RANK,
     bond_types,
     mol_to_graph,
     random_walk_se,
     smiles_to_structure,
+    svd_encoding,
 )
 from ..chem.fingerprints import FINGERPRINTS
 from ..chem.smiles import parse_smiles
@@ -68,14 +74,15 @@ _NATIVE_FPS = {None: (0, False), "ecfp1024": (1024, False),
 
 
 def _structure_kind(structure) -> Optional[str]:
-    """``structure`` as ``"paths"``, ``"edges"`` or None."""
+    """``structure`` as ``"paths"``, ``"edges"``, ``"paths_svd"`` or
+    None."""
     if structure is True:
         return "paths"
     if not structure:
         return None
-    if structure not in ("paths", "edges"):
-        raise ValueError(f"unknown structure {structure!r}: 'paths' or "
-                         "'edges'")
+    if structure not in ("paths", "edges", "paths_svd"):
+        raise ValueError(f"unknown structure {structure!r}: 'paths', "
+                         "'edges' or 'paths_svd'")
     return structure
 
 
@@ -128,6 +135,7 @@ class GraphBatch:
     path_types: Optional[np.ndarray] = None  # [B, N, N, hops] int8
     edge_types: Optional[np.ndarray] = None  # [B, E] int8
     rwse: Optional[np.ndarray] = None        # [B, N, 16] float32
+    svd: Optional[np.ndarray] = None         # [B, N, 16] float32
 
     def as_dict(self) -> Dict[str, np.ndarray]:
         """The arrays by name; the structure's only where the batch has
@@ -264,7 +272,7 @@ class MolecularDataset:
                 self.fp[i] = fps[i]
         self.n = n
         self.degree = self.spd = self.path_types = None
-        self.edge_types = self.rwse = None
+        self.edge_types = self.rwse = self.svd = None
         if structure == "edges":
             self.edge_types = np.zeros((n, self.max_edges), np.int8)
             self.rwse = np.zeros((n, self.max_nodes, RWSE_STEPS), np.float32)
@@ -273,7 +281,7 @@ class MolecularDataset:
                 self.edge_types[i, :types.shape[0]] = types
                 self.rwse[i, :feats.shape[0]] = random_walk_se(
                     feats.shape[0], edge_index)
-        elif structure == "paths":
+        elif structure in ("paths", "paths_svd"):
             mn = self.max_nodes
             self.degree = np.zeros((n, mn), np.int8)
             self.spd = np.full((n, mn, mn), -1, np.int8)
@@ -283,6 +291,12 @@ class MolecularDataset:
                 self.degree[i, :k] = deg
                 self.spd[i, :k, :k] = spd
                 self.path_types[i, :k, :k] = path
+        if structure == "paths_svd":
+            self.svd = np.zeros((n, self.max_nodes, 2 * SVD_RANK),
+                                np.float32)
+            for i, (feats, edge_index) in enumerate(graphs):
+                self.svd[i, :feats.shape[0]] = svd_encoding(
+                    feats.shape[0], edge_index)
 
     @staticmethod
     def _featurize_python(smiles, targets, fingerprint, featurizer,
@@ -290,14 +304,14 @@ class MolecularDataset:
         """(graphs, fps, targets, smiles, indices) of the molecules that
         parse, through the Python chemistry layer; with ``structure`` a
         graph is ``(features, edge_index, degree, spd, path_types)``
-        (``"paths"``) or ``(features, edge_index, edge_types)``
-        (``"edges"``)."""
+        (``"paths"``, ``"paths_svd"``) or ``(features, edge_index,
+        edge_types)`` (``"edges"``)."""
         graphs, fps, kept_targets, kept_smiles, kept_indices = \
             [], [], [], [], []
         fp_fn = FINGERPRINTS[fingerprint] if fingerprint else None
         for i, (smi, y) in enumerate(zip(smiles, targets)):
             try:
-                if structure == "paths":
+                if structure in ("paths", "paths_svd"):
                     graph = smiles_to_structure(str(smi), featurizer)
                 elif structure == "edges":
                     mol = parse_smiles(str(smi))
@@ -338,7 +352,7 @@ class MolecularDataset:
                 (nodes, edges, _, edge_mask, fp, status, types, degree, spd,
                  path) = featurize_structure_native(
                     *args, fp_bits=fp_bits, use_features=use_features,
-                    hops=MAX_HOPS if structure == "paths" else 1)
+                    hops=1 if structure == "edges" else MAX_HOPS)
             else:
                 nodes, edges, _, edge_mask, fp, status = \
                     featurize_batch_native(*args, fp_bits=fp_bits,
@@ -355,7 +369,7 @@ class MolecularDataset:
                 continue
             k, e = status[i], n_edges[i]
             extra = ()
-            if structure == "paths":
+            if structure in ("paths", "paths_svd"):
                 extra = (degree[i, :k], spd[i, :k, :k], path[i, :k, :k])
             elif structure == "edges":
                 extra = (types[i, :e],)
@@ -401,6 +415,8 @@ class MolecularDataset:
         if self.rwse is not None:
             st = dict(edge_types=self.edge_types[sel, :edges],
                       rwse=self.rwse[sel, :nodes])
+        if self.svd is not None:
+            st["svd"] = self.svd[sel, :nodes]
         return GraphBatch(
             **st,
             nodes=self.nodes[sel, :nodes],
@@ -485,6 +501,8 @@ class MolecularDataset:
             ds.edge_types = np.ascontiguousarray(
                 self.edge_types[idx][:, :bucket_edges])
             ds.rwse = np.ascontiguousarray(self.rwse[idx][:, :bucket_nodes])
+        ds.svd = None if self.svd is None else np.ascontiguousarray(
+            self.svd[idx][:, :bucket_nodes])
         ds.n = int(idx.size)
         return ds
 

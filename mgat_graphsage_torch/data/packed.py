@@ -18,7 +18,7 @@ y / y_orig            ``[n]`` float32            (unchanged)
 degree, spd,          int8                       (unchanged)
 path_types,
 edge_types
-rwse                  ``[n, N, 16]`` float32     (unchanged)
+rwse, svd             ``[n, N, 16]`` float32     (unchanged)
 ====================  =========================  =====================
 
 (*) uint8 when ``max_nodes <= 256``, else uint16 (held on the device as
@@ -31,8 +31,8 @@ equals the plain one bit for bit and training follows the same
 trajectory (``tests/test_torch_packed.py``).  A non-binary fingerprint
 stays float32 under the plain ``"fp"`` key; the other streams still pack.
 The graph transformers' structure (Graphormer's ``degree``, ``spd``,
-``path_types``, GraphGPS's ``edge_types`` and ``rwse``; ``data/
-dataset.py``) goes as it is, in both layouts.
+``path_types``, GraphGPS's ``edge_types`` and ``rwse``, EGT's ``svd``;
+``data/dataset.py``) goes as it is, in both layouts.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ __all__ = ["pack_dataset", "is_packed", "to_device", "gather_batch",
            "plain_nbytes", "STRUCTURE"]
 
 # the graph transformers' streams, carried as they are
-STRUCTURE = ("degree", "spd", "path_types", "edge_types", "rwse")
+STRUCTURE = ("degree", "spd", "path_types", "edge_types", "rwse", "svd")
 
 
 def _check_integral(a: np.ndarray, lo: int, hi: int, what: str) -> None:

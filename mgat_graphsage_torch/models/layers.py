@@ -21,7 +21,10 @@ layers (:class:`GatedGCNLayer`, :class:`GPSLayer`; ``models/zoo.py::
 GPSNet``) work on node states ``h [B, N, D]`` and edge states ``e [B, E,
 D]`` of the padded edge lists, with ``node_mask`` and ``edge_mask``; their
 batch norms are :class:`MaskedBatchNorm` over the real nodes or edges, and
-their dropout masks are drawn the same way.
+their dropout masks are drawn the same way.  EGT's layer
+(:class:`EGTLayer`; ``models/zoo.py::EGTNet``) works on node states ``h
+[B, N, D]`` and dense pair states ``e [B, N, N, C]``, the virtual nodes
+first, with the key mask.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from ..ops import (
     masked_softmax,
 )
 from ..ops.attention import kernels_support
-from ..ops.biased_attention import biased_attention
+from ..ops.biased_attention import biased_attention, gated_attention
 from ..ops.gated_message import gated_message
 from ..ops.structural_bias import structural_bias
 from ..parallel.distributed import (
@@ -53,6 +56,7 @@ from ..parallel.distributed import (
     current_batch_shard,
     gather_columns,
 )
+from ..utils import telemetry
 
 __all__ = [
     "TorchLinear",
@@ -81,6 +85,7 @@ __all__ = [
     "GraphormerLayer",
     "GatedGCNLayer",
     "GPSLayer",
+    "EGTLayer",
     "keep_mask",
 ]
 
@@ -842,6 +847,126 @@ class GPSLayer(nn.Module):
                      generator)
         y = _dropout(self.ff_linear2(y), self.dropout, train, generator)
         return self.norm2(h + y, node_mask), e
+
+
+class _PairBackward:
+    """The ``egt.pair`` device span of one piece of the pair stream's
+    backward, which runs inside autograd's own ops: opened by a hook on the
+    piece's output, which fires as the piece's backward begins, and closed
+    by a hook on an alias of its input made just before the piece, which
+    fires as soon as the piece's backward has ended (autograd runs the
+    nodes that are ready latest-made first).  Nothing where no gradient is
+    taken; on the CPU the span records nothing.  The hooks hold the span
+    alone: a hook that held a tensor it hangs on would keep the step's
+    graph alive past its backward."""
+
+    def __init__(self, x: torch.Tensor):
+        self.alias = x.view_as(x) if x.requires_grad else x
+
+    def watch(self, out: torch.Tensor) -> None:
+        """Hook the piece's output ``out``; ``self.alias`` is its input."""
+        if not (torch.is_grad_enabled() and out.requires_grad
+                and self.alias.requires_grad):
+            return
+        span = telemetry.device_span("egt.pair", out.device)
+
+        def open_(grad):
+            span.__enter__()
+
+        def close(grad):
+            span.__exit__(None, None, None)
+
+        out.register_hook(open_)
+        self.alias.register_hook(close)
+
+
+class EGTLayer(nn.Module):
+    """One pre-LN EGT layer (Hussain, Zaki and Subramanian, KDD 2022,
+    arXiv:2108.03348; the public ``EGT_Layer`` with the PCQM4Mv2 models'
+    settings) on node states ``h [B, N, D]`` and pair states ``e [B, N, N,
+    C]``::
+
+        Q, K, V = LN(h) W_Q, W_K, W_V ;  E, G = LN(e) W_E, LN(e) W_G
+        out, H^ = gated attention (ops/biased_attention.py)
+        h = h + dropout(out W_O) ;  h = h + dropout(FFN_h(LN(h)))
+        e = e + dropout(H^ W_OE) ;  e = e + dropout(FFN_e(LN(e)))
+
+    the FFNs ``Linear -> ELU -> Linear`` (the pair stream's as wide as the
+    stream), the attention's logits clipped to ``+-clip`` and its rows
+    scaled by ``ln(1 + sum_j sigmoid(G))``
+    except the ``virtual_nodes`` first rows.  With ``pair_update=False``
+    (the last layer) the pair stream is not updated and ``e`` is returned
+    as it came.  In training the keep-masks are drawn in this order: the
+    attention's probabilities, the node stream's two updates, the pair
+    stream's two (the last four only with ``dropout`` above 0).
+
+    The pair stream's work, ``LN(e)``, ``W_E``, ``W_G`` and the update
+    after the attention, is the ``egt.pair`` device span forward and
+    backward (:class:`_PairBackward`); the node stream's projections are
+    made before it, so that autograd runs the pair stream's backward
+    pieces each in one run."""
+
+    def __init__(self, dim: int, pair_dim: int, heads: int, ffn_dim: int,
+                 attention_dropout: float = 0.3, dropout: float = 0.0,
+                 clip: float = 5.0, virtual_nodes: int = 4,
+                 pair_update: bool = True):
+        super().__init__()
+        if dim % heads:
+            raise ValueError(f"width {dim} is not a multiple of {heads} "
+                             "heads")
+        self.heads, self.clip = heads, float(clip)
+        self.virtual_nodes, self.pair_update = virtual_nodes, pair_update
+        self.attention_dropout = float(attention_dropout)
+        self.dropout = float(dropout)
+        self.node_norm = nn.LayerNorm(dim)
+        self.pair_norm = nn.LayerNorm(pair_dim)
+        self.q_proj = TorchLinear(dim, dim)
+        self.k_proj = TorchLinear(dim, dim)
+        self.v_proj = TorchLinear(dim, dim)
+        self.E = TorchLinear(pair_dim, heads)
+        self.G = TorchLinear(pair_dim, heads)
+        self.out_proj = TorchLinear(dim, dim)
+        self.ffn_norm = nn.LayerNorm(dim)
+        self.fc1 = TorchLinear(dim, ffn_dim)
+        self.fc2 = TorchLinear(ffn_dim, dim)
+        if pair_update:
+            self.pair_out = TorchLinear(heads, pair_dim)
+            self.pair_ffn_norm = nn.LayerNorm(pair_dim)
+            self.pair_fc1 = TorchLinear(pair_dim, pair_dim)
+            self.pair_fc2 = TorchLinear(pair_dim, pair_dim)
+
+    def forward(self, h: torch.Tensor, e: torch.Tensor,
+                key_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        b, n, d = h.shape
+        heads, train, p = self.heads, self.training, self.dropout
+        y = self.node_norm(h)
+        q, k, v = (proj(y).view(b, n, heads, d // heads).transpose(1, 2)
+                   for proj in (self.q_proj, self.k_proj, self.v_proj))
+        with telemetry.device_span("egt.pair", e.device):
+            piece = _PairBackward(e)
+            z = self.pair_norm(piece.alias)
+            bias = self.E(z).permute(0, 3, 1, 2)
+            gate = self.G(z).permute(0, 3, 1, 2)
+            piece.watch(gate)
+        keep, pa = None, self.attention_dropout
+        if train and pa > 0.0:
+            keep = keep_mask((b, heads, n, n), pa, generator, h.device)
+        o, hh = gated_attention(q, k, v, bias, gate, key_mask, keep, pa,
+                                clip=self.clip, fixed=self.virtual_nodes)
+        o = self.out_proj(o.transpose(1, 2).reshape(b, n, d))
+        h = h + _dropout(o, p, train, generator)
+        y = self.fc2(F.elu(self.fc1(self.ffn_norm(h))))
+        h = h + _dropout(y, p, train, generator)
+        if not self.pair_update:
+            return h, e
+        with telemetry.device_span("egt.pair", e.device):
+            piece = _PairBackward(hh.to(e.dtype).permute(0, 2, 3, 1))
+            e = e + _dropout(self.pair_out(piece.alias), p, train, generator)
+            y = self.pair_fc2(F.elu(self.pair_fc1(self.pair_ffn_norm(e))))
+            e = e + _dropout(y, p, train, generator)
+            piece.watch(e)
+        return h, e
 
 
 class CombinedNet(nn.Module):

@@ -7,7 +7,8 @@ plus ``fp [B, nbits]`` for the hybrid, and ``generator`` (the dropout
 masks' source in training) last.  The graph transformers take others in
 their place: :class:`GraphormerNet` ``(nodes, node_mask, degree, spd,
 path_types)``, :class:`GPSNet` ``(nodes, node_mask, edges, edge_mask,
-edge_types, rwse)``.  Every model returns ``[B, 1]`` predictions; the
+edge_types, rwse)``, :class:`EGTNet` ``(nodes, node_mask, spd,
+path_types, svd)``.  Every model returns ``[B, 1]`` predictions; the
 hybrid its latent too.  :func:`model_fields`,
 :func:`model_inputs` and :func:`model_outputs` hold this convention for
 the trainer and the predictor alike.  Module names mirror the flax
@@ -24,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..chem.featurize import RWSE_STEPS
+from ..chem.featurize import RWSE_STEPS, SVD_RANK
 from ..ops import (
     dense_adjacency,
     segment_max_pool,
@@ -38,6 +39,7 @@ from .layers import (
     ChebConvRef,
     CombinedNet,
     Dropout,
+    EGTLayer,
     GATConv,
     GCNConv,
     GINConv,
@@ -49,11 +51,12 @@ from .layers import (
     StructuralBias,
     Table,
     TorchLinear,
+    keep_mask,
 )
 
 __all__ = ["GATGraphSAGE", "HybridModel", "GCNNet", "SAGENet", "GATNet",
            "GATGCN", "GINConvNet", "ChebNet", "GraphormerNet", "GPSNet",
-           "kl_loss",
+           "EGTNet", "kl_loss",
            "build_model", "model_fields", "model_inputs", "model_outputs"]
 
 
@@ -425,6 +428,95 @@ class GPSNet(nn.Module):
         return self.head_out(F.relu(self.head_fc2(x)))
 
 
+class EGTNet(nn.Module):
+    """EGT, the Edge-augmented Graph Transformer (Hussain, Zaki and
+    Subramanian, KDD 2022, arXiv:2108.03348; github.com/shamim-hussain/
+    egt_pytorch), its PCQM4Mv2 ``egt_110m``: ``layers`` :class:`EGTLayer`
+    over node states of width ``dim`` and dense pair states of width
+    ``pair_dim``, the last layer without a pair update; the published
+    model's virtual nodes, distances and clip are its constants.
+
+    Input, with :attr:`VIRTUAL_NODES` virtual nodes first: ``h0 = nodes @
+    atom_encoder + svd_encoder(svd)``, the port's 35 one-hot features
+    through a bias-free linear map and the atoms' SVD encodings
+    (``data/dataset.py``; in training each molecule's singular vectors
+    flip their signs at random, one draw of the generator per triplet,
+    before any dropout), the virtual nodes' own rows; ``e0 = distance[d] +
+    bond[t]`` per pair of atoms, ``d`` the shortest-path distance up to
+    :attr:`MAX_DISTANCE` and one row past it for further and unreachable
+    pairs, ``t`` the bond type of a bonded pair (0, no bond, embeds to
+    zero), and for a virtual node's row or column its own pair row (the
+    mean of two between virtual nodes).  Readout: the final layer norm of
+    the virtual nodes' last states, concatenated, then ``Linear -> ELU ->
+    Linear -> ELU -> Linear`` to ``[B, 1]``."""
+
+    VIRTUAL_NODES = 4
+    MAX_DISTANCE = 16   # the public upto_hop
+    CLIP = 5.0          # the public clip_logits_value
+
+    def __init__(self, in_features: int = 35, dim: int = 768,
+                 pair_dim: int = 64, layers: int = 30, heads: int = 32,
+                 ffn_dim: int = 768, attention_dropout: float = 0.3,
+                 dropout: float = 0.0, bond_types: int = 4):
+        super().__init__()
+        v = self.VIRTUAL_NODES
+        self.atom_encoder = TorchLinear(in_features, dim, bias=False)
+        self.svd_encoder = TorchLinear(2 * SVD_RANK, dim)
+        self.distance = Table(self.MAX_DISTANCE + 2, pair_dim, std=1.0)
+        self.bond = Table(bond_types, pair_dim, std=1.0)
+        self.virtual_node = Table(v, dim, std=1.0)
+        self.virtual_pair = Table(v, pair_dim, std=1.0)
+        self.layers = nn.ModuleList(
+            EGTLayer(dim, pair_dim, heads, ffn_dim, attention_dropout,
+                     dropout, self.CLIP, v, pair_update=i < layers - 1)
+            for i in range(layers))
+        self.final_norm = nn.LayerNorm(dim)
+        self.head_fc1 = TorchLinear(v * dim, dim)
+        self.head_fc2 = TorchLinear(dim, dim)
+        self.head_out = TorchLinear(dim, 1)
+
+    def _pairs(self, spd: torch.Tensor,
+               path_types: torch.Tensor) -> torch.Tensor:
+        """``e0 [B, V + n, V + n, C]`` in f32."""
+        (b, n), v = spd.shape[:2], self.VIRTUAL_NODES
+        dist = spd.long()
+        far = (dist < 0) | (dist > self.MAX_DISTANCE)
+        dist = torch.where(far, self.MAX_DISTANCE + 1, dist)
+        bond = torch.where(dist == 1, path_types[..., 0].long(), 0)
+        table = self.bond.weight.float()
+        table = torch.cat([table.new_zeros(1, table.shape[1]), table])
+        e = F.embedding(dist, self.distance.weight.float()) \
+            + F.embedding(bond, table)
+        vp = self.virtual_pair.weight.float()
+        c = vp.shape[1]
+        top = torch.cat([0.5 * (vp[:, None] + vp[None, :]),
+                         vp[:, None].expand(v, n, c)], 1)
+        left = vp[None].expand(n, v, c)
+        return torch.cat([top.expand(b, v, v + n, c),
+                          torch.cat([left.expand(b, n, v, c), e], 2)], 1)
+
+    def forward(self, nodes: torch.Tensor, node_mask: torch.Tensor,
+                spd: torch.Tensor, path_types: torch.Tensor,
+                svd: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, v = nodes.shape[0], self.VIRTUAL_NODES
+        if self.training:
+            flip = keep_mask((b, SVD_RANK), 0.5, generator, nodes.device)
+            sign = torch.where(flip, 1.0, -1.0).repeat(1, 2)
+            svd = svd * sign[:, None, :]
+        x = self.atom_encoder(nodes) + self.svd_encoder(svd.to(nodes.dtype))
+        h = torch.cat([self.virtual_node.weight.to(x.dtype).expand(b, v, -1),
+                       x], 1)
+        e = self._pairs(spd, path_types).to(x.dtype)
+        key_mask = torch.cat([node_mask.new_ones(b, v, dtype=torch.bool),
+                              node_mask > 0], 1)
+        for layer in self.layers:
+            h, e = layer(h, e, key_mask, generator)
+        h = self.final_norm(h)[:, :v].reshape(b, -1)
+        h = F.elu(self.head_fc2(F.elu(self.head_fc1(h))))
+        return self.head_out(h)
+
+
 def model_fields(cfg) -> Tuple[str, ...]:
     """The dataset fields that ``cfg``'s model reads."""
     if cfg.model == "graphormer":
@@ -432,6 +524,8 @@ def model_fields(cfg) -> Tuple[str, ...]:
     if cfg.model == "gps":
         return ("nodes", "node_mask", "edges", "edge_mask", "edge_types",
                 "rwse")
+    if cfg.model == "egt":
+        return ("nodes", "node_mask", "spd", "path_types", "svd")
     return ("nodes", "edges", "node_mask", "edge_mask") + (
         ("fp",) if cfg.is_hybrid else ())
 
@@ -441,7 +535,8 @@ def model_inputs(cfg, batch, dtype: Optional[torch.dtype] = None) -> tuple:
     batch with its ``sample_mask``, padding rows masked out (GraphGPS's
     edges too).  The float inputs are cast to ``dtype`` when given, the
     adjacency after its f32 build; the structure and the edge lists stay
-    integers, and GraphGPS's random-walk encoding f32."""
+    integers, GraphGPS's random-walk encoding and EGT's SVD encoding
+    f32."""
     cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
     smask = batch["sample_mask"].unsqueeze(1)
     node_mask = batch["node_mask"] * smask
@@ -449,6 +544,9 @@ def model_inputs(cfg, batch, dtype: Optional[torch.dtype] = None) -> tuple:
         return (cast(batch["nodes"]), cast(node_mask), batch["edges"],
                 cast(batch["edge_mask"] * smask), batch["edge_types"],
                 batch["rwse"])
+    if cfg.model == "egt":
+        return (cast(batch["nodes"]), cast(node_mask), batch["spd"],
+                batch["path_types"], batch["svd"])
     if cfg.model == "graphormer":
         args = (batch["nodes"], node_mask)
         rest = (batch["degree"], batch["spd"], batch["path_types"])
@@ -502,6 +600,12 @@ def build_model(cfg) -> nn.Module:
                       heads=cfg.n_heads, ffn_dim=cfg.ffn_dim,
                       dropout=cfg.graph_dropout,
                       attention_dropout=cfg.attention_dropout)
+    if cfg.model == "egt":
+        return EGTNet(feat, dim=cfg.hidden_dim, pair_dim=cfg.pair_dim,
+                      layers=cfg.n_layers, heads=cfg.n_heads,
+                      ffn_dim=cfg.ffn_dim,
+                      attention_dropout=cfg.attention_dropout,
+                      dropout=cfg.graph_dropout)
     baselines = {"sage": SAGENet, "gat": GATNet, "gat_gcn": GATGCN,
                  "gin": GINConvNet, "cheb": ChebNet}
     if cfg.model not in baselines:

@@ -44,6 +44,27 @@ Each forward and backward is a ``graphormer.attention`` device span
 (``utils/telemetry.py``); the calls of the two paths are counted, and
 those made without a bias apart as ``unbiased`` (:func:`counts`,
 ``/health``'s telemetry), the kernels' launches on their wrappers.
+
+EGT's gated attention (:func:`gated_attention`; ``models/layers.py::
+EGTLayer``) is a mode of its own beside these, with the pair stream's
+bias ``E`` and gate logits ``G [B, H, N, N]``, the clip ``c`` and ``V``
+virtual nodes first::
+
+    H^ = clamp(scale * q k^T, -c, c) + E
+    A  = softmax(H^, masked keys at -inf) * sigmoid(G), masked keys 0
+    s  = ln(1 + sum_j sigmoid(G)), masked keys 0; 1 on the first V rows
+    out = s * dropout(A) v ;  returns (out, H^)
+
+``H^`` (f32, every slot's) is the layer's pair update's input, and its
+gradient comes back into the op's backward.  One path computes it,
+:class:`GatedAttention`, in plain torch ops on every device: the logits,
+the clip, the softmax, the gate and the scaler in f32, the products in
+the inputs' dtype with f32 sums; its forward saves the f32 probabilities
+and gates.  Each forward and backward is an ``egt.attention`` device
+span; :func:`gated_counts` counts the calls by path (``explicit``), the
+real pairs of keys (``pairs``, of the valid keys of each row, summed on
+the device and read only there) and the ``[B, N, N]`` slots they ran over
+(``pair_slots``).
 """
 
 from __future__ import annotations
@@ -61,13 +82,15 @@ __all__ = ["BiasedAttention", "BiasedAttentionKernel", "biased_attention",
            "biased_attention_cuda", "biased_attention_bwd_cuda",
            "biased_attention_fwd_plain", "biased_attention_bwd_plain",
            "biased_attention_sdpa", "kernels_support", "counts", "MAX_N",
-           "HEAD_DIMS"]
+           "HEAD_DIMS", "GatedAttention", "gated_attention", "gated_counts"]
 
 MAX_N = 128                 # keys (and rows) of a block: csrc KT <= 8
 HEAD_DIMS = (8, 16, 24, 32)  # csrc D8 = d / 8 in 1..4
 
 _count_lock = threading.Lock()
 _COUNTS = {"explicit": 0, "kernel": 0, "unbiased": 0}
+_GATED = {"explicit": 0, "pair_slots": 0}
+_PAIRS: Dict[torch.device, torch.Tensor] = {}   # device -> int64 sum
 
 
 def _count(path: str) -> None:
@@ -406,3 +429,98 @@ def biased_attention(q, k, v, bias, key_mask,
                                          scale)[0]
     _count("explicit")
     return BiasedAttention.apply(q, k, v, bias, key_mask, keep, p, scale)
+
+
+# ---- EGT's gated attention --------------------------------------------------
+
+def gated_counts() -> Dict[str, int]:
+    """The process's gated attention calls by path (``explicit``), the
+    real pairs they ran over (``pairs``: valid query and key) and their
+    ``[B, N, N]`` slots (``pair_slots``)."""
+    with _count_lock:
+        out = dict(_GATED)
+        pairs = list(_PAIRS.values())
+    out["pairs"] = int(sum(int(t) for t in pairs))
+    return out
+
+
+def _count_gated(key_mask: torch.Tensor, path: str) -> None:
+    real = key_mask.detach().sum(-1, dtype=torch.int64).square().sum()
+    b, n = key_mask.shape
+    with _count_lock:
+        _GATED[path] += 1
+        _GATED["pair_slots"] += b * n * n
+        dev = real.device
+        _PAIRS[dev] = _PAIRS[dev] + real if dev in _PAIRS else real
+
+
+class GatedAttention(torch.autograd.Function):
+    """EGT's gated attention (module docstring): ``(out [B, H, N, d], H^
+    [B, H, N, N])`` for ``q, k, v [B, H, N, d]``, the pair stream's ``bias``
+    and ``gate`` logits ``[B, H, N, N]``, ``key_mask [B, N]``, a bool
+    keep-mask ``[B, H, N, N]`` or None and its rate ``p``, ``scale``, the
+    clip ``clip`` and ``fixed``, the leading rows whose scaler is 1.  The
+    clip passes no gradient outside ``[-clip, clip]``, as ``clamp`` does; a
+    row with no valid key reads 0.  Saves the f32 probabilities and gates,
+    where the clip passed, the keep-mask and the unscaled output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, gate, key_mask,
+                keep: Optional[torch.Tensor], p: float, scale: float,
+                clip: float, fixed: int):
+        ct = torch.promote_types(q.dtype, torch.float32)
+        with telemetry.device_span("egt.attention", q.device):
+            s = torch.matmul(q, k.transpose(-1, -2)).to(ct) * scale
+            inside = (s >= -clip) & (s <= clip)
+            hh = s.clamp(-clip, clip) + bias.to(ct)
+            km = key_mask[:, None, None, :]
+            a = _softmax(hh.masked_fill(~km, float("-inf")), key_mask)
+            g = torch.sigmoid(gate.to(ct)).masked_fill(~km, 0.0)
+            ad = a * g if keep is None else a * g * keep / (1.0 - p)
+            o = torch.matmul(ad.to(v.dtype), v)
+            sc = torch.log1p(g.sum(-1))
+            sc[:, :, :fixed] = 1.0
+            out = (o.to(ct) * sc.unsqueeze(-1)).to(v.dtype)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, a, g, inside, keep, o, sc)
+        ctx.p, ctx.scale, ctx.fixed = p, scale, fixed
+        ctx.dtypes = (bias.dtype, gate.dtype)
+        return out, hh
+
+    @staticmethod
+    def backward(ctx, g_out, g_hh):
+        q, k, v, a, g, inside, keep, o, sc = ctx.saved_tensors
+        p, ct = ctx.p, a.dtype
+        with telemetry.device_span("egt.attention", q.device):
+            go = g_out.to(ct)
+            dsc = (go * o.to(ct)).sum(-1)
+            dsc[:, :, :ctx.fixed] = 0.0
+            go = (go * sc.unsqueeze(-1)).to(v.dtype)
+            ad = a * g if keep is None else a * g * keep / (1.0 - p)
+            dv = torch.matmul(ad.to(v.dtype).transpose(-1, -2), go)
+            dad = torch.matmul(go, v.transpose(-1, -2)).to(ct)
+            if keep is not None:
+                dad = dad * keep / (1.0 - p)
+            da = dad * g
+            dg = dad * a + (dsc / (1.0 + g.sum(-1))).unsqueeze(-1)
+            dgate = dg * g * (1.0 - g)
+            dhh = a * (da - (da * a).sum(dim=-1, keepdim=True))
+            if g_hh is not None:
+                dhh = dhh + g_hh.to(ct)
+            ds = (torch.where(inside, dhh, 0.0) * ctx.scale).to(q.dtype)
+            dq = torch.matmul(ds, k)
+            dk = torch.matmul(ds.transpose(-1, -2), q)
+        return (dq, dk, dv, dhh.to(ctx.dtypes[0]), dgate.to(ctx.dtypes[1]),
+                None, None, None, None, None, None)
+
+
+def gated_attention(q, k, v, bias, gate, key_mask,
+                    keep: Optional[torch.Tensor] = None, p: float = 0.0,
+                    scale: Optional[float] = None, clip: float = 5.0,
+                    fixed: int = 0):
+    """``(out [B, H, N, d], H^ [B, H, N, N])``: :class:`GatedAttention`
+    (module docstring), counted in :func:`gated_counts`."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    _count_gated(key_mask, "explicit")
+    return GatedAttention.apply(q, k, v, bias, gate, key_mask, keep, p,
+                                scale, float(clip), fixed)

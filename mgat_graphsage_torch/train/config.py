@@ -3,9 +3,9 @@
 
 The fields and presets are the reference package's, unchanged, so that a
 checkpoint sidecar's ``config`` dict loads here as it is; the port adds
-the graph transformers (``model="graphormer"``, ``model="gps"``): their
-widths, read by no other model, and the presets ``graphormer_base`` and
-``graphgps_medium``.  The comments
+the graph transformers (``model="graphormer"``, ``model="gps"``,
+``model="egt"``): their widths, read by no other model, and the presets
+``graphormer_base``, ``graphgps_medium`` and ``egt_110m``.  The comments
 on each knob's measured effect live in the reference package; the
 port's own measurements are in ``PERF.md``.
 """
@@ -23,7 +23,7 @@ class TrainConfig:
     name: str = "flagship"
     model: str = "hybrid"          # hybrid | gat_graphsage | gcn | sage |
                                    # gat | gat_gcn | gin | cheb | graphormer
-                                   # | gps
+                                   # | gps | egt
     # graph-branch knobs (GATGraphSAGE axes)
     attention: str = "modified"    # modified | gat10
     residual: bool = True
@@ -69,14 +69,16 @@ class TrainConfig:
     remat: bool = False
     cnn_pallas_bwd: bool = False
     dataset_storage: str = "float32"
-    # the graph transformers' widths (model="graphormer" or "gps"; the
-    # port's own): graph_dropout is the FFN's dropout in Graphormer, and
-    # every dropout but the attention's in GraphGPS
+    # the graph transformers' widths (model="graphormer", "gps" or "egt";
+    # the port's own): graph_dropout is the FFN's dropout in Graphormer,
+    # and every dropout but the attention's in GraphGPS and EGT
     n_layers: int = 12
     hidden_dim: int = 768
     ffn_dim: int = 768
     n_heads: int = 32
     attention_dropout: float = 0.1
+    # EGT's pair stream's width (model="egt"; its FFN is as wide)
+    pair_dim: int = 64
 
     @property
     def is_hybrid(self) -> bool:
@@ -86,8 +88,10 @@ class TrainConfig:
     def structure(self) -> Optional[str]:
         """The structure the model reads beside the atom features
         (``data/dataset.py``'s ``structure``): ``"paths"`` for Graphormer,
-        ``"edges"`` for GraphGPS, else None (the dense adjacency)."""
-        return {"graphormer": "paths", "gps": "edges"}.get(self.model)
+        ``"edges"`` for GraphGPS, ``"paths_svd"`` for EGT, else None (the
+        dense adjacency)."""
+        return {"graphormer": "paths", "gps": "edges",
+                "egt": "paths_svd"}.get(self.model)
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
@@ -203,6 +207,22 @@ PRESETS: Dict[str, TrainConfig] = {
                           lr_schedule="warmup_cosine", warmup_steps=33000,
                           weight_decay=0.0, kl_lambda=0.0, batch_size=1024,
                           eval_batch_size=1024),
+    # --- EGT-110M (Hussain, Zaki and Subramanian, KDD 2022,
+    # arXiv:2108.03348; github.com/shamim-hussain/egt_pytorch, the PCQM4Mv2
+    # egt_110m configuration): 30 pre-LN layers, node width 768 and pair
+    # width 64, 32 heads of 24, node and pair FFN 768 and 64 with ELU,
+    # logits clipped to +-5, centrality scalers, 4 virtual nodes, SVD
+    # encodings of rank 8, distances up to 16, attention dropout 0.3; MSE
+    # on standardised targets, bf16 compute with f32 master weights and f32
+    # Adam moments, lr 8e-5 after 200,000 warm-up steps ---
+    "egt_110m": _p(name="egt_110m", model="egt", fingerprint=None,
+                   n_layers=30, hidden_dim=768, ffn_dim=768, n_heads=32,
+                   pair_dim=64, graph_dropout=0.0, attention_dropout=0.3,
+                   compute_dtype="bfloat16",
+                   adam_moment_dtype="float32", lr=8e-5,
+                   lr_schedule="warmup_cosine", warmup_steps=200000,
+                   weight_decay=0.0, kl_lambda=0.0, batch_size=128,
+                   eval_batch_size=128),
 }
 
 

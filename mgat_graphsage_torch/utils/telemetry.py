@@ -29,10 +29,12 @@
   ``launches_bf16``) and the native featuriser's counters (``calls``,
   ``parallel_calls``, ``molecules``, ``workers``), the graph
   transformers' attention calls by path (and those without a bias),
-  structural bias builds by path and gated message calls by path with
-  their real edges and edge slots (``attention``, ``structural_bias``,
-  ``gated_message``) and the device spans' totals (``device_spans``), read
-  from where they are kept.
+  structural bias builds by path, gated message calls by path with
+  their real edges and edge slots, and EGT's gated attention calls by path
+  with their real pairs and pair slots (``attention``,
+  ``structural_bias``, ``gated_message``, ``gated_attention``) and the
+  device spans' totals (``device_spans``), read from where they are
+  kept.
 
 Request threads and the serving dispatch thread use it at once: the totals
 and the deques sit under one lock.  ``SPANS`` names every span the
@@ -71,6 +73,10 @@ SPANS = (
     "graphormer.bias_grad",  # the bias kernels' backward: the tables' sums
     # device span, ops/gated_message.py (models/zoo.py::GPSNet)
     "gps.message",          # each layer's gated message passing, fwd and bwd
+    # device spans, models/layers.py::EGTLayer
+    "egt.attention",        # each layer's gated attention, fwd and bwd
+    "egt.pair",             # each layer's pair stream: its norms, products,
+                            # FFN and residuals, fwd and bwd
 )
 MAX_RECORDS = 4096
 
@@ -271,8 +277,9 @@ class Registry:
         """``{"spans": {name: {"seconds", "count"}}, "units": {kind:
         {"seconds", "count"}}, "launches": {wrapper: count}, "featurize":
         {counter: count}, "attention": {path: calls}, "structural_bias":
-        {path: calls}, "gated_message": {counter: count}, "device_spans":
-        {name: {"seconds", "count"}}}``: the process totals, JSON-ready."""
+        {path: calls}, "gated_message": {counter: count},
+        "gated_attention": {counter: count}, "device_spans": {name:
+        {"seconds", "count"}}}``: the process totals, JSON-ready."""
         with self._lock:
             spans = {k: {"seconds": v[0] * 1e-9, "count": v[1]}
                      for k, v in self._spans.items()}
@@ -288,6 +295,7 @@ class Registry:
                 "attention": biased_attention.counts(),
                 "structural_bias": structural_bias.counts(),
                 "gated_message": gated_message.counts(),
+                "gated_attention": biased_attention.gated_counts(),
                 "device_spans": device}
 
 

@@ -303,8 +303,9 @@ def test_every_preset_split_has_a_forward(preset, k):
     layer's whole width as ``total``, this rank's offset in it) and keeps
     ``[rows / k, in]``; nothing else is split.  The presets that split
     outside the CNN fc1 are named: ``model1``, ``gat_gcn``,
-    ``morgan2048`` and ``ecfp2048`` (whose fc1 and fc2 differ in
-    width)."""
+    ``morgan2048``, ``ecfp2048`` (whose fc1 and fc2 differ in width) and
+    ``egt_110m`` (its head's first layer reads the four virtual nodes,
+    3,072 wide)."""
     with torch.device("meta"):
         model = build_model(get_config(preset))
     coord = k - 1
@@ -333,7 +334,8 @@ def test_every_preset_split_has_a_forward(preset, k):
     assert len(seen) == len(split) == len({id(cs) for cs in seen})
     want = {"model1": ["fc_g1"], "gat_gcn": ["fc_g1"],
             "morgan2048": ["cnn.fc1", "combined.fc1"],
-            "ecfp2048": ["cnn.fc1", "cnn.fc2", "combined.fc1"]}
+            "ecfp2048": ["cnn.fc1", "cnn.fc2", "combined.fc1"],
+            "egt_110m": ["head_fc1"]}
     if preset in want:
         assert split == want[preset]
     elif get_config(preset).is_hybrid:

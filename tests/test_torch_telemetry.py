@@ -255,9 +255,10 @@ def test_spans_names_every_span_the_program_opens():
                         r'telemetry\.(?:device_)?span\("([^"]+)"[,)]',
                         fh.read()))
     assert opened == set(telemetry.SPANS)
-    assert len(telemetry.SPANS) == len(set(telemetry.SPANS)) == 15
+    assert len(telemetry.SPANS) == len(set(telemetry.SPANS)) == 17
     assert {"graphormer.bias", "graphormer.attention",
-            "graphormer.bias_grad", "gps.message"} <= set(telemetry.SPANS)
+            "graphormer.bias_grad", "gps.message", "egt.attention",
+            "egt.pair"} <= set(telemetry.SPANS)
 
 
 class _FakeEvent:
