@@ -248,7 +248,15 @@ Phases (any failure raises and the script exits non-zero):
    launches of one training and one grad-free call, then both times
    beside their byte bounds, the plain versions' and the explicit path's,
    which is the library's column (alone: ``python3 -c "import torch,
-   chip_smoke as c; c.gated_message_phase(torch, c.DeviceTimer(torch))"``).
+   chip_smoke as c; c.gated_message_phase(torch, c.DeviceTimer(torch))"``);
+23. EGT's gated attention kernels (``csrc/gated_attention.cu``) at the
+   ``egt_110m.train`` cell's shape (B=128, H=32, N=84, d=24, dropout 0.3,
+   4 virtual nodes, E and G in the pair stream's ``[B, N, N, H]`` layout):
+   forward, backward and the grad-free forward against their plain twins
+   and a second launch, the launches of one training and one grad-free
+   call, then their times beside their bounds, the plain twins' and the
+   explicit path's (alone: ``python3 -c "import torch, chip_smoke as c;
+   c.gated_attention_phase(torch, c.DeviceTimer(torch))"``).
 
 Kernel times come from CUDA events around back-to-back launches queued
 behind a device-side sleep, so the host's launch cost is not in them.
@@ -265,8 +273,9 @@ row's ``mesh_launches``, its launches on each rank of phase 18's (b); the
 three rows of phase 19, ``biased_attention_fwd``, ``_bwd`` and ``_eval``,
 the two of phase 20, ``structural_bias_fwd`` and ``_bwd``, and the three
 of phase 21, ``biased_attention_fwd_unbiased``, ``_bwd_unbiased`` and
-``_eval_unbiased``, with their ``launches``, and the two of phase 22,
-``gated_message_fwd`` and ``_bwd``), then
+``_eval_unbiased``, with their ``launches``, the two of phase 22,
+``gated_message_fwd`` and ``_bwd``, and the three of phase 23,
+``gated_attention_fwd``, ``_bwd`` and ``_eval``), then
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2953,6 +2962,167 @@ def gated_message_phase(torch, timer, seed=0):
     return rows
 
 
+def gated_attention_bytes(b, h, n, d, backward=False, keep=True,
+                          stats=True):
+    """Bytes the gated attention kernels must move, each tensor once:
+    forward, q, k, v, E and G read, out and H^ written (bf16), the keep-mask
+    and the key mask read, the two f32 row statistics written; backward,
+    q, k, v, out, dO, E, G and dH^ read, dq, dk, dv, dE and dG written, the
+    masks and the statistics read."""
+    rows, square = n * h * d * 2, h * n * n * 2
+    per = (8 * rows + 5 * square) if backward else (4 * rows + 3 * square)
+    per += n + (h * n * n if keep else 0)
+    per += 2 * h * n * 4 if stats or backward else 0
+    return b * per
+
+
+def gated_attention_phase(torch, timer, seed=0):
+    """Phase 23: EGT's gated attention kernels (``csrc/gated_attention.cu``)
+    at the ``egt_110m.train`` cell's shape (B=128, H=32, N=84, d=24,
+    attention dropout 0.3, 4 virtual nodes; q, k, v the transposed ``[B,
+    N, H, d]`` views the layer passes, E, G and dH^ the permuted views of
+    ``[B, N, N, H]`` tensors), molecules of 1 to 80 atoms behind the 4
+    virtual nodes and one padded row with none: forward (with the keep-mask
+    and the statistics), backward and the grad-free forward against their
+    plain twins (within 1e-2 of each bf16 output's largest magnitude, 1e-5
+    for lse and the gate sums) and against a second launch (the same
+    bits); the launches of one training and one grad-free call through
+    ``gated_attention`` (two forward, one backward, both counted under
+    ``kernel``); then their times beside their bounds (bytes at 3.35 TB/s
+    against operations at 989 TFLOP/s), the plain twins' and the explicit
+    path's (``GatedAttention``: its forward, and its backward through
+    autograd as the difference of forward and backward against the
+    forward alone).  Returns the three kernel rows."""
+    from mgat_graphsage_torch.ops import biased_attention as ba
+
+    dev = torch.device("cuda")
+    b, h, n, d, p, fixed = 128, 32, 84, 24, 0.3, 4
+    gen = torch.Generator(dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, n, h, d, device=dev, generator=gen)
+               .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    bias, gate, ghh = (torch.randn(b, n, n, h, device=dev, generator=gen)
+                       .to(torch.bfloat16).permute(0, 3, 1, 2)
+                       for _ in range(3))
+    sizes = fixed + torch.randint(1, n - fixed + 1, (b,), device=dev,
+                                  generator=gen)
+    sizes[-1] = 0
+    key_mask = torch.arange(n, device=dev)[None, :] < sizes[:, None]
+    keep = torch.rand(b, h, n, n, device=dev, generator=gen) >= p
+    g = torch.randn(b, h, n, d, device=dev, generator=gen).to(torch.bfloat16)
+    scale, real = d ** -0.5, sizes > 0
+    kw = dict(p=p, scale=scale, fixed=fixed)
+
+    def err(got, want):
+        got, want = got.double(), want.double()
+        return float((got - want).abs().max() / want.abs().max())
+
+    runs = []
+    for _ in range(2):
+        fwd = ba.gated_attention_cuda(q, k, v, bias, gate, key_mask, keep,
+                                      stats=True, **kw)
+        runs.append(fwd + ba.gated_attention_bwd_cuda(
+            q, k, v, fwd[0], g, ghh, bias, gate, key_mask, fwd[2], fwd[3],
+            keep, **kw) + ba.gated_attention_cuda(
+                q, k, v, bias, gate, key_mask, fixed=fixed, scale=scale)[:2])
+    out, hh, lse, gsum = runs[0][:4]
+    want = ba.gated_attention_fwd_plain(q, k, v, bias, gate, key_mask, keep,
+                                        **kw)
+    want_g = ba.gated_attention_bwd_plain(q, k, v, out, g, ghh, bias, gate,
+                                          key_mask, lse, gsum, keep, **kw)
+    want_ev = ba.gated_attention_fwd_plain(q, k, v, bias, gate, key_mask,
+                                           fixed=fixed, scale=scale)[:2]
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert torch.equal(a, c), "gated attention kernels not repeatable"
+    errs = {"out": err(out, want[0]), "hh": err(hh, want[1]),
+            "lse": err(lse[real], want[2][real]), "gsum": err(gsum, want[3]),
+            "eval_out": err(runs[0][9], want_ev[0]),
+            "eval_hh": err(runs[0][10], want_ev[1])}
+    errs.update((nm, err(a, w)) for nm, a, w in
+                zip(("dq", "dk", "dv", "dE", "dG"), runs[0][4:9], want_g))
+    for nm, e in errs.items():
+        limit = 1e-5 if nm in ("lse", "gsum") else 1e-2
+        assert e <= limit, (nm, e, limit)
+    assert (out[~real] == 0).all() and torch.isinf(lse[~real]).all()
+    del want, want_g, want_ev, runs
+
+    before = ba.gated_counts()
+    fwd0, bwd0 = (ba.gated_attention_cuda.launches,
+                  ba.gated_attention_bwd_cuda.launches)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v, bias, gate)]
+    o, hh2 = ba.gated_attention(*leaves, key_mask, keep, **kw)
+    torch.autograd.backward((o, hh2), (g, ghh))
+    with torch.no_grad():
+        ba.gated_attention(q, k, v, bias, gate, key_mask, fixed=fixed)
+    torch.cuda.synchronize()
+    after = ba.gated_counts()
+    launches = {"fwd": ba.gated_attention_cuda.launches - fwd0,
+                "bwd": ba.gated_attention_bwd_cuda.launches - bwd0,
+                **{c: after[c] - before[c] for c in ("kernel", "explicit")}}
+    assert launches == {"fwd": 2, "bwd": 1, "kernel": 2, "explicit": 0}, \
+        launches
+    del leaves, o, hh2
+
+    def explicit(backward):
+        leaves = [t.detach().requires_grad_(backward)
+                  for t in (q, k, v, bias, gate)]
+        o, hh = ba.GatedAttention.apply(*leaves, key_mask, keep, p, scale,
+                                        5.0, fixed)
+        if backward:
+            torch.autograd.backward((o, hh), (g, ghh.float()))
+
+    fwd_ms = timer(lambda: ba.gated_attention_cuda(
+        q, k, v, bias, gate, key_mask, keep, stats=True, **kw), iters=50)
+    bwd_ms = timer(lambda: ba.gated_attention_bwd_cuda(
+        q, k, v, out, g, ghh, bias, gate, key_mask, lse, gsum, keep, **kw),
+        iters=50)
+    ev_ms = timer(lambda: ba.gated_attention_cuda(
+        q, k, v, bias, gate, key_mask, fixed=fixed, scale=scale), iters=50)
+    plain_fwd_ms = timer(lambda: ba.gated_attention_fwd_plain(
+        q, k, v, bias, gate, key_mask, keep, **kw), iters=10)
+    plain_bwd_ms = timer(lambda: ba.gated_attention_bwd_plain(
+        q, k, v, out, g, ghh, bias, gate, key_mask, lse, gsum, keep, **kw),
+        iters=10)
+    plain_ev_ms = timer(lambda: ba.gated_attention_fwd_plain(
+        q, k, v, bias, gate, key_mask, fixed=fixed, scale=scale), iters=10)
+    with torch.no_grad():
+        exp_fwd_ms = timer(lambda: explicit(False), iters=10)
+        exp_ev_ms = timer(lambda: ba.GatedAttention.apply(
+            q, k, v, bias, gate, key_mask, None, 0.0, scale, 5.0, fixed),
+            iters=10)
+    exp_both_ms = timer(lambda: explicit(True), iters=10)
+    flops = 4 * n * n * h * d * b
+    rows = []
+    for name, ms, nbytes, ops, plain_ms, exp_ms in (
+            ("gated_attention_fwd", fwd_ms,
+             gated_attention_bytes(b, h, n, d), flops, plain_fwd_ms,
+             exp_fwd_ms),
+            ("gated_attention_bwd", bwd_ms,
+             gated_attention_bytes(b, h, n, d, backward=True), 2 * flops,
+             plain_bwd_ms, exp_both_ms - exp_fwd_ms),
+            ("gated_attention_eval", ev_ms,
+             gated_attention_bytes(b, h, n, d, keep=False, stats=False),
+             flops, plain_ev_ms, exp_ev_ms)):
+        bnd = bound(nbytes, ops, BF16_FLOPS_PER_S)
+        rows.append({"name": name, "route": "cuda", "dtype": "bfloat16",
+                     "source": "mgat_graphsage_torch/csrc/gated_attention.cu",
+                     "replaces": None, "shape": [b, h, n, d],
+                     "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "bound_share": bnd[0] / ms,
+                     "bytes_per_s": nbytes / ms * 1e3,
+                     "plain_ms": plain_ms, "explicit_ms": exp_ms,
+                     "library_ms": exp_ms, "launches": launches})
+        log(f"[23] {name}: {ms:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}, share {bnd[0] / ms:.3f}, "
+            f"{nbytes / ms / 1e6:.0f} GB/s); plain {plain_ms:.3f} ms, "
+            f"explicit {exp_ms:.3f} ms")
+    log("[23] both kernels repeat bit for bit; errors against the plain "
+        "twins (of the largest): "
+        + ", ".join(f"{nm} {e:.2e}" for nm, e in errs.items())
+        + f"; one training and one grad-free call: {launches}")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3023,7 +3193,9 @@ def main(argv=None) -> int:
     gxx = threading.Thread(target=build_native)
     t0 = time.perf_counter()
     gxx.start()
-    libs = _build.build_all()
+    libs = _build.build_all(
+        [*(n for n in _build.KERNELS if n not in _build.VARIANTS),
+         ("gated_attention", (6, 3))])   # egt_110m.train's tile shape
     nvcc_s = time.perf_counter() - t0
     gxx.join()
     if isinstance(native_build[0], Exception):
@@ -3566,6 +3738,9 @@ def main(argv=None) -> int:
 
     # ---- 22. GraphGPS's gated message passing kernels ----------------------
     graphormer_rows += gated_message_phase(torch, timer, args.seed)
+
+    # ---- 23. EGT's gated attention kernels ---------------------------------
+    graphormer_rows += gated_attention_phase(torch, timer, args.seed)
 
     train_counts = runs[True]["counts"]
     kernels = [

@@ -10,11 +10,14 @@ own into ``csrc/build/<name>-<hash>.so`` (git-ignored), at first use:
 The hash covers the source, every local header it includes (a quoted
 ``#include`` of a file in ``csrc/``, such as ``attention_common.cuh``,
 followed recursively) and the flags, so an edited source or header
-rebuilds.
+rebuilds.  A source of :data:`VARIANTS` (``csrc/gated_attention.cu``) is
+built into one library per variant, its ``-D`` macros among the flags
+(and so in the hash), so a process compiles only what it launches.
 Nothing is built when a module is imported: the wrappers in
 ``ops/adjacency.py``, ``ops/attention.py``, ``ops/cnn.py``,
-``ops/biased_attention.py``, ``ops/structural_bias.py`` and
-``ops/gated_message.py`` call :func:`load` when they first launch on a
+``ops/biased_attention.py`` (the biased and the gated attention),
+``ops/structural_bias.py`` and ``ops/gated_message.py`` call
+:func:`load` when they first launch on a
 CUDA tensor.  :func:`build_all` starts one ``nvcc`` per
 source at once, for callers that want every kernel ready up front.
 ``nvcc`` is found through ``$CUDA_HOME``, then ``$PATH``, then the
@@ -36,9 +39,10 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional, Tuple
 
-__all__ = ["KERNELS", "ENTRIES", "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "BUILD_LOGS",
+__all__ = ["KERNELS", "ENTRIES", "VARIANTS", "BUILD_DIR", "CSRC_DIR",
+           "NVCC_FLAGS", "BUILD_LOGS",
            "load", "build_all", "library_path", "local_sources",
            "ptxas_report", "hashed_path", "start_build", "finish_build"]
 
@@ -69,6 +73,9 @@ KERNELS: Dict[str, tuple] = {
                         [_P] * 6 + [_I] * 5 + [_P]),
     "gated_message": ("gated_message_fwd_launch",
                       [_P] * 8 + [_I] * 5 + [_P]),
+    "gated_attention": ("gated_attention_fwd_launch",
+                        [_P] * 11 + [_I] * 4 + [_L] * 3 + [_F] * 3
+                        + [_I, _P]),
 }
 # further entry points of a source (bf16 variants, a backward): symbol ->
 # argtypes
@@ -83,10 +90,21 @@ ENTRIES: Dict[str, list] = {
     "structural_bias_bwd_launch": [_P] * 7 + [_I] * 6 + [_P],
     # the backward of csrc/gated_message.cu
     "gated_message_bwd_launch": [_P] * 12 + [_I] * 5 + [_P],
+    # the backward of csrc/gated_attention.cu
+    "gated_attention_bwd_launch": [_P] * 17 + [_I] * 4 + [_L] * 9
+    + [_F] * 3 + [_I, _P],
 }
 
-_loaded: Dict[str, object] = {}
-BUILD_LOGS: Dict[str, str] = {}    # kernel source -> nvcc output of its build
+# sources built as one library per variant, each the instantiation its
+# -D macros name: source -> macro names.  csrc/gated_attention.cu's tile
+# shapes (KT, d / 8) take ~10 s each to compile, so a process builds only
+# the shapes it launches, and every caller names the variant.
+VARIANTS: Dict[str, Tuple[str, ...]] = {
+    "gated_attention": ("GATED_KT", "GATED_D8"),
+}
+
+_loaded: Dict[tuple, object] = {}
+BUILD_LOGS: Dict[str, str] = {}    # kernel source -> nvcc output of its builds
 
 
 def _nvcc() -> str:
@@ -134,8 +152,21 @@ def hashed_path(stem: str, sources: Iterable[str], flags: Iterable[str]
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:12]}.so")
 
 
-def library_path(name: str) -> str:
-    return hashed_path(name, local_sources(name), NVCC_FLAGS)
+def _flags(name: str, variant: Optional[Tuple[int, ...]]) -> List[str]:
+    """nvcc's flags for ``name``: :data:`NVCC_FLAGS`, and for a source of
+    :data:`VARIANTS` the -D macros of ``variant``, which it requires."""
+    if name not in VARIANTS:
+        return list(NVCC_FLAGS)
+    macros = VARIANTS[name]
+    if variant is None or len(variant) != len(macros):
+        raise ValueError(f"csrc/{name}.cu is built one variant at a time: "
+                         f"give values of {', '.join(macros)}")
+    return NVCC_FLAGS + [f"-D{m}={v}" for m, v in zip(macros, variant)]
+
+
+def library_path(name: str, variant: Optional[Tuple[int, ...]] = None
+                 ) -> str:
+    return hashed_path(name, local_sources(name), _flags(name, variant))
 
 
 def start_build(cmd: List[str], out: str):
@@ -168,23 +199,29 @@ def finish_build(job, what: str) -> str:
     return log
 
 
-def _start(name: str):
-    """Start nvcc for ``name`` unless its library exists."""
-    return start_build([_nvcc(), *NVCC_FLAGS,
+def _start(name: str, variant: Optional[Tuple[int, ...]] = None):
+    """Start nvcc for ``name`` (``variant`` of it) unless its library
+    exists."""
+    return start_build([_nvcc(), *_flags(name, variant),
                         os.path.join(CSRC_DIR, name + ".cu")],
-                       library_path(name))
+                       library_path(name, variant))
 
 
 def _finish(name: str, job) -> None:
     if job is not None:
-        BUILD_LOGS[name] = finish_build(job, f"nvcc building csrc/{name}.cu")
+        log = finish_build(job, f"nvcc building csrc/{name}.cu")
+        BUILD_LOGS[name] = BUILD_LOGS.get(name, "") + log
 
 
-def build_all(names: Iterable[str] = tuple(KERNELS)) -> List[str]:
-    """Build every missing library with one ``nvcc`` per source, all
-    started together; return the library paths."""
-    names = list(names)
-    jobs = [(n, _start(n)) for n in names]
+def build_all(names: Iterable = tuple(n for n in KERNELS
+                                     if n not in VARIANTS)) -> List[str]:
+    """Build every missing library with one ``nvcc`` each, all started
+    together; return the library paths.  An entry of ``names`` is a
+    source's name, or for a source of :data:`VARIANTS` a ``(name,
+    variant)`` pair; by default every source but those."""
+    items = [(n, None) if isinstance(n, str) else (n[0], tuple(n[1]))
+             for n in names]
+    jobs = [(n, _start(n, v)) for n, v in items]
     errors = []
     for n, job in jobs:
         try:
@@ -193,22 +230,25 @@ def build_all(names: Iterable[str] = tuple(KERNELS)) -> List[str]:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
-    return [library_path(n) for n in names]
+    return [library_path(n, v) for n, v in items]
 
 
-def load(name: str, symbol: str = ""):
-    """The ctypes entry point of kernel source ``name``, built if needed:
-    its first (``KERNELS``), or ``symbol`` (one of ``ENTRIES``)."""
+def load(name: str, symbol: str = "",
+         variant: Optional[Tuple[int, ...]] = None):
+    """The ctypes entry point of kernel source ``name`` (``variant`` of a
+    source of :data:`VARIANTS`), built if needed: its first
+    (``KERNELS``), or ``symbol`` (one of ``ENTRIES``)."""
     symbol = symbol or KERNELS[name][0]
-    fn = _loaded.get(symbol)
+    key = (symbol, None if variant is None else tuple(variant))
+    fn = _loaded.get(key)
     if fn is None:
-        _finish(name, _start(name))
-        lib = ctypes.CDLL(library_path(name))
+        _finish(name, _start(name, variant))
+        lib = ctypes.CDLL(library_path(name, variant))
         fn = getattr(lib, symbol)
         fn.argtypes = KERNELS[name][1] if symbol == KERNELS[name][0] \
             else ENTRIES[symbol]
         fn.restype = ctypes.c_int
-        _loaded[symbol] = fn
+        _loaded[key] = fn
     return fn
 
 
@@ -237,7 +277,7 @@ def _demangle(symbol: str) -> str:
 
 def ptxas_report(name: str) -> List[str]:
     """``"<kernel>: <n> registers, <s> bytes spilled"`` for each kernel
-    (template instantiations included) in the build log of ``name``;
+    (template instantiations included) in the build logs of ``name``;
     empty if this process did not build it."""
     out, kernel, spill = [], None, 0
     for line in BUILD_LOGS.get(name, "").splitlines():

@@ -55,16 +55,37 @@ virtual nodes first::
     s  = ln(1 + sum_j sigmoid(G)), masked keys 0; 1 on the first V rows
     out = s * dropout(A) v ;  returns (out, H^)
 
-``H^`` (f32, every slot's) is the layer's pair update's input, and its
-gradient comes back into the op's backward.  One path computes it,
-:class:`GatedAttention`, in plain torch ops on every device: the logits,
-the clip, the softmax, the gate and the scaler in f32, the products in
-the inputs' dtype with f32 sums; its forward saves the f32 probabilities
-and gates.  Each forward and backward is an ``egt.attention`` device
-span; :func:`gated_counts` counts the calls by path (``explicit``), the
-real pairs of keys (``pairs``, of the valid keys of each row, summed on
-the device and read only there) and the ``[B, N, N]`` slots they ran over
-(``pair_slots``).
+``H^`` (every slot's) is the layer's pair update's input, and its
+gradient comes back into the op's backward.  Two paths compute it, on
+separate code from the biased attention's:
+
+- the kernel (``csrc/gated_attention.cu``), on CUDA for the shapes
+  :func:`gated_kernels_support` takes (bf16, ``N <= 128``, ``d`` in
+  :data:`HEAD_DIMS` but 32 past ``N = 96``, heads a multiple of 8): one
+  launch a layer forward (:func:`gated_attention_cuda`) and one backward
+  (:func:`gated_attention_bwd_cuda`), joined by
+  :class:`GatedAttentionKernel`.  ``E``, ``G``, ``H^`` and their
+  gradients are read and written in the pair stream's own ``[B, N, N,
+  H]`` layout, bf16 (the ``[B, H, N, N]`` tensors are its permuted
+  views); the logits, the clip, the softmax, the gates and the scaler
+  stay on chip in f32, and the forward saves two f32 row statistics (the
+  log-sum-exp and the gate sum), from which the backward recomputes the
+  rest.  A call that needs no gradient runs the forward alone, without
+  the statistics;
+- :class:`GatedAttention`, the explicit path in plain torch ops, on the
+  CPU and past the kernel's limits: the logits, the clip, the softmax,
+  the gate and the scaler in f32, the products in the inputs' dtype with
+  f32 sums, ``H^`` returned in f32; its forward saves the f32
+  probabilities and gates.
+
+:func:`gated_attention_fwd_plain` and :func:`gated_attention_bwd_plain`
+are the kernel's own algorithm in plain torch, rounding where it rounds;
+the kernel wrappers return them for CPU tensors.  Each forward and
+backward is an ``egt.attention`` device span; :func:`gated_counts`
+counts the calls by path (``explicit``, ``kernel``), the real pairs of
+keys (``pairs``, of the valid keys of each row, summed on the device and
+read only there) and the ``[B, N, N]`` slots they ran over
+(``pair_slots``); the kernels' launches on their wrappers.
 """
 
 from __future__ import annotations
@@ -82,14 +103,19 @@ __all__ = ["BiasedAttention", "BiasedAttentionKernel", "biased_attention",
            "biased_attention_cuda", "biased_attention_bwd_cuda",
            "biased_attention_fwd_plain", "biased_attention_bwd_plain",
            "biased_attention_sdpa", "kernels_support", "counts", "MAX_N",
-           "HEAD_DIMS", "GatedAttention", "gated_attention", "gated_counts"]
+           "HEAD_DIMS", "GatedAttention", "GatedAttentionKernel",
+           "gated_attention", "gated_attention_cuda",
+           "gated_attention_bwd_cuda", "gated_attention_fwd_plain",
+           "gated_attention_bwd_plain", "gated_kernels_support",
+           "gated_counts"]
 
 MAX_N = 128                 # keys (and rows) of a block: csrc KT <= 8
 HEAD_DIMS = (8, 16, 24, 32)  # csrc D8 = d / 8 in 1..4
 
 _count_lock = threading.Lock()
 _COUNTS = {"explicit": 0, "kernel": 0, "unbiased": 0}
-_GATED = {"explicit": 0, "pair_slots": 0}
+_GATED = {"explicit": 0, "kernel": 0, "pair_slots": 0}
+GATED_HEADS = 8             # heads a block of csrc/gated_attention.cu
 _PAIRS: Dict[torch.device, torch.Tensor] = {}   # device -> int64 sum
 
 
@@ -434,9 +460,9 @@ def biased_attention(q, k, v, bias, key_mask,
 # ---- EGT's gated attention --------------------------------------------------
 
 def gated_counts() -> Dict[str, int]:
-    """The process's gated attention calls by path (``explicit``), the
-    real pairs they ran over (``pairs``: valid query and key) and their
-    ``[B, N, N]`` slots (``pair_slots``)."""
+    """The process's gated attention calls by path (``explicit``,
+    ``kernel``), the real pairs they ran over (``pairs``: valid query and
+    key) and their ``[B, N, N]`` slots (``pair_slots``)."""
     with _count_lock:
         out = dict(_GATED)
         pairs = list(_PAIRS.values())
@@ -514,13 +540,324 @@ class GatedAttention(torch.autograd.Function):
                 None, None, None, None, None, None)
 
 
+def gated_kernels_support(n: int, heads: int, d: int,
+                          dtype: torch.dtype) -> bool:
+    """True if the gated attention kernels take ``[B, heads, n, d]``
+    inputs of ``dtype``: bf16, ``1 <= n <= 128``, ``d`` in
+    :data:`HEAD_DIMS` (but 32 past ``n = 96``, where ``k`` and ``v`` of a
+    block's 8 heads alone fill its shared memory) and ``heads`` a multiple
+    of :data:`GATED_HEADS`."""
+    return dtype == torch.bfloat16 and 1 <= n <= MAX_N \
+        and d in HEAD_DIMS and not (d == 32 and n > 96) \
+        and heads > 0 and heads % GATED_HEADS == 0
+
+
+# ---- the gated kernels' algorithm in plain torch ----------------------------
+
+def _gated_parts(q, k, bias, gate, key_mask, scale, clip, ct):
+    """The logits ``s``, ``H^`` (f32 or f64) and the masked gates."""
+    s = torch.matmul(q.to(ct), k.to(ct).transpose(-1, -2)) * scale
+    hh = s.clamp(-clip, clip) + bias.to(ct)
+    km = key_mask[:, None, None, :]
+    gt = torch.sigmoid(gate.to(ct)).masked_fill(~km, 0.0)
+    return s, hh, gt
+
+
+def _scaler(gsum, fixed):
+    sc = torch.log1p(gsum)
+    sc[:, :, :fixed] = 1.0
+    return sc
+
+
+def gated_attention_fwd_plain(q, k, v, bias, gate, key_mask,
+                              keep: Optional[torch.Tensor] = None,
+                              p: float = 0.0, scale: Optional[float] = None,
+                              clip: float = 5.0, fixed: int = 0):
+    """The forward kernel's algorithm: ``(out, H^, lse, gsum)``, ``out``
+    in the inputs' dtype, ``H^`` in the bias's, ``lse`` and the gate sum
+    ``gsum [B, H, N]`` (``lse`` +inf for a row with no valid key, whose
+    ``out`` is 0).  Computed in f32 (f64 for f64 inputs); the gated,
+    dropped probabilities are rounded to the inputs' dtype before ``P v``,
+    and the output once, after the scaler, as the kernel rounds them."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    ct, dt = torch.promote_types(q.dtype, torch.float32), q.dtype
+    _, hh, gt = _gated_parts(q, k, bias, gate, key_mask, scale, clip, ct)
+    x = hh.masked_fill(~key_mask[:, None, None, :], float("-inf"))
+    m = x.amax(dim=-1, keepdim=True)
+    m = m.masked_fill(m == float("-inf"), 0.0)
+    e = torch.exp(x - m)
+    total = e.sum(dim=-1, keepdim=True)
+    inv = torch.where(total > 0, 1.0 / total, torch.zeros_like(total))
+    pd = e * inv * gt * _keep_scale(keep, p, ct)
+    gsum = gt.sum(-1)
+    o = torch.matmul(pd.to(dt).to(ct), v.to(ct))
+    out = (o * _scaler(gsum, fixed).unsqueeze(-1)).to(dt)
+    lse = torch.where(total > 0, m + torch.log(total),
+                      torch.full_like(total, float("inf")))
+    return out, hh.to(bias.dtype), lse.squeeze(-1), gsum
+
+
+def gated_attention_bwd_plain(q, k, v, out, g, g_hh, bias, gate, key_mask,
+                              lse, gsum, keep: Optional[torch.Tensor] = None,
+                              p: float = 0.0, scale: Optional[float] = None,
+                              clip: float = 5.0, fixed: int = 0):
+    """The backward kernel's algorithm: ``(dq, dk, dv, dE, dG)`` from the
+    forward's inputs, its ``out``, ``lse`` and ``gsum``, the output's
+    gradient ``g`` and ``H^``'s ``g_hh`` (or None): the probabilities
+    recomputed from ``lse``; ``do = sc g`` rounded to the inputs' dtype;
+    one row sum ``D = rowsum(g * out)``, which is both the softmax's
+    ``sum_j dA_j A_j`` and ``sc`` times the scaler's gradient;
+    ``dE = A (dP G - D) + g_hh`` and ``dG = (dP A + dsc / (1 + gsum)) g (1
+    - g)`` on every slot; ``dS`` (scaled, 0 outside the clip) and the
+    dropped probabilities rounded to the inputs' dtype before their
+    products."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    ct, dt = torch.promote_types(q.dtype, torch.float32), q.dtype
+    s, hh, gt = _gated_parts(q, k, bias, gate, key_mask, scale, clip, ct)
+    a = torch.exp(hh - lse.to(ct).unsqueeze(-1)).masked_fill(
+        ~key_mask[:, None, None, :], 0.0)
+    gsum = gsum.to(ct)
+    sc = _scaler(gsum, fixed)
+    gc = g.to(ct)
+    dsum = (gc * out.to(ct)).sum(-1)
+    dsc = torch.where(sc > 0, dsum / (sc * (1.0 + gsum)),
+                      torch.zeros_like(dsum))
+    dsc[:, :, :fixed] = 0.0
+    do = (gc * sc.unsqueeze(-1)).to(dt).to(ct)
+    dam = torch.matmul(do, v.to(ct).transpose(-1, -2)) \
+        * _keep_scale(keep, p, ct)
+    dhh = a * (dam * gt - dsum.unsqueeze(-1))
+    if g_hh is not None:
+        dhh = dhh + g_hh.to(ct)
+    dgate = (dam * a + dsc.unsqueeze(-1)) * gt * (1.0 - gt)
+    inside = (s >= -clip) & (s <= clip)
+    ds = (torch.where(inside, dhh, 0.0) * scale).to(dt).to(ct)
+    pd = (a * gt * _keep_scale(keep, p, ct)).to(dt).to(ct)
+    dq = torch.matmul(ds, k.to(ct)).to(dt)
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(ct)).to(dt)
+    dv = torch.matmul(pd.transpose(-1, -2), do).to(dt)
+    return dq, dk, dv, dhh.to(bias.dtype), dgate.to(gate.dtype)
+
+
+# ---- the gated kernels ------------------------------------------------------
+
+def _pairs(t: torch.Tensor) -> torch.Tensor:
+    """A ``[B, N, N, H]`` pair tensor (or a keep-mask) as the kernels read
+    it: contiguous and 16-byte aligned (``t`` itself where it is, as the
+    pair Linears' output and its gradient are)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _gated_check(name, q, k, v, bias, gate, key_mask, keep) -> None:
+    ts = [t for t in (q, k, v, bias, gate, key_mask, keep) if t is not None]
+    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device, "
+                         f"got {[str(t.device) for t in ts]}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q, k, v must share a [B, H, N, d] "
+                         f"shape, got {[tuple(t.shape) for t in (q, k, v)]}")
+    b, h, n, d = q.shape
+    if not gated_kernels_support(n, h, d, q.dtype) or any(
+            t.dtype != torch.bfloat16 for t in (k, v, bias, gate)):
+        raise ValueError(f"{name} takes bf16 q, k, v, bias and gate with "
+                         f"N <= {MAX_N}, d in {HEAD_DIMS} and heads a "
+                         f"multiple of {GATED_HEADS}, got N={n}, d={d}, "
+                         f"H={h}, {[t.dtype for t in (q, k, v, bias, gate)]}"
+                         "; gate with gated_kernels_support")
+    for nm, t in (("bias", bias), ("gate", gate)):
+        if tuple(t.shape) != (b, h, n, n):
+            raise ValueError(f"{name}: {nm} must be [B, H, N, N], got "
+                             f"{tuple(t.shape)}")
+    if key_mask.dtype != torch.bool or tuple(key_mask.shape) != (b, n):
+        raise ValueError(f"{name}: key_mask must be bool [B, N], got "
+                         f"{key_mask.dtype} {tuple(key_mask.shape)}")
+    if keep is not None and (keep.dtype != torch.bool
+                             or tuple(keep.shape) != (b, h, n, n)):
+        raise ValueError(f"{name}: keep must be bool [B, H, N, N], got "
+                         f"{keep.dtype} {tuple(keep.shape)}")
+
+
+def _variant(n: int, d: int):
+    """The library of ``csrc/gated_attention.cu`` for N and d: its tile
+    shape (KT = 2 ceil(N / 32) tiles of 16, d / 8)."""
+    return 2 * (-(-n // 32)), d // 8
+
+
+def _qkv(q, k, v):
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    if not (q.stride() == k.stride() == v.stride()):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return q, k, v
+
+
+def gated_attention_cuda(q, k, v, bias, gate, key_mask,
+                         keep: Optional[torch.Tensor] = None, p: float = 0.0,
+                         scale: Optional[float] = None, clip: float = 5.0,
+                         fixed: int = 0, stats: bool = False):
+    """Forward kernel: ``(out, H^, lse, gsum)``, ``out [B, H, N, d]`` bf16
+    (the transpose of a ``[B, N, H, d]`` buffer), ``H^ [B, H, N, N]`` bf16
+    (the permuted view of a ``[B, N, N, H]`` buffer) and, when ``stats``,
+    ``lse`` and ``gsum [B, H, N]`` f32, else None.  ``bias`` and ``gate``
+    are read in their ``[B, N, N, H]`` layout (no copy where they are its
+    views).  Records no gradient (:func:`gated_attention` does).  On a
+    CUDA tensor it launches the kernel (or raises); on a CPU tensor it
+    returns :func:`gated_attention_fwd_plain`."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        out, hh, lse, gsum = gated_attention_fwd_plain(
+            q, k, v, bias, gate, key_mask, keep, p, scale, clip, fixed)
+        return (out, hh) + ((lse, gsum) if stats else (None, None))
+    _gated_check("gated_attention_cuda", q, k, v, bias, gate, key_mask, keep)
+    from ._build import load
+
+    b, h, n, d = q.shape
+    q, k, v = _qkv(q, k, v)
+    e_pairs = _pairs(bias.permute(0, 2, 3, 1))
+    g_pairs = _pairs(gate.permute(0, 2, 3, 1))
+    key_mask = key_mask.contiguous()
+    keep = None if keep is None else _pairs(keep)
+    out = torch.empty(b, n, h, d, dtype=q.dtype, device=q.device)
+    hh = torch.empty(b, n, n, h, dtype=q.dtype, device=q.device)
+    lse, gsum = ((torch.empty(b, h, n, dtype=torch.float32, device=q.device)
+                  for _ in range(2)) if stats else (None, None))
+    with torch.cuda.device(q.device):
+        err = load("gated_attention", variant=_variant(n, d))(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), e_pairs.data_ptr(),
+            g_pairs.data_ptr(), key_mask.data_ptr(), _ptr(keep),
+            out.data_ptr(), hh.data_ptr(), _ptr(lse), _ptr(gsum), b, h, n, d,
+            *q.stride()[:3], scale, float(clip), _rscale(p), int(fixed),
+            _stream(q))
+    if err:
+        raise RuntimeError(f"gated_attention kernel launch failed: "
+                           f"cudaError {err}")
+    gated_attention_cuda.launches += 1
+    return out.transpose(1, 2), hh.permute(0, 3, 1, 2), lse, gsum
+
+
+gated_attention_cuda.launches = 0
+
+
+def gated_attention_bwd_cuda(q, k, v, out, g, g_hh, bias, gate, key_mask,
+                             lse, gsum, keep: Optional[torch.Tensor] = None,
+                             p: float = 0.0, scale: Optional[float] = None,
+                             clip: float = 5.0, fixed: int = 0):
+    """Backward kernel: ``(dq, dk, dv, dE, dG)`` for the output gradient
+    ``g`` and ``H^``'s gradient ``g_hh`` (or None, which is not read), the
+    first three bf16 ``[B, H, N, d]`` (transposes of ``[B, N, H, d]``
+    buffers), ``dE`` and ``dG`` bf16 ``[B, H, N, N]`` (permuted views of
+    ``[B, N, N, H]`` buffers); ``g_hh`` is read in that layout.  On a CUDA
+    tensor it launches the kernel (or raises); on a CPU tensor it returns
+    :func:`gated_attention_bwd_plain`."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return gated_attention_bwd_plain(q, k, v, out, g, g_hh, bias, gate,
+                                         key_mask, lse, gsum, keep, p, scale,
+                                         clip, fixed)
+    _gated_check("gated_attention_bwd_cuda", q, k, v, bias, gate, key_mask,
+                 keep)
+    if out.shape != q.shape or g.shape != q.shape \
+            or out.dtype != q.dtype or g.dtype != q.dtype:
+        raise ValueError("gated_attention_bwd_cuda: out and g must be "
+                         "q's shape and dtype")
+    if g_hh is not None and (g_hh.shape != bias.shape
+                             or g_hh.dtype != torch.bfloat16):
+        raise ValueError("gated_attention_bwd_cuda: g_hh must be bf16 "
+                         f"[B, H, N, N], got {g_hh.dtype} "
+                         f"{tuple(g_hh.shape)}")
+    from ._build import load
+
+    b, h, n, d = q.shape
+    q, k, v = _qkv(q, k, v)
+    out, g = _rows(out), _rows(g)
+    e_pairs = _pairs(bias.permute(0, 2, 3, 1))
+    g_pairs = _pairs(gate.permute(0, 2, 3, 1))
+    dh_pairs = None if g_hh is None else _pairs(g_hh.permute(0, 2, 3, 1))
+    key_mask = key_mask.contiguous()
+    keep = None if keep is None else _pairs(keep)
+    lse, gsum = lse.contiguous(), gsum.contiguous()
+    dq, dk, dv = (torch.empty(b, n, h, d, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    de, dg = (torch.empty(b, n, n, h, dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    with torch.cuda.device(q.device):
+        err = load("gated_attention", "gated_attention_bwd_launch",
+                   _variant(n, d))(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            g.data_ptr(), _ptr(dh_pairs), e_pairs.data_ptr(),
+            g_pairs.data_ptr(), key_mask.data_ptr(), _ptr(keep),
+            lse.data_ptr(), gsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), de.data_ptr(), dg.data_ptr(), b, h, n, d,
+            *q.stride()[:3], *out.stride()[:3], *g.stride()[:3], scale,
+            float(clip), _rscale(p), int(fixed), _stream(q))
+    if err:
+        raise RuntimeError(f"gated_attention_bwd kernel launch failed: "
+                           f"cudaError {err}")
+    gated_attention_bwd_cuda.launches += 1
+    return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+            de.permute(0, 3, 1, 2), dg.permute(0, 3, 1, 2))
+
+
+gated_attention_bwd_cuda.launches = 0
+
+
+class GatedAttentionKernel(torch.autograd.Function):
+    """The kernel path with its gradient: saves ``q``, ``k``, ``v``,
+    ``out``, ``E``, ``G``, the key mask, the keep-mask and the two row
+    statistics, nothing ``[B, H, N, N]`` in f32; forward and backward are
+    each an ``egt.attention`` device span."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, gate, key_mask,
+                keep: Optional[torch.Tensor], p: float, scale: float,
+                clip: float, fixed: int):
+        with telemetry.device_span("egt.attention", q.device):
+            out, hh, lse, gsum = gated_attention_cuda(
+                q, k, v, bias, gate, key_mask, keep, p, scale, clip, fixed,
+                stats=True)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, out, bias, gate, key_mask, keep, lse,
+                              gsum)
+        ctx.p, ctx.scale, ctx.clip, ctx.fixed = p, scale, clip, fixed
+        return out, hh
+
+    @staticmethod
+    def backward(ctx, g_out, g_hh):
+        q, k, v, out, bias, gate, key_mask, keep, lse, gsum = \
+            ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        with telemetry.device_span("egt.attention", q.device):
+            dq, dk, dv, dbias, dgate = gated_attention_bwd_cuda(
+                q, k, v, out, g_out.to(q.dtype), g_hh, bias, gate, key_mask,
+                lse, gsum, keep, ctx.p, ctx.scale, ctx.clip, ctx.fixed)
+        return (dq, dk, dv, dbias, dgate, None, None, None, None, None,
+                None)
+
+
 def gated_attention(q, k, v, bias, gate, key_mask,
                     keep: Optional[torch.Tensor] = None, p: float = 0.0,
                     scale: Optional[float] = None, clip: float = 5.0,
                     fixed: int = 0):
-    """``(out [B, H, N, d], H^ [B, H, N, N])``: :class:`GatedAttention`
-    (module docstring), counted in :func:`gated_counts`."""
+    """``(out [B, H, N, d], H^ [B, H, N, N])`` of the module docstring,
+    counted in :func:`gated_counts`.  On CUDA, where
+    :func:`gated_kernels_support` takes the shape and ``bias`` and
+    ``gate`` are bf16 too, the kernels (the backward where an input needs
+    a gradient, the forward alone where none does); else
+    :class:`GatedAttention`."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    b, h, n, d = q.shape
+    if q.is_cuda and gated_kernels_support(n, h, d, q.dtype) \
+            and bias.dtype == gate.dtype == torch.bfloat16:
+        _count_gated(key_mask, "kernel")
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v, bias, gate)):
+            return GatedAttentionKernel.apply(q, k, v, bias, gate, key_mask,
+                                              keep, p, scale, float(clip),
+                                              int(fixed))
+        with telemetry.device_span("egt.attention", q.device):
+            return gated_attention_cuda(q, k, v, bias, gate, key_mask, keep,
+                                        p, scale, clip, fixed)[:2]
     _count_gated(key_mask, "explicit")
     return GatedAttention.apply(q, k, v, bias, gate, key_mask, keep, p,
                                 scale, float(clip), fixed)

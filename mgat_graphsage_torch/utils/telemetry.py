@@ -312,6 +312,8 @@ def _launches() -> Dict[str, int]:
                       (cnn, "dy3_cuda"), (cnn, "cnn_chain_bwd_cuda"),
                       (biased_attention, "biased_attention_cuda"),
                       (biased_attention, "biased_attention_bwd_cuda"),
+                      (biased_attention, "gated_attention_cuda"),
+                      (biased_attention, "gated_attention_bwd_cuda"),
                       (structural_bias, "structural_bias_cuda"),
                       (structural_bias, "structural_bias_bwd_cuda"),
                       (gated_message, "gated_message_cuda"),

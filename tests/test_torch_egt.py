@@ -28,8 +28,9 @@ bit.
 On the card (marked ``card``; they skip without CUDA; this file imports
 no JAX, so ``python3 -m pytest --noconftest -q -m card
 tests/test_torch_egt.py``): the gated attention in bf16 at the cell's
-shape against f64, and a bf16 train step whose ``egt.attention`` and
-``egt.pair`` device spans land on the open unit.
+shape against f64 (through the kernels), bf16 train steps through the
+kernels that leave no tensor behind, and a bf16 train step whose
+``egt.attention`` and ``egt.pair`` device spans land on the open unit.
 """
 
 import numpy as np
@@ -358,12 +359,24 @@ def test_last_layer_has_no_pair_update(tiny):
     assert sum(p.numel() for p in full.parameters()) == 109831233
 
 
+def _tensors_alive_after_steps(model, args, steps=3):
+    """Live tensors after each of ``steps`` training steps of ``model``."""
+    import gc
+
+    alive = []
+    for step in range(steps):
+        gen = torch.Generator(args[0].device).manual_seed(step)
+        model(*args, gen).float().sum().backward()
+        gc.collect()
+        alive.append(sum(1 for o in gc.get_objects()
+                         if type(o) in (torch.Tensor, torch.nn.Parameter)))
+    return alive
+
+
 def test_a_step_leaves_no_tensor_behind():
     """Training steps of a small ``EGTNet`` leave as many tensors alive
     after each as after the first: the backward spans' hooks hold no
     tensor, so no step's graph outlives its backward."""
-    import gc
-
     from mgat_graphsage_torch.models.zoo import EGTNet
 
     torch.manual_seed(0)
@@ -375,12 +388,7 @@ def test_a_step_leaves_no_tensor_behind():
             torch.randint(-1, 5, (b, n, n), generator=g).to(torch.int8),
             torch.randint(0, 5, (b, n, n, 5), generator=g).to(torch.int8),
             torch.randn(b, n, 16, generator=g))
-    alive = []
-    for step in range(3):
-        model(*args, torch.Generator().manual_seed(step)).sum().backward()
-        gc.collect()
-        alive.append(sum(1 for o in gc.get_objects()
-                         if type(o) in (torch.Tensor, torch.nn.Parameter)))
+    alive = _tensors_alive_after_steps(model, args)
     assert alive[0] == alive[1] == alive[2]
 
 
@@ -512,6 +520,32 @@ def test_gated_attention_in_bf16_on_the_card(cuda):
     for i, (got, want) in enumerate(zip(*outs)):
         gap = _rel(got.cpu(), want)
         assert gap <= (2.0 ** -8 if i == 1 else 2.0 ** -6), (i, gap)
+
+
+@pytest.mark.card
+def test_a_card_step_leaves_no_tensor_behind(cuda):
+    """``test_a_step_leaves_no_tensor_behind`` on the card in bf16 with 8
+    heads, so that the attention runs the gated kernels: their
+    ``autograd.Function`` saves nothing that outlives a step."""
+    from mgat_graphsage_torch.models.zoo import EGTNet
+    from mgat_graphsage_torch.ops import biased_attention as ba
+
+    torch.manual_seed(0)
+    model = EGTNet(dim=64, pair_dim=16, layers=3, heads=8,
+                   ffn_dim=64).to(cuda, torch.bfloat16).train()
+    b, n = 3, 12
+    g = torch.Generator().manual_seed(1)
+    args = (torch.randn(b, n, 35, generator=g).to(cuda, torch.bfloat16),
+            torch.ones(b, n).to(cuda, torch.bfloat16),
+            torch.randint(-1, 5, (b, n, n), generator=g).to(cuda,
+                                                             torch.int8),
+            torch.randint(0, 5, (b, n, n, 5), generator=g).to(cuda,
+                                                               torch.int8),
+            torch.randn(b, n, 16, generator=g).to(cuda))
+    before = ba.gated_counts()["kernel"]
+    alive = _tensors_alive_after_steps(model, args)
+    assert ba.gated_counts()["kernel"] - before == 9
+    assert alive[0] == alive[1] == alive[2]
 
 
 @pytest.mark.card

@@ -358,7 +358,8 @@ def test_snapshot_reads_the_wrappers_launch_counters(monkeypatch):
             "structural_bias_cuda", "structural_bias_bwd_cuda",
             "gated_message_cuda", "gated_message_bwd_cuda",
             "gated_message_cuda_bf16",
-            "gated_message_bwd_cuda_bf16"} <= set(launches)
+            "gated_message_bwd_cuda_bf16", "gated_attention_cuda",
+            "gated_attention_bwd_cuda"} <= set(launches)
 
 
 @pytest.mark.parametrize("cpus", [1, 4])
